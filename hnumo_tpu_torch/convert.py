@@ -1,0 +1,57 @@
+"""Carry tables and state across from another implementation, via NumPy.
+
+`from_numpy_tables` takes the JAX package's `Precomputed`, `DeviceGeom` and
+`State` as NamedTuples (or plain tuples / dicts) of NumPy arrays — the
+caller does the `np.asarray`, so this package never sees a foreign array
+type — and returns the port's containers as tensors on one device. Fields
+are matched by name where names are given and by position otherwise; the
+two packages keep their fields in the same order.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.types import FaceDirGeom, Pair, Precomputed, State
+from .ops.dg import DeviceGeom
+
+
+def _fields(src, cls) -> dict:
+    """{field name: value} of `src` for the NamedTuple class `cls`."""
+    if isinstance(src, dict):
+        items = src
+    elif hasattr(src, "_asdict"):
+        items = src._asdict()
+    else:
+        if len(src) != len(cls._fields):
+            raise ValueError(
+                f"{cls.__name__} has {len(cls._fields)} fields, got {len(src)}")
+        items = dict(zip(cls._fields, src))
+    missing = [f for f in cls._fields if f not in items]
+    if missing:
+        raise ValueError(f"{cls.__name__}: missing fields {missing}")
+    return {f: items[f] for f in cls._fields}
+
+
+def from_numpy_tables(P_np, g_np, state_np, device, dtype: torch.dtype):
+    """Returns the port's (Precomputed, DeviceGeom, State) on `device`.
+
+    Floating arrays are cast to `dtype`; `State.ok` stays boolean."""
+    def cast(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def face_geom(src):
+        return FaceDirGeom(**{k: cast(v) for k, v in _fields(src, FaceDirGeom).items()})
+
+    pf = _fields(P_np, Precomputed)
+    faces = pf.pop("faces")
+    fx, fy = (faces["x"], faces["y"]) if isinstance(faces, dict) else (faces[0], faces[1])
+    P = Precomputed(**{k: cast(v) for k, v in pf.items()},
+                    faces=Pair(face_geom(fx), face_geom(fy)))
+    g = DeviceGeom(**{k: cast(v) for k, v in _fields(g_np, DeviceGeom).items()})
+    sf = _fields(state_np, State)
+    state = State(qb_df=cast(sf["qb_df"]), q_df=cast(sf["q_df"]),
+                  qprime_df=cast(sf["qprime_df"]), t=cast(sf["t"]),
+                  ok=torch.tensor(np.asarray(sf["ok"]), dtype=torch.bool,
+                                     device=device))
+    return P, g, state

@@ -1,0 +1,421 @@
+"""Barotropic solver: RHS stages + SSPRK sub-cycling with running averages.
+
+Counterpart of hnumo_tpu/core/btp.py for the path the JAX package takes
+above 1024 elements: one fused volume kernel per stage
+(ops/btp_volume) plus the flat-axis face path in plain PyTorch.
+Reference: src/mod_rhs_btp.F90 (create_rhs_btp, create_rhs_btp_volume_qdf,
+creat_btp_fluxes_qdf), src/mod_rk_mlswe.F90 (ti_barotropic_ssprk_mlswe),
+src/mod_barotropic_terms.F90 (btp_extract_df, btp_mom_boundary_df).
+
+This is the innermost hot loop (N_btp * kstages evaluations per dt). The
+sub-cycling is a Python loop; the 23 running averages are carried as five
+stacked accumulators. The volume/nodal accumulators are flat (C, E, m²)
+and updated IN PLACE by the volume stage (they are allocated inside
+barotropic_solve, so no caller's tensor is touched); the face and gradient
+accumulators are out-of-place adds.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from ..ops.btp_volume import (BtpVolOperators, btp_volume_cuda,
+                              btp_volume_plain, eflat, operators_from_tables)
+from ..ops.dg import DeviceGeom, grad_nodal, interp_n2q, scatter_volume, scatter_volume_nodal
+from .faces import (BCs, apply_wall_projection, extract_faces_multi,
+                    extract_faces_stacked, face_n2q, face_quad_scatter,
+                    scatter_face_x, scatter_face_y)
+from .types import BtpAverages, BtpFaceAvg, CouplingFields, Pair, Precomputed
+
+
+# stacked-accumulator channel orders (one tensor per family, so each stage
+# is a single add per family; the BtpAverages view is built once per solve)
+_VOL_ORDER = ("dH", "Qu", "Qv", "Quv", "mu", "mu2", "ub", "vb",
+              "mfU", "mfV", "tbU", "tbV")
+_NOD_ORDER = ("mu2_df", "ub_df", "vb_df")
+_FACE_ORDER = ("dH", "QuU", "QuV", "QvU", "QvV", "muL", "muR", "mu2L",
+               "mu2R", "fluxU", "fluxV", "mue2", "ubL", "ubR", "vbL", "vbR")
+
+
+def btp_extract_df(bc: BCs, qb_df: Tensor):
+    """Nodal face traces of the 4 barotropic variables with BC mirrors.
+
+    Reference btp_extract_df (src/mod_barotropic_terms.F90:25-97): pb and
+    pbpert copy across walls; (pbub, pbvb) get the free-slip/no-slip mirror.
+    Returns a list of 4 FaceLR.
+    """
+    return extract_faces_multi(qb_df, bc, vec_pairs=((2, 3),))
+
+
+def btp_volume_rhs(static, P: Precomputed, g: DeviceGeom, coup: CouplingFields,
+                   qb_df: Tensor, qpl_q: Tensor):
+    """Barotropic volume RHS + volume average increments, structured layout.
+
+    Reference create_rhs_btp_volume_qdf (src/mod_rhs_btp.F90:102-209).
+    `qpl_q`: bottom-layer primes at quad points (3, quad) — constant over
+    one barotropic solve, interpolated once by the caller.
+    Returns (rhs (3, nodal) without massinv, stacked increments (12, quad)
+    in _VOL_ORDER). The solver itself goes through ops/btp_volume (flat
+    layout); this structured form is what that module is held against.
+    """
+    grav = static.gravity
+    qbq = interp_n2q(g, qb_df)                     # (4, quad)
+    dp, dpp, udp, vdp = qbq[0], qbq[1], qbq[2], qbq[3]
+    # bottom-layer primes (channel 0 carries δdp'; full needed for friction)
+    pp, up, vp = P.dpp_ref_q[-1] + qpl_q[0], qpl_q[1], qpl_q[2]
+
+    ub = udp / dp
+    vb = vdp / dp
+
+    if static.botfr == 1:      # linear bottom drag (reference :157-162)
+        spd = (static.cd_mlswe / grav) * pp
+        tb_u = spd * (up + ub)
+        tb_v = spd * (vp + vb)
+    elif static.botfr == 2:    # quadratic (reference :163-169)
+        ubot, vbot = up + ub, vp + vb
+        spd = (static.cd_mlswe / static.alpha_bot) * torch.sqrt(ubot**2 + vbot**2)
+        tb_u = spd * ubot
+        tb_v = spd * vbot
+    else:
+        tb_u = torch.zeros_like(dp)
+        tb_v = torch.zeros_like(dp)
+
+    # δ-form pressure/source terms (docs/float32.md): the static parts
+    # (H_bcl_ref flux + g*pbprime*grad(zb) source + reference edge fluxes)
+    # live in the precomputed P.btp_rhs_ref vector added by the face stage.
+    f = P.coriolis_quad
+    sc_x = f * vdp + grav * (P.tau_wind[0] - tb_u) - grav * dpp * P.grad_zbot_quad[0]
+    sc_y = -f * udp + grav * (P.tau_wind[1] - tb_v) - grav * dpp * P.grad_zbot_quad[1]
+
+    mu = dpp * P.one_over_pbprime              # ope - 1, conditioned
+    mu2 = mu * (2.0 + mu)                      # ope^2 - 1
+    ope = 1.0 + mu
+    dHq = coup.dH_bcl + mu2 * (P.H_bcl_ref + coup.dH_bcl)   # Hq - H_bcl_ref
+    qu = ub * udp + ope * coup.Q_uu_dp
+    quv = ub * vdp + ope * coup.Q_uv_dp
+    qv = vb * vdp + ope * coup.Q_vv_dp
+
+    rhs1 = scatter_volume(g, Fx=udp, Fy=vdp)
+    rhs2 = scatter_volume(g, Fx=dHq + qu, Fy=quv, Fs=sc_x)
+    rhs3 = scatter_volume(g, Fx=quv, Fy=dHq + qv, Fs=sc_y)
+    rhs = torch.stack([rhs1, rhs2, rhs3])
+
+    # stacked in _VOL_ORDER
+    avg_inc = torch.stack([dHq, qu, qv, quv, mu, mu2, ub, vb, udp, vdp,
+                           tb_u, tb_v])
+    return rhs, avg_inc
+
+
+def _flatf(a: Tensor) -> Tensor:
+    """Merge the two structured face axes: (..., A, B, m) -> (..., A*B, m)."""
+    return a.reshape(a.shape[:-3] + (a.shape[-3] * a.shape[-2], a.shape[-1]))
+
+
+def _catf(ax_arr: Tensor, ay_arr: Tensor) -> Tensor:
+    """Concatenate flattened x-face and y-face tables on one flat face axis
+    (x-faces first, Fx = ney*(nex+1) of them, then the y-faces).
+
+    The direction-agnostic face-flux math (direction enters only through the
+    normal tables) then runs BOTH directions in one batched pipeline, which
+    halves the number of small launches per stage."""
+    return torch.cat([_flatf(ax_arr), _flatf(ay_arr)], dim=-2)
+
+
+def _face_flux_core(fg, Qe_uu, Qe_uv, Qe_vv, dHe, qblq, qbrq, pbl, pbr,
+                    psiq):
+    """Barotropic face flux kernel, direction-agnostic.
+
+    Reference creat_btp_fluxes_qdf (src/mod_rhs_btp.F90:211-364).
+    qblq/qbrq: (4, F..., nq) stacked quad traces; fg tables broadcastable to
+    (F..., nq); pbl/pbr: one-sided reference pb' at quad points.
+    Returns (S_left scatter values (3, F..., ngl), BtpFaceAvg increments
+    (16, F..., nq) without the graduvb slots).
+    """
+    nx, ny = fg.nx, fg.ny
+
+    pU_L = nx * qblq[2] + ny * qblq[3]
+    pU_R = -(nx * qbrq[2] + ny * qbrq[3])
+    pbpert_edge = (fg.coeff_pbpert_L * qblq[1] + fg.coeff_pbpert_R * qbrq[1]
+                   + fg.coeff_pbub_LR * (pU_L + pU_R))
+    mue = pbpert_edge * fg.one_over_pbprime_edge    # ope_edge - 1
+    mue2 = mue * (2.0 + mue)                        # ope_edge^2 - 1
+    ope_edge = 1.0 + mue
+
+    flux_edge_x = (fg.coeff_mass_pbub_L * qblq[2] + fg.coeff_mass_pbub_R * qbrq[2]
+                   + fg.coeff_mass_pbpert_LR * nx * (qblq[1] - qbrq[1]))
+    flux_edge_y = (fg.coeff_mass_pbub_L * qblq[3] + fg.coeff_mass_pbub_R * qbrq[3]
+                   + fg.coeff_mass_pbpert_LR * ny * (qblq[1] - qbrq[1]))
+
+    ul, ur = qblq[2] / qblq[0], qbrq[2] / qbrq[0]
+    vl, vr = qblq[3] / qblq[0], qbrq[3] / qbrq[0]
+
+    quu = 0.5 * (ul * qblq[2] + ur * qbrq[2]) + ope_edge * Qe_uu
+    quv = 0.5 * (vl * qblq[2] + vr * qbrq[2]) + ope_edge * Qe_uv
+    qvu = 0.5 * (ul * qblq[3] + ur * qbrq[3]) + ope_edge * Qe_uv
+    qvv = 0.5 * (vl * qblq[3] + vr * qbrq[3]) + ope_edge * Qe_vv
+    # δ-form: H_face - Hedge_ref; static part in P.btp_rhs_ref
+    dH_face = dHe + mue2 * (fg.Hedge_ref + dHe)
+
+    lamb = fg.coeff_mass_pbpert_LR
+    dispu = 0.5 * lamb * (qbrq[2] - qblq[2])
+    dispv = 0.5 * lamb * (qbrq[3] - qblq[3])
+    flux_x = nx * quu + ny * quv - dispu
+    flux_y = nx * qvu + ny * qvv - dispv
+    flux = nx * flux_edge_x + ny * flux_edge_y
+    H_kx, H_ky = nx * dH_face, ny * dH_face
+
+    # one batched quad->nodal face projection for all 3 scatter channels
+    S = face_quad_scatter(psiq, fg.jac,
+                          torch.stack([flux, H_kx + flux_x, H_ky + flux_y]))
+
+    muL = qblq[1] / pbl
+    muR = qbrq[1] / pbr
+    # stacked in _FACE_ORDER
+    inc = torch.stack([dH_face, quu, quv, qvu, qvv, muL, muR,
+                       muL * (2.0 + muL), muR * (2.0 + muR),
+                       flux_edge_x, flux_edge_y, mue2, ul, ur, vl, vr])
+    return S, inc
+
+
+class _FlatFaceGeom(NamedTuple):
+    """The FaceDirGeom subset the flat-axis face path reads — only these
+    tables are concatenated per solve (the multi-layer reference tables are
+    consumed by the baroclinic path on the structured view only)."""
+
+    nx: Tensor
+    ny: Tensor
+    jac: Tensor
+    nx_df: Tensor
+    ny_df: Tensor
+    jac_df: Tensor
+    coeff_pbpert_L: Tensor
+    coeff_pbpert_R: Tensor
+    coeff_pbub_LR: Tensor
+    coeff_mass_pbub_L: Tensor
+    coeff_mass_pbub_R: Tensor
+    coeff_mass_pbpert_LR: Tensor
+    one_over_pbprime_edge: Tensor
+    Hedge_ref: Tensor
+    pbprime_df_face_L: Tensor
+    pbprime_df_face_R: Tensor
+
+
+def _build_flat_faces(static, P: Precomputed, g: DeviceGeom,
+                      coup: CouplingFields):
+    """Per-solve flat face bundle for the flat-axis face path.
+
+    Concatenates the consumed per-direction face tables ([x-faces; y-faces]
+    on one flat axis) once per barotropic solve — amortized over
+    N_btp*kstages stages — and hoists the stage-invariant reference pb'
+    interpolation. Returns (fgf, (Qe_uu, Qe_uv, Qe_vv, dHe), pbl, pbr,
+    bgf)."""
+    fx, fy = P.faces.x, P.faces.y
+    fgf = _FlatFaceGeom(*[_catf(getattr(fx, f), getattr(fy, f))
+                          for f in _FlatFaceGeom._fields])
+    Qe = tuple(_catf(p.x, p.y) for p in (coup.Q_uu_dp_edge,
+                                         coup.Q_uv_dp_edge,
+                                         coup.Q_vv_dp_edge,
+                                         coup.dH_bcl_edge))
+    pbl = face_n2q(g.psiq, fgf.pbprime_df_face_L)
+    pbr = face_n2q(g.psiq, fgf.pbprime_df_face_R)
+    bgf = (_catf(coup.btp_graduv_dpp_face.x, coup.btp_graduv_dpp_face.y)
+           if static.use_visc else None)
+    return fgf, Qe, pbl, pbr, bgf
+
+
+def _nodal_laplacian_flat(static, P: Precomputed, g: DeviceGeom, bc: BCs,
+                          coup: CouplingFields, flat, qb_df: Tensor):
+    """Nodal-family LDG barotropic viscosity (method_visc != 1) with the
+    face pipeline batched over the flat face axis.
+
+    Reference btp_create_laplacian (src/mod_laplacian_quad.F90:32-121).
+    Returns (rhs_lap (2, nodal), graduv (4, nodal), gface_flat
+    (4, 2, F, ngl)) — the latter two feed the graduvb averages."""
+    fgf, _, _, _, bgf = flat
+    ney, nex = g.wjac.shape[0], g.wjac.shape[1]
+    ngl = g.wjac_df.shape[-1]
+    Fx = ney * (nex + 1)
+
+    Uk_u = qb_df[2] / qb_df[0]
+    Uk_v = qb_df[3] / qb_df[0]
+    gux, guy = grad_nodal(g, Uk_u)
+    gvx, gvy = grad_nodal(g, Uk_v)
+    graduv = torch.stack([gux, guy, gvx, gvy])
+
+    xl, xr, yl, yr = extract_faces_stacked(graduv, bc,
+                                           vec_pairs=((0, 1), (2, 3)))
+    gl = _catf(xl, yl)                      # (4, F, ngl)
+    gr = _catf(xr, yr)
+
+    # volume (reference btp_compute_laplacian :357-390): note the MINUS sign
+    qq = coup.pbprime_visc[None] * graduv + coup.btp_dpp_graduv
+    lap_u = -scatter_volume_nodal(g, qq[0], qq[1])
+    lap_v = -scatter_volume_nodal(g, qq[2], qq[3])
+
+    # face flux (reference create_rhs_laplacian_flux :427-519): nodal-resolution
+    # faces, psi = identity, flip-flop central flux; L gets +, R gets -
+    fl = bgf[4, 0] * gl + bgf[:4, 0]
+    fr = bgf[4, 1] * gr + bgf[:4, 1]
+    qmean = 0.5 * (fl + fr)
+    flux_qu = ((qmean[0] - fl[0] * fgf.nx_df)
+               + (qmean[1] - fl[1] * fgf.ny_df))
+    flux_qv = ((qmean[2] - fl[2] * fgf.nx_df)
+               + (qmean[3] - fl[3] * fgf.ny_df))
+    S = fgf.jac_df * torch.stack([flux_qu, flux_qv])   # (2, F, ngl)
+
+    Sx = S[:, :Fx].reshape(2, ney, nex + 1, ngl)
+    Sy = S[:, Fx:].reshape(2, ney + 1, nex, ngl)
+    lap_u = scatter_face_x(lap_u, -Sx[0], bc)
+    lap_u = scatter_face_y(lap_u, -Sy[0], bc)
+    lap_v = scatter_face_x(lap_v, -Sx[1], bc)
+    lap_v = scatter_face_y(lap_v, -Sy[1], bc)
+
+    rhs_lap = static.visc_mlswe * g.massinv * torch.stack([lap_u, lap_v])
+    gface_flat = torch.stack([gl, gr], dim=1)         # (4, 2, F, ngl)
+    return rhs_lap, graduv, gface_flat
+
+
+def _btp_faces_visc_flat(static, P: Precomputed, g: DeviceGeom, bc: BCs,
+                         coup: CouplingFields, flat, qb_df: Tensor, rhs: Tensor):
+    """Face fluxes + static δ-form terms + massinv + viscosity — everything
+    in a barotropic RHS evaluation except the volume stage (reference
+    create_rhs_btp, src/mod_rhs_btp.F90:38-57) — with both face directions
+    batched on one flat axis.
+
+    Returns (rhs, inc (16, F, nq), graduv (4, nodal),
+    gface_flat (4, 2, F, ngl))."""
+    fgf, (Qe_uu, Qe_uv, Qe_vv, dHe), pbl, pbr, _ = flat
+    ney, nex = g.wjac.shape[0], g.wjac.shape[1]
+    ngl = g.wjac_df.shape[-1]
+    Fx = ney * (nex + 1)
+    F = Fx + (ney + 1) * nex
+
+    xl, xr, yl, yr = extract_faces_stacked(qb_df, bc, vec_pairs=((2, 3),))
+    qblq = face_n2q(g.psiq, _catf(xl, yl))    # (4, F, nq) one product
+    qbrq = face_n2q(g.psiq, _catf(xr, yr))
+
+    S, inc = _face_flux_core(fgf, Qe_uu, Qe_uv, Qe_vv, dHe, qblq, qbrq,
+                             pbl, pbr, g.psiq)
+    Sx = S[:, :Fx].reshape(3, ney, nex + 1, ngl)
+    Sy = S[:, Fx:].reshape(3, ney + 1, nex, ngl)
+    rhs = scatter_face_x(rhs, Sx, bc)
+    rhs = scatter_face_y(rhs, Sy, bc)
+    rhs = rhs + P.btp_rhs_ref          # static reference terms (δ-form)
+    rhs = g.massinv * rhs
+
+    if static.use_visc:
+        rhs_visc, graduv, gface_flat = _nodal_laplacian_flat(
+            static, P, g, bc, coup, flat, qb_df)
+        rhs = torch.cat([rhs[:1], rhs[1:] + rhs_visc])
+    else:
+        opts = dict(dtype=qb_df.dtype, device=qb_df.device)
+        graduv = torch.zeros((4,) + qb_df.shape[1:], **opts)
+        gface_flat = torch.zeros((4, 2, F, ngl), **opts)
+
+    return rhs, inc, graduv, gface_flat
+
+
+def _averages_view(static, vol, nod, fxa, fya, gvx, gvy, graduvb) -> BtpAverages:
+    """Build the BtpAverages NamedTuple from the stacked accumulators."""
+    def face(fa, gv):
+        return BtpFaceAvg(**dict(zip(_FACE_ORDER, fa)), gvL=gv[0], gvR=gv[1])
+
+    return BtpAverages(**dict(zip(_VOL_ORDER, vol)),
+                       **dict(zip(_NOD_ORDER, nod)),
+                       graduvb=graduvb,
+                       faces=Pair(face(fxa, gvx), face(fya, gvy)))
+
+
+def build_vol_operators(static, g: DeviceGeom, P: Precomputed) -> BtpVolOperators:
+    """Flat volume operator tables (state-independent).
+
+    Everything here depends only on geometry and precomputed physics
+    tables, so callers evaluate it once at model build and pass the result
+    through `barotropic_solve(vol_ops=...)`."""
+    return operators_from_tables(g, P)
+
+
+def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
+                     coup: CouplingFields, qb_df: Tensor, qprime_df: Tensor,
+                     vol_ops: BtpVolOperators | None = None):
+    """SSPRK barotropic sub-cycling over N_btp steps x kstages stages.
+
+    Reference ti_barotropic_ssprk_mlswe (src/mod_rk_mlswe.F90:19-151).
+    Each stage is one fused volume stage — the CUDA kernel when
+    static.volume_impl == "kernel", its plain version when "plain" — which
+    also updates the flat volume/nodal accumulators in place, followed by
+    the flat-axis face path in plain PyTorch and the SSPRK combine.
+    Returns (qb_df at t+dt, normalized BtpAverages); `qb_df` is not mutated.
+    """
+    dtype, device = qb_df.dtype, qb_df.device
+    opts = dict(dtype=dtype, device=device)
+    ney, nex = g.wjac.shape[0], g.wjac.shape[1]
+    nq, ngl = g.wjac.shape[-1], g.wjac_df.shape[-1]
+    E = ney * nex
+    Fx = ney * (nex + 1)
+    F = Fx + (ney + 1) * nex
+    kstages, n_btp = static.kstages, static.n_btp
+
+    volume = btp_volume_cuda if static.volume_impl == "kernel" else btp_volume_plain
+    ops = vol_ops if vol_ops is not None else build_vol_operators(static, g, P)
+
+    # fresh per solve: the volume stage mutates these two
+    accv = torch.zeros((12, E, nq * nq), **opts)
+    accn = torch.zeros((3, E, ngl * ngl), **opts)
+    aff = torch.zeros((16, F, nq), **opts)              # all faces
+    agf = torch.zeros((2, 4, F, ngl), **opts)           # graduv L/R
+    agrad = torch.zeros((4, ney, nex, ngl, ngl), **opts)  # graduvb nodal
+
+    # SSPRK tables as Python floats: no device read inside the stage loop
+    a = [[float(v) for v in row] for row in P.ssprk_a.tolist()]
+    beta = [float(v) for v in P.ssprk_beta.tolist()]
+
+    # constant over the whole solve: bottom-layer primes at quad points, the
+    # flattened coupling stack and the flat face bundle
+    qplq_flat = eflat(interp_n2q(g, qprime_df[:, -1]).contiguous())
+    coup_flat = torch.stack([eflat(coup.Q_uu_dp.contiguous()),
+                             eflat(coup.Q_uv_dp.contiguous()),
+                             eflat(coup.Q_vv_dp.contiguous()),
+                             eflat(coup.dH_bcl.contiguous())])
+    flat = _build_flat_faces(static, P, g, coup)
+
+    qb1 = qb_df
+    qb2 = torch.zeros_like(qb_df)
+    for _ in range(n_btp):
+        qb0 = qb1            # register 0 of THIS sub-step
+        for ik in range(kstages):
+            # volume RHS + volume/nodal averages (nodal ones from the
+            # pre-stage qb1, reference :90-92)
+            rhs_f, accv, accn = volume(
+                ops, eflat(qb1.contiguous()), qplq_flat, coup_flat, accv, accn,
+                grav=static.gravity, botfr=static.botfr, cd=static.cd_mlswe,
+                alpha_bot=static.alpha_bot)
+            rhs = rhs_f.view(3, ney, nex, ngl, ngl)
+            rhs, inc, graduv, gface_flat = _btp_faces_visc_flat(
+                static, P, g, bc, coup, flat, qb1, rhs)
+            aff = aff + inc
+            agf = agf + gface_flat.transpose(0, 1)
+            agrad = agrad + graduv
+
+            dtt = static.dt_btp * beta[ik]
+            new234 = (a[ik][0] * qb0[1:4] + a[ik][1] * qb1[1:4]
+                      + a[ik][2] * qb2[1:4] + dtt * rhs)
+            pb = new234[0] + P.pbprime_df
+            qu, qv = apply_wall_projection(new234[1], new234[2], bc)
+            qb1 = torch.stack([pb, new234[0], qu, qv])
+            if kstages == 5 and ik == 1:
+                # SSP(5,3) snapshots the stage-2 state into the third register
+                qb2 = qb1
+
+    n_inv = 1.0 / (kstages * n_btp)
+    vol = (accv * n_inv).view(12, ney, nex, nq, nq)
+    nod = (accn * n_inv).view(3, ney, nex, ngl, ngl)
+    aff, agf, agrad = aff * n_inv, agf * n_inv, agrad * n_inv
+    # split the flat face accumulators back to the structured view
+    afx = aff[:, :Fx].reshape(16, ney, nex + 1, nq)
+    afy = aff[:, Fx:].reshape(16, ney + 1, nex, nq)
+    agx = agf[:, :, :Fx].reshape(2, 4, ney, nex + 1, ngl)
+    agy = agf[:, :, Fx:].reshape(2, 4, ney + 1, nex, ngl)
+    return qb1, _averages_view(static, vol, nod, afx, afy, agx, agy, agrad)

@@ -1,0 +1,126 @@
+"""Model facade: config -> geometry -> precomputed tables -> step loop.
+
+Counterpart of hnumo_tpu/model.py for one device. Replaces the reference
+wiring of grid init, field init and the time loop (src/amain.F90:12-190).
+The baroclinic step (predictor + corrector + 2 barotropic sub-cycles) is a
+pure function `state -> state` run eagerly; a caller's State is never
+mutated or consumed, so it can be stepped again.
+"""
+from __future__ import annotations
+
+import torch
+
+from .config import Config
+from .core.btp import build_vol_operators
+from .core.faces import BCs
+from .core.init import VOLUME_IMPLS, build_precomputed, check_ported
+from .core.stepper import ti_rk_bcl
+from .core.types import State
+from .mesh.grid import build_geometry
+from .ops.dg import device_geom
+
+
+def _set_full_precision():
+    """f32 contractions stay full f32: no TF32 in products or convolutions.
+
+    Reduced-precision stage products conserve mass and track kinetic energy
+    but destroy the free surface (docs/float32.md:79-97,
+    docs/artifacts/dgyre_f32_tpu_bf16.json), so the precision is set here,
+    not assumed from the library's defaults."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _resolve_device(device) -> torch.device:
+    """`None` means the CUDA device, and raises where there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "hnumo_tpu_torch.Model runs on a CUDA device by default and "
+                "none is available; pass device='cpu' to run the plain "
+                "PyTorch path on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    return device
+
+
+def _resolve_volume_impl(volume_impl, device: torch.device) -> str:
+    """Default: the kernel on a CUDA device, the plain version elsewhere."""
+    if volume_impl is None:
+        return "kernel" if device.type == "cuda" else "plain"
+    if volume_impl not in VOLUME_IMPLS:
+        raise ValueError(
+            f"volume_impl must be one of {VOLUME_IMPLS}, got {volume_impl!r}")
+    if volume_impl == "kernel" and device.type != "cuda":
+        raise ValueError(
+            f"volume_impl='kernel' needs a CUDA device, got {device}; the CUDA "
+            "kernel has no CPU form (use volume_impl='plain')")
+    return volume_impl
+
+
+class Model:
+    def __init__(self, cfg: Config, device=None, volume_impl: str | None = None):
+        """`device`: None = the CUDA device (raises without one), or any
+        torch device; the tests pass "cpu". `volume_impl`: "kernel" (the CUDA
+        barotropic volume kernel; default on CUDA) or "plain" (its plain
+        PyTorch version; default on the CPU)."""
+        self.device = _resolve_device(device)
+        volume_impl = _resolve_volume_impl(volume_impl, self.device)
+        _set_full_precision()
+        check_ported(cfg)
+        self.cfg = cfg
+        self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+
+        bc = (cfg.x_boundary[0], cfg.x_boundary[1],
+              cfg.y_boundary[0], cfg.y_boundary[1])
+        self.geom = build_geometry(cfg.nelx, cfg.nely, cfg.nopx, cfg.xdims,
+                                   cfg.ydims, bc=bc,
+                                   exact_integration=cfg.dg_integ_exact)
+        self.g = device_geom(self.geom, self.dtype, self.device)
+        self.bc = BCs(*bc)
+        self.P, self._state0, self.static, self.init_fields = build_precomputed(
+            cfg, self.geom, self.dtype, self.device, volume_impl=volume_impl)
+        # state-independent operator tables of the volume stage: built once
+        self.vol_ops = build_vol_operators(self.static, self.g, self.P)
+
+    @classmethod
+    def from_tables(cls, cfg: Config, P, g, state0: State, device=None,
+                    volume_impl: str | None = None) -> "Model":
+        """A model stepping on given tables (see convert.from_numpy_tables)
+        in place of the ones its own build_precomputed makes — the static
+        parameters still come from `cfg`. Lets a test hold the stepping code
+        against another implementation on identical tables."""
+        m = cls(cfg, device=device, volume_impl=volume_impl)
+        want = (m.dtype, m.device)
+        for t in (P.pbprime, g.wjac, state0.qb_df):
+            if (t.dtype, t.device) != want:
+                raise ValueError(
+                    f"tables are {t.dtype} on {t.device}, the model is "
+                    f"{want[0]} on {want[1]}")
+        m.P, m.g, m._state0 = P, g, state0
+        m.vol_ops = build_vol_operators(m.static, g, P)
+        return m
+
+    @property
+    def state0(self) -> State:
+        """The initial state (steps never mutate it)."""
+        return self._state0
+
+    def step(self, state: State) -> State:
+        with torch.no_grad():
+            return ti_rk_bcl(self.static, self.P, self.g, self.bc, state,
+                             vol_ops=self.vol_ops)
+
+    def run(self, state: State, nsteps: int, check_ok: bool = True) -> State:
+        for _ in range(nsteps):
+            state = self.step(state)
+            # one host read per step, as in the JAX package
+            if check_ok and not bool(state.ok):
+                raise RuntimeError(
+                    "Negative mass in thickness at some points "
+                    f"(t={float(state.t)}) — aborting, as the reference does "
+                    "(src/mod_splitting.F90:74-77)")
+        return state

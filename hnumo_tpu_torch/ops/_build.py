@@ -1,0 +1,74 @@
+"""Build the package's CUDA sources into shared libraries, at first use.
+
+Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), is
+compiled by `nvcc` for sm_90a into `hnumo_tpu_torch/_build/` and loaded
+with ctypes. The library file carries a hash of its source and flags, so
+an unchanged source is compiled once per build directory. Nothing here
+runs at import: `load_library` is called by a kernel's wrapper the first
+time it launches. A missing compiler or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    candidates = []
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(Path(os.environ[var]) / "bin" / "nvcc")
+    which = shutil.which("nvcc")
+    if which:
+        candidates.append(Path(which))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
+        "the CUDA kernels of hnumo_tpu_torch cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of `csrc/<name>.cu` is (or will be) built."""
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def compile_command(name: str, out: Path) -> list[str]:
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` if its library is not built yet, and load it."""
+    if name in _loaded:
+        return _loaded[name]
+    lib_path = library_path(name)
+    if not lib_path.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
+        proc = subprocess.run(compile_command(name, tmp), capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)   # atomic: a concurrent build wins or loses whole
+    lib = ctypes.CDLL(str(lib_path))
+    _loaded[name] = lib
+    return lib
