@@ -3,13 +3,15 @@
     python3 chip_smoke.py            # everything; needs one CUDA device + nvcc
     python3 chip_smoke.py --profile FILE  # also a torch.profiler table of one step
 
-Builds the CUDA kernel from the sources in this checkout, holds it against
-its plain PyTorch version on the card, drives the port's main path (the
-double-gyre configuration, f32, 64x64 elements, p=4, 2 layers, SSP(5,3),
-N_btp=20) through `Model.run`, and repeats a short run at 256x256. Any
-failure raises and the run exits non-zero; there is no CPU path.
+Builds the CUDA kernels from the sources in this checkout, holds each
+against its plain PyTorch version on the card, and drives the port's main
+paths through `Model.run` on the double-gyre configuration (f32, p=4,
+2 layers, SSP(5,3), N_btp=20): 32x32 elements through the whole-solve
+megakernel (two launches per step), 64x64 and a short run at 256x256
+through the per-stage path with the volume kernel. Any failure raises and
+the run exits non-zero; there is no CPU path.
 
-Output: one line per phase, then a `{"kernels": [...]}` line, the card's
+Output: one line per phase, then a `{"kernels": [...]}` line (both kernels), the card's
 name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
@@ -31,10 +33,17 @@ F32_FLOPS_PER_S = 67e12
 F64_TOL = 1e-12     # kernel vs plain, f64: same operations, other summation order
 F32_TOL = 2e-5      # kernel vs plain, f32: ~100-term sums in another order
 SOLVE_TOL = 1e-11   # f64 barotropic solve, kernel vs plain, over N_btp*kstages stages
+# f32 megakernel vs its f32 plain version after 100 stages, per field over
+# the field's max: both round every operation to f32 but sum in different
+# orders (sum-factorised loops with FMAs against library matrix products),
+# and the difference is carried through 100 stable stages. Measured 5e-6 at
+# 32x32; the tolerance leaves a factor of 20.
+F32_MEGA_TOL = 1e-4
+STEP_TOL = 1e-10    # f64, two full steps, megakernel vs per-stage path
 MASS_TOL = 1e-6     # relative total-mass change over the f32 run
 
 
-def main_path_config(nel: int, dtype: str, nop: int = 4):
+def main_path_config(nel: int, dtype: str, nop: int = 4, mega: str = "auto"):
     """The double-gyre basin of the JAX package's bench.py (same dt scaling)."""
     from hnumo_tpu_torch.config import Config
 
@@ -45,17 +54,31 @@ def main_path_config(nel: int, dtype: str, nop: int = 4):
         dt=500.0 * scale, dt_btp=25.0 * scale, time_final=1e9,
         test_case="double_gyre", f0=9.3e-5, beta=2.0e-11,
         botfr=1, cd_mlswe=1.0e-7, method_visc=2, visc_mlswe=100.0,
-        dtype=dtype)
+        dtype=dtype, mega=mega)
 
 
-def small_config(nelx: int, nely: int, dtype: str, botfr: int):
+FREE_SLIP = ((4, 4), (4, 4))
+# copy (0) west and north boundaries and a no-slip (2) south wall: at
+# free-slip and no-slip walls every boundary flux vanishes or is masked, so
+# only a copy boundary shows the sign a boundary face lands with
+OTHER_WALLS = ((0, 4), (2, 0))
+
+
+def small_config(nelx: int, nely: int, dtype: str, botfr: int, mega: str = "off",
+                 visc: bool = True, kstages: int = 5, nop: int = 4,
+                 walls=FREE_SLIP):
+    """A small double-gyre grid; `mega="off"` keeps it on the per-stage path
+    (under 1024 elements "auto" would take the megakernel). `walls`:
+    boundary codes ((west, east), (south, north))."""
     from hnumo_tpu_torch.config import Config
 
-    return Config(nelx=nelx, nely=nely, nopx=4, nopy=4, xdims=(0.0, 2e6),
+    return Config(nelx=nelx, nely=nely, nopx=nop, nopy=nop, xdims=(0.0, 2e6),
                   ydims=(0.0, 2e6), nlayers=2, dt=400.0, dt_btp=20.0,
                   time_final=1e9, test_case="double_gyre", f0=9.3e-5,
-                  beta=2e-11, botfr=botfr, cd_mlswe=1e-7,
-                  method_visc=2, visc_mlswe=100.0, dtype=dtype)
+                  beta=2e-11, botfr=botfr, cd_mlswe=1e-7, kstages=kstages,
+                  x_boundary=walls[0], y_boundary=walls[1],
+                  method_visc=2 if visc else 0, visc_mlswe=100.0 if visc else 0.0,
+                  dtype=dtype, mega=mega)
 
 
 def perturbed_inputs(m, seed: int):
@@ -134,14 +157,51 @@ def check_kernel_against_plain(nelx, nely, dtype, botfr):
     return worst_scaled, worst_abs
 
 
+def solve_leaves(qb_new, avg):
+    """(name, tensor) of a barotropic solve's result: the four channels of qb
+    (each on its own scale) and every one of the running averages."""
+    for c, name in enumerate(("qb.pb", "qb.pbpert", "qb.pbub", "qb.pbvb")):
+        yield name, qb_new[c]
+    for f in avg._fields:
+        if f != "faces":
+            yield f, getattr(avg, f)
+    for d, fa in zip("xy", avg.faces):
+        for f in fa._fields:
+            yield f"faces.{d}.{f}", getattr(fa, f)
+
+
+def compare_solves(got, want, tol, what):
+    """Every leaf of `got` within tol * max|leaf of want|; returns (max
+    error/scale, max abs error, number of fields)."""
+    worst, worst_abs, n = 0.0, 0.0, 0
+    for (name, a), (_, b) in zip(solve_leaves(*got), solve_leaves(*want)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: {name}: non-finite values")
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        n += 1
+        if scale == 0.0:      # a field that is identically zero (no viscosity)
+            if err != 0.0:
+                raise AssertionError(f"{what}: {name}: {err:.3e} where the other is 0")
+            continue
+        worst = max(worst, err / scale)
+        worst_abs = max(worst_abs, err)
+        if not err <= tol * scale:
+            raise AssertionError(
+                f"{what}: {name}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+    return worst, worst_abs, n
+
+
 def check_solve_kernel_vs_plain():
-    """f64 barotropic_solve at 12x12: kernel stage vs plain stage."""
+    """f64 barotropic_solve at 12x12, per-stage path: kernel stage vs plain stage."""
     import dataclasses
 
     from hnumo_tpu_torch.core.btp import barotropic_solve
     from hnumo_tpu_torch.model import Model
 
     m = Model(small_config(12, 12, "float64", 1))
+    if m.static.mega:
+        raise AssertionError("mega='off' must keep the per-stage path")
     _, qb, qp, coup = perturbed_inputs(m, seed=7)
     out = {}
     for impl in ("kernel", "plain"):
@@ -149,25 +209,68 @@ def check_solve_kernel_vs_plain():
         out[impl] = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp,
                                      vol_ops=m.vol_ops)
         torch.cuda.synchronize()
-
-    def leaves(qb_new, avg):
-        yield "qb", qb_new
-        for f in avg._fields:
-            if f != "faces":
-                yield f, getattr(avg, f)
-        for d, fa in zip("xy", avg.faces):
-            for f in fa._fields:
-                yield f"faces.{d}.{f}", getattr(fa, f)
-
-    worst, n = 0.0, 0
-    for (name, a), (_, b) in zip(leaves(*out["kernel"]), leaves(*out["plain"])):
-        scale = max(float(b.abs().max()), 1e-300)
-        err = float((a - b).abs().max())
-        worst = max(worst, err / scale)
-        n += 1
-        if not err <= SOLVE_TOL * scale:
-            raise AssertionError(f"solve kernel != plain: {name}: {err:.3e} vs scale {scale:.3e}")
+    worst, _, n = compare_solves(out["kernel"], out["plain"], SOLVE_TOL,
+                                 "solve with volume kernel != with plain stage")
     return worst, n
+
+
+def check_mega_vs_plain(cfg, tol, seed=3):
+    """One barotropic solve through the megakernel and through its plain
+    version on the same inputs on the card."""
+    import dataclasses
+
+    from hnumo_tpu_torch.core.btp import barotropic_solve
+    from hnumo_tpu_torch.model import Model
+
+    m = Model(cfg)
+    if not (m.static.mega and m.static.mega_impl == "kernel" and m.mega_ops is not None):
+        raise AssertionError("this configuration must take the megakernel")
+    _, qb, qp, coup = perturbed_inputs(m, seed=seed)
+    qb_keep = qb.clone()
+    out = {}
+    for impl in ("kernel", "plain"):
+        st = dataclasses.replace(m.static, mega_impl=impl)
+        out[impl] = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp,
+                                     vol_ops=m.vol_ops, mega_ops=m.mega_ops)
+        torch.cuda.synchronize()
+    if not torch.equal(qb, qb_keep):
+        raise AssertionError("the megakernel changed its caller's qb_df")
+    E = cfg.nelx * cfg.nely
+    return compare_solves(out["kernel"], out["plain"], tol,
+                          f"megakernel != plain ({cfg.dtype}, E={E})")
+
+
+def check_mega_vs_per_stage():
+    """f64 at 12x12: the megakernel against the per-stage path with the
+    volume kernel — two independent routes to the same numbers — on one
+    solve and on two full steps."""
+    import dataclasses
+
+    from hnumo_tpu_torch.core.btp import barotropic_solve
+    from hnumo_tpu_torch.model import Model
+
+    mm = Model(small_config(12, 12, "float64", 1, mega="on"))
+    mp = Model(small_config(12, 12, "float64", 1, mega="off"))
+    if not mm.static.mega or mp.static.mega or mp.static.volume_impl != "kernel":
+        raise AssertionError("expected one model on each barotropic path")
+    _, qb, qp, coup = perturbed_inputs(mm, seed=9)
+    a = barotropic_solve(mm.static, mm.P, mm.g, mm.bc, coup, qb, qp,
+                         vol_ops=mm.vol_ops, mega_ops=mm.mega_ops)
+    b = barotropic_solve(mp.static, mp.P, mp.g, mp.bc, coup, qb, qp, vol_ops=mp.vol_ops)
+    torch.cuda.synchronize()
+    w_solve, _, n = compare_solves(a, b, SOLVE_TOL, "megakernel != per-stage path")
+    sa, sb = mm.run(mm.state0, 2), mp.run(mp.state0, 2)
+    torch.cuda.synchronize()
+    w_step = 0.0
+    for name in ("qb_df", "q_df", "qprime_df"):
+        x, y = getattr(sa, name), getattr(sb, name)
+        scale = float(y.abs().max())
+        err = float((x - y).abs().max())
+        w_step = max(w_step, err / scale)
+        if not err <= STEP_TOL * scale:
+            raise AssertionError(f"two steps, megakernel != per-stage path: {name}: "
+                                 f"{err:.3e} vs scale {scale:.3e}")
+    return w_solve, n, w_step
 
 
 def time_launches(fn, operand_sets, n):
@@ -231,6 +334,82 @@ def volume_bound(m):
             "bytes": nbytes, "flops": flops}
 
 
+def time_mega(m, n=20):
+    """One solve at this model's shapes: the wrapper (operand build,
+    allocations, launch, averages), the launch alone, and the plain version.
+    The working set is a few MB and one launch reads it 100 times over, so
+    there is no cold-operand variant to take."""
+    from hnumo_tpu_torch.ops.mega import (barotropic_solve_mega_cuda,
+                                          barotropic_solve_mega_plain, mega_launch,
+                                          new_accumulators, new_state_buffers,
+                                          solve_operands)
+
+    _, qb, qp, coup = perturbed_inputs(m, seed=13)
+    args = (m.static, m.P, m.g, m.bc, coup, qb, qp, m.mega_ops)
+    E = m.cfg.nelx * m.cfg.nely
+    ngl, nq = m.g.psiq.shape
+    opts = dict(dtype=qb.dtype, device=qb.device)
+    op = solve_operands(m.static, m.g, coup, qb, qp, m.mega_ops)
+    acc = new_accumulators(E, ngl, nq, **opts)
+    bufs = new_state_buffers(E, ngl, **opts)
+
+    def wrapper():
+        barotropic_solve_mega_cuda(*args)
+
+    def launch():
+        mega_launch(m.static, m.mega_ops, op, acc, *bufs)
+
+    def plain():
+        barotropic_solve_mega_plain(*args)
+
+    before = barotropic_solve_mega_cuda.launches
+    out = {"ms": time_launches(launch, [()], n),
+           "ms_with_wrapper": time_launches(wrapper, [()], n),
+           "plain_ms": time_launches(plain, [()], 2)}
+    barotropic_solve_mega_cuda.launches = before   # timing launches are not the path's
+    return out
+
+
+def mega_bound(m):
+    """Least time the card could take for one barotropic solve at this
+    model's shapes: every operand read once and every result written once
+    over the HBM rate, against the solve's flops over the f32 peak. The
+    flops are counted from the kernel's loops (2 per multiply-add) and its
+    pointwise blocks (counted by hand from the source: ~80 per volume quad
+    point, ~110 per face quad point, ~45 per viscous edge node, ~20 per
+    updated node). The grid barriers (one per stage) are not in the bound."""
+    n, q = m.g.psiq.shape
+    npts, nqq = n * n, q * q
+    E = m.cfg.nelx * m.cfg.nely
+    nsub = m.static.n_btp * m.static.kstages
+    visc = m.static.use_visc
+    itemsize = 8 if m.cfg.dtype == "float64" else 4
+    # in: qb 4, ref3 3, massinv/pbp/opbp/masks 5 (nodal); qplq 3, coup 4, ptab 8
+    # (quad); qe 4, ftab 13 (side x nq); ntab 3 (side x ngl); nbr; with
+    # viscosity pvisc 1, bdg 4 (nodal), bgf 10 (side x ngl).
+    # out: qb 4, accn 3, agr 4 (nodal); accv 12 (quad); aff 16; agt 8
+    nodal = 4 + 3 + 5 + 4 + 3 + (1 + 4 + 4 if visc else 0)
+    quad = 3 + 4 + 8 + 12
+    side_q = 4 + 13 + 16
+    side_n = 3 + (10 + 8 if visc else 0)
+    values = E * (nodal * npts + quad * nqq + side_q * 4 * q + side_n * 4 * n)
+    nbytes = itemsize * values + 4 * 4 * E
+    macs = (4 * n * q * n + 4 * nqq * n          # interpolation, two passes
+            + 5 * q * n * q + 2 * q * n * q      # scatter, first pass
+            + 3 * npts * 2 * q                   # scatter, second pass
+            + 2 * 16 * q * n + 12 * n * q)       # face interpolation and scatter
+    pointwise = 80 * nqq + 110 * 4 * q + 20 * 3 * npts + 8 * npts
+    if visc:
+        macs += 4 * npts * n + 16 * n * n + 2 * npts * 2 * n
+        pointwise += 45 * 4 * n + 3 * 4 * npts
+    flops = E * nsub * (2 * macs + pointwise)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops, "barriers": nsub}
+
+
 def total_mass(m, state) -> float:
     dp = (m.P.dpp_ref_df + state.q_df[0]).double()
     return float((m.g.wjac_df.double() * dp).sum())
@@ -238,24 +417,33 @@ def total_mass(m, state) -> float:
 
 def drive(m, warm: int, steps: int):
     """`warm` + `steps` baroclinic steps through Model.run; launches are
-    counted over the timed steps only (the counter is zeroed just before)."""
+    counted over the timed steps only (both counters are zeroed just before).
+    On the megakernel path a step is exactly 2 megakernel launches and no
+    volume kernel launch; on the per-stage path 2*N_btp*kstages volume
+    kernel launches and no megakernel launch."""
     from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda
+    from hnumo_tpu_torch.ops.mega import barotropic_solve_mega_cuda
 
     s = m.state0
     mass0 = total_mass(m, s)
     s = m.run(s, warm)
     torch.cuda.synchronize()
     btp_volume_cuda.launches = 0
+    barotropic_solve_mega_cuda.launches = 0
     t0 = time.perf_counter()
     s = m.run(s, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = btp_volume_cuda.launches
-    per_step = 2 * m.static.n_btp * m.static.kstages
-    if launches != steps * per_step:
+    n_vol, n_mega = btp_volume_cuda.launches, barotropic_solve_mega_cuda.launches
+    if m.static.mega:
+        launches, per_step, want = n_mega, 2, (0, 2 * steps)
+    else:
+        per_step = 2 * m.static.n_btp * m.static.kstages
+        launches, want = n_vol, (steps * per_step, 0)
+    if (n_vol, n_mega) != want:
         raise AssertionError(
-            f"volume kernel launched {launches} times in {steps} steps, "
-            f"expected {steps}*{per_step}")
+            f"{steps} steps launched the volume kernel {n_vol} times and the "
+            f"megakernel {n_mega} times, expected {want[0]} and {want[1]}")
     if not bool(s.ok):
         raise AssertionError("state.ok is False")
     for name in ("qb_df", "q_df", "qprime_df"):
@@ -271,28 +459,34 @@ def drive(m, warm: int, steps: int):
             "mass_drift": drift, "t": float(s.t)}, s
 
 
-def profile_step(m, state, out_path):
-    """torch.profiler over one step: device time by kernel name."""
+def profile_step(m, state, out_path, title):
+    """torch.profiler over one step: device time by kernel name, appended
+    to `out_path` under `title`."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         m.step(state)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    with open(out_path, "w") as f:
-        f.write(table)
+    with open(out_path, "a") as f:
+        f.write(f"==== {title} ====\n{table}\n")
     # rows of device activities (kernels, memcpys) only: the operator rows
     # repeat their kernels' device time
     from torch.autograd import DeviceType
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {"device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
-            "device_activities": sum(e.count for e in dev)}
+    out = {"device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+           "device_activities": sum(e.count for e in dev)}
+    mega = [e for e in dev if "btp_mega_kernel" in e.key]
+    if mega:
+        out["mega_kernel_ms"] = sum(e.self_device_time_total for e in mega) / 1e3
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="FILE", default=None,
-                    help="also write a torch.profiler table of one 64x64 step to FILE")
+                    help="also write torch.profiler tables of one 64x64 step and "
+                         "one 32x32 step to FILE")
     args = ap.parse_args()
 
     # ---- phase 1: device ---------------------------------------------------
@@ -307,16 +501,23 @@ def main() -> int:
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     from hnumo_tpu_torch.model import Model
-    from hnumo_tpu_torch.ops._build import load_library
-    from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda
+    from hnumo_tpu_torch.ops._build import (build_libraries, load_library,
+                                            resource_usage)
 
-    # ---- phase 2: build ----------------------------------------------------
+    if args.profile:
+        open(args.profile, "w").close()
+
+    # ---- phase 2: build (one nvcc per source, side by side) -----------------
     t0 = time.perf_counter()
+    build_libraries(["btp_volume", "btp_mega"])
     load_library("btp_volume")
-    print(f"phase 2 build: btp_volume.cu compiled and loaded in "
+    load_library("btp_mega")
+    print(f"phase 2 build: btp_volume.cu and btp_mega.cu compiled and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
+    for name in ("btp_volume", "btp_mega"):
+        print(f"phase 2 ptxas {name}: " + "; ".join(resource_usage(name)))
 
-    # ---- phase 3: kernel vs plain version ------------------------------------
+    # ---- phase 3: volume kernel vs plain version -----------------------------
     worst = {"float64": 0.0, "float32": 0.0}
     main_err = None
     for dtype in ("float64", "float32"):
@@ -332,17 +533,18 @@ def main() -> int:
 
     # ---- phase 4: barotropic solve, kernel vs plain stage --------------------
     w, n = check_solve_kernel_vs_plain()
-    print(f"phase 4 f64 barotropic_solve 12x12, kernel vs plain stage: qb + {n - 1} "
+    print(f"phase 4 f64 barotropic_solve 12x12, kernel vs plain stage: qb + {n - 4} "
           f"averages, max err/scale {w:.3e} (tol {SOLVE_TOL:g})")
 
-    # ---- phase 5: main path, 64x64 f32 ---------------------------------------
+    # ---- phase 5: per-stage path, 64x64 f32 ----------------------------------
     m64 = Model(main_path_config(64, "float32"))
-    if m64.static.volume_impl != "kernel":
-        raise AssertionError("the main path must run the CUDA volume kernel")
-    run64, s64 = drive(m64, warm=2, steps=5)
+    if m64.static.mega or m64.static.volume_impl != "kernel":
+        raise AssertionError("64x64 is over 1024 elements: 'auto' must leave it on "
+                             "the per-stage path with the CUDA volume kernel")
+    run64, s64 = drive(m64, warm=2, steps=3)
     tv64 = time_volume_stage(m64)
     b64 = volume_bound(m64)
-    print(f"phase 5 main path 64x64 p=4 L=2 f32 N_btp={m64.static.n_btp}: "
+    print(f"phase 5 per-stage path 64x64 p=4 L=2 f32 N_btp={m64.static.n_btp}: "
           f"{run64['ms_per_step']:.2f} ms/step, {run64['gp_steps_per_s']:.4g} gp-steps/s, "
           f"{run64['launches_per_step']} kernel launches/step, ok, finite, "
           f"mass drift {run64['mass_drift']:.2e}; volume kernel {tv64['ms']:.4f} ms/launch "
@@ -350,13 +552,15 @@ def main() -> int:
           f"bound {b64['bound_ms']:.4f} ms by {b64['bound_by']}")
     extra = {}
     if args.profile:
-        extra = profile_step(m64, s64, args.profile)
+        extra = profile_step(m64, s64, args.profile, "64x64 f32, per-stage path")
         extra["device_idle_share"] = 1.0 - extra["device_busy_ms"] / run64["ms_per_step"]
         print(f"phase 5 profile of one step: {json.dumps(extra)}")
-    del s64
+    del s64, m64
 
     # ---- phase 6: 256x256 f32 -------------------------------------------------
     m256 = Model(main_path_config(256, "float32"))
+    if m256.static.mega:
+        raise AssertionError("256x256 must stay on the per-stage path under 'auto'")
     run256, _ = drive(m256, warm=0, steps=2)
     tv256 = time_volume_stage(m256, n=20, nsets=2)
     b256 = volume_bound(m256)
@@ -371,8 +575,73 @@ def main() -> int:
            "step_ms_256": run256["ms_per_step"],
            "gp_steps_per_s_256": run256["gp_steps_per_s"]}
     del m256
+    torch.cuda.empty_cache()
 
-    # ---- phase 7: the kernels line -------------------------------------------
+    # ---- phase 7: megakernel vs its plain version ----------------------------
+    w64m, nfields = 0.0, 0
+    for visc, botfr, kstages, nop, walls in (
+            (False, 1, 5, 4, FREE_SLIP), (True, 1, 5, 4, FREE_SLIP),
+            (True, 2, 5, 4, FREE_SLIP), (False, 0, 3, 4, FREE_SLIP),
+            (True, 1, 5, 6, FREE_SLIP), (True, 1, 5, 4, OTHER_WALLS)):
+        w, _, nfields = check_mega_vs_plain(
+            small_config(6, 5, "float64", botfr, mega="on", visc=visc,
+                         kstages=kstages, nop=nop, walls=walls), SOLVE_TOL)
+        w64m = max(w64m, w)
+    w32d, _, _ = check_mega_vs_plain(main_path_config(32, "float64"), SOLVE_TOL)
+    # more blocks' worth of elements than can be resident at once: each block
+    # walks several elements between two grid barriers
+    w64d, _, _ = check_mega_vs_plain(main_path_config(64, "float64", mega="on"), SOLVE_TOL)
+    mega_err, mega_abs, _ = check_mega_vs_plain(main_path_config(32, "float32"),
+                                                F32_MEGA_TOL)
+    print(f"phase 7 megakernel vs plain, one solve, qb (4 channels) + {nfields - 4} "
+          f"averages, max err/scale: f64 6x5 matrix (visc on/off, botfr 0/1/2, "
+          f"kstages 3/5, nop 4/6, walls free-slip and copy/no-slip) {w64m:.3e}, f64 32x32 {w32d:.3e}, f64 64x64 "
+          f"mega='on' {w64d:.3e} (tol {SOLVE_TOL:g}); f32 32x32 {mega_err:.3e} "
+          f"(tol {F32_MEGA_TOL:g})")
+
+    # ---- phase 8: megakernel vs the per-stage path ---------------------------
+    w_solve, n, w_step = check_mega_vs_per_stage()
+    print(f"phase 8 f64 12x12, megakernel vs per-stage path with the volume kernel: "
+          f"one solve, {n} fields, max err/scale {w_solve:.3e} (tol {SOLVE_TOL:g}); "
+          f"two full steps {w_step:.3e} (tol {STEP_TOL:g})")
+
+    # ---- phase 9: main path, 32x32 f32 through the megakernel ----------------
+    m32 = Model(main_path_config(32, "float32"))
+    if not (m32.static.mega and m32.static.mega_impl == "kernel"):
+        raise AssertionError("32x32 with default arguments must take the megakernel")
+    run32, s32 = drive(m32, warm=3, steps=20)
+    tm32 = time_mega(m32)
+    b32 = mega_bound(m32)
+    m32off = Model(main_path_config(32, "float32", mega="off"))
+    run32off, _ = drive(m32off, warm=1, steps=3)
+    del m32off
+    # over the 1024 elements of "auto": 64x64 through the megakernel because
+    # the caller says so, beside phase 5's reading of the same grid
+    m64on = Model(main_path_config(64, "float32", mega="on"))
+    run64on, _ = drive(m64on, warm=1, steps=5)
+    tm64on = time_mega(m64on, n=5)
+    del m64on
+    print(f"phase 9 main path 32x32 p=4 L=2 f32 N_btp={m32.static.n_btp}: "
+          f"{run32['ms_per_step']:.2f} ms/step, {run32['gp_steps_per_s']:.4g} gp-steps/s, "
+          f"{run32['launches_per_step']} megakernel launches/step, 0 volume kernel "
+          f"launches, ok, finite, mass drift {run32['mass_drift']:.2e}; with mega='off' "
+          f"{run32off['ms_per_step']:.2f} ms/step, {run32off['gp_steps_per_s']:.4g} "
+          f"gp-steps/s ({run32off['launches_per_step']} volume kernel launches/step); "
+          f"megakernel {tm32['ms']:.4f} ms/launch ({tm32['ms_with_wrapper']:.4f} with "
+          f"its wrapper), plain {tm32['plain_ms']:.2f}, bound {b32['bound_ms']:.4f} ms "
+          f"by {b32['bound_by']}, {b32['barriers']} grid barriers/launch; 64x64 with "
+          f"mega='on': {run64on['ms_per_step']:.2f} ms/step, "
+          f"{run64on['gp_steps_per_s']:.4g} gp-steps/s, megakernel "
+          f"{tm64on['ms']:.4f} ms/launch")
+    extra32 = {}
+    if args.profile:
+        extra32 = profile_step(m32, s32, args.profile, "32x32 f32, megakernel path")
+        extra32["device_idle_share"] = (1.0 - extra32["device_busy_ms"]
+                                        / run32["ms_per_step"])
+        print(f"phase 9 profile of one step: {json.dumps(extra32)}")
+    del s32, m32
+
+    # ---- phase 10: the kernels line ------------------------------------------
     kernels = [{
         "name": "btp_volume", "route": "cuda",
         "source": "hnumo_tpu_torch/ops/csrc/btp_volume.cu",
@@ -387,6 +656,24 @@ def main() -> int:
         "launches_per_step": run64["launches_per_step"],
         "step_ms": run64["ms_per_step"], "gp_steps_per_s": run64["gp_steps_per_s"],
         **big, **extra,
+    }, {
+        "name": "btp_mega", "route": "cuda",
+        "source": "hnumo_tpu_torch/ops/csrc/btp_mega.cu",
+        "replaces": "hnumo_tpu/ops/pallas_mega.py:319",
+        "launches": run32["launches"], "max_abs_err": mega_abs,
+        "max_err_over_scale": mega_err, "tolerance_over_scale": F32_MEGA_TOL,
+        "ms": tm32["ms"], "plain_ms": tm32["plain_ms"],
+        "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
+        "library_ms": None,
+        "checked_against_plain": True, "ms_with_wrapper": tm32["ms_with_wrapper"],
+        "grid_barriers": b32["barriers"],
+        "launches_per_step": run32["launches_per_step"],
+        "step_ms": run32["ms_per_step"], "gp_steps_per_s": run32["gp_steps_per_s"],
+        "step_ms_mega_off": run32off["ms_per_step"],
+        "gp_steps_per_s_mega_off": run32off["gp_steps_per_s"],
+        "ms_64": tm64on["ms"], "step_ms_64_mega_on": run64on["ms_per_step"],
+        "gp_steps_per_s_64_mega_on": run64on["gp_steps_per_s"],
+        **extra32,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,15 +3,20 @@
 Counterpart of hnumo_tpu/config.py: the same physics and namelist fields
 with the same defaults (reference src/mod_input.F90:118-269), so a
 configuration written for one package describes the same run in the other.
-The JAX package's backend knobs (use_pallas, pallas_interpret, scan_stages,
-uni_volume, fused_tail, mega, mega_precision, batched_faces) have no
-counterpart here: the port has one switch, `Model(..., volume_impl=)`.
+Of the JAX package's backend knobs only `mega` is carried over, with the
+same meaning; use_pallas, pallas_interpret, scan_stages, uni_volume,
+fused_tail, mega_precision and batched_faces have no counterpart here (one
+precision, full f32; kernel or plain version is chosen by
+`Model(..., volume_impl=, mega_impl=)`).
 The namelist file parser is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+
+
+MEGA_MODES = ("auto", "on", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +70,15 @@ class Config:
 
     # --- non-reference extensions ---
     dtype: str = "float64"         # compute dtype ("float64" validation, "float32" perf)
+    # Whole-solve barotropic megakernel ("auto" | "on" | "off"): the entire
+    # sub-cycling (N_btp x kstages stages) as ONE kernel launch per solve
+    # (ops/mega.py). Envelope: uniform brick, non-periodic walls, rk35,
+    # nodal/no viscosity, nop <= 7, one device. "auto" = on within the
+    # envelope up to 1024 elements (the JAX package's dispatch, kept so the
+    # two packages take the same path at the same size), the per-stage path
+    # otherwise; "on" = at any element count, and raises outside the
+    # envelope instead of taking the other path.
+    mega: str = "auto"
     # Reproduce the reference's wind/bottom-stress vertical distribution
     # verbatim, including its indexing slip (see core/bcl.py).
     compat_reference_stress: bool = False
@@ -77,6 +91,8 @@ class Config:
             object.__setattr__(self, "y_boundary", (3, 3))
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be 'float32' or 'float64', got {self.dtype!r}")
+        if self.mega not in MEGA_MODES:
+            raise ValueError(f"mega must be one of {MEGA_MODES}, got {self.mega!r}")
 
     # Derived quantities (reference src/mod_initial.F90:176-186)
     @property

@@ -6,6 +6,11 @@ caller does the `np.asarray`, so this package never sees a foreign array
 type — and returns the port's containers as tensors on one device. Fields
 are matched by name where names are given and by position otherwise; the
 two packages keep their fields in the same order.
+
+`mega_tables_from_padded` brings the element and face tables of the JAX
+package's megakernel operands (rows padded to lane blocks) into the layout
+of this package's `ops/mega.MegaStatic`, so that a test can compare the
+fields the two share.
 """
 from __future__ import annotations
 
@@ -55,3 +60,44 @@ def from_numpy_tables(P_np, g_np, state_np, device, dtype: torch.dtype):
                   ok=torch.tensor(np.asarray(sf["ok"]), dtype=torch.bool,
                                      device=device))
     return P, g, state
+
+
+# lane blocks of the JAX package's megakernel side tables
+_JAX_NGL_BLOCK = 8
+_JAX_NQ_BLOCK = 16
+
+
+def mega_tables_from_padded(mops_np, nelem: int, ngl: int, nq: int) -> dict:
+    """The fields that the JAX package's MegaStatic (a NamedTuple or dict of
+    NumPy arrays) shares with ops/mega.MegaStatic, as NumPy arrays in this
+    package's layout: channel-row blocks `(C*E, padded)` become `(C, E, m)`,
+    side tables `(C*E, 4*block)` become `(C, E, 4, m)`; the lane padding is
+    dropped."""
+    src = mops_np if isinstance(mops_np, dict) else mops_np._asdict()
+    npts, nqq = ngl * ngl, nq * nq
+
+    def rows(name, C, m):
+        a = np.asarray(src[name])
+        return a.reshape(C, nelem, a.shape[-1])[..., :m]
+
+    def sides(name, C, block, m):
+        a = np.asarray(src[name])
+        return a.reshape(C, nelem, 4, block)[..., :m]
+
+    return {
+        "ptab": rows("ptab", 8, nqq),
+        "btp_ref3": rows("btp_ref3", 3, npts),
+        "massinv": rows("massinv3", 3, npts)[0],
+        "pbprime_df": rows("pbprime_df", 1, npts)[0],
+        "opbp_df": rows("opbp_df", 1, npts)[0],
+        "masku": rows("masku", 1, npts)[0],
+        "maskv": rows("maskv", 1, npts)[0],
+        "ftab": sides("ftab", 13, _JAX_NQ_BLOCK, nq),
+        "ntab": sides("ntab", 3, _JAX_NGL_BLOCK, ngl),
+        # wall flag per (element, side) and wall mirror sign per (channel,
+        # element, side): 1 away from the walls
+        "wall": sides("mbnd_q", 4, _JAX_NQ_BLOCK, 1)[0, ..., 0] > 0,
+        "mir_q": sides("mir_q", 4, _JAX_NQ_BLOCK, 1)[..., 0],
+        "a_tab": np.asarray(src["a_tab"]),
+        "b_tab": np.asarray(src["b_tab"]).reshape(-1),
+    }

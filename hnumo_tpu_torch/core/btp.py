@@ -1,7 +1,9 @@
 """Barotropic solver: RHS stages + SSPRK sub-cycling with running averages.
 
-Counterpart of hnumo_tpu/core/btp.py for the path the JAX package takes
-above 1024 elements: one fused volume kernel per stage
+Counterpart of hnumo_tpu/core/btp.py. `barotropic_solve` dispatches like
+the JAX package: within the megakernel's envelope (StaticConfig.mega, by
+default up to 1024 elements) the whole solve is one launch of ops/mega;
+otherwise the per-stage path below runs: one fused volume kernel per stage
 (ops/btp_volume) plus the flat-axis face path in plain PyTorch.
 Reference: src/mod_rhs_btp.F90 (create_rhs_btp, create_rhs_btp_volume_qdf,
 creat_btp_fluxes_qdf), src/mod_rk_mlswe.F90 (ti_barotropic_ssprk_mlswe),
@@ -23,6 +25,8 @@ from torch import Tensor
 
 from ..ops.btp_volume import (BtpVolOperators, btp_volume_cuda,
                               btp_volume_plain, eflat, operators_from_tables)
+from ..ops.mega import (MegaStatic, barotropic_solve_mega_cuda,
+                        barotropic_solve_mega_plain)
 from ..ops.dg import DeviceGeom, grad_nodal, interp_n2q, scatter_volume, scatter_volume_nodal
 from .faces import (BCs, apply_wall_projection, extract_faces_multi,
                     extract_faces_stacked, face_n2q, face_quad_scatter,
@@ -339,16 +343,25 @@ def build_vol_operators(static, g: DeviceGeom, P: Precomputed) -> BtpVolOperator
 
 def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
                      coup: CouplingFields, qb_df: Tensor, qprime_df: Tensor,
-                     vol_ops: BtpVolOperators | None = None):
+                     vol_ops: BtpVolOperators | None = None,
+                     mega_ops: MegaStatic | None = None):
     """SSPRK barotropic sub-cycling over N_btp steps x kstages stages.
 
     Reference ti_barotropic_ssprk_mlswe (src/mod_rk_mlswe.F90:19-151).
-    Each stage is one fused volume stage — the CUDA kernel when
+    With `static.mega` and `mega_ops` (ops/mega.build_mega_static) the whole
+    solve is one call of ops/mega — the CUDA megakernel when
+    static.mega_impl == "kernel", its plain version when "plain".
+    Otherwise each stage is one fused volume stage — the CUDA kernel when
     static.volume_impl == "kernel", its plain version when "plain" — which
     also updates the flat volume/nodal accumulators in place, followed by
     the flat-axis face path in plain PyTorch and the SSPRK combine.
     Returns (qb_df at t+dt, normalized BtpAverages); `qb_df` is not mutated.
     """
+    if static.mega and mega_ops is not None:
+        solve = (barotropic_solve_mega_cuda if static.mega_impl == "kernel"
+                 else barotropic_solve_mega_plain)
+        return solve(static, P, g, bc, coup, qb_df, qprime_df, mega_ops)
+
     dtype, device = qb_df.dtype, qb_df.device
     opts = dict(dtype=dtype, device=device)
     ney, nex = g.wjac.shape[0], g.wjac.shape[1]

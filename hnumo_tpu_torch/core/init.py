@@ -28,6 +28,12 @@ from .types import FaceDirGeom, Pair, Precomputed, State
 GRAVITY_DEFAULT = 9.806
 
 VOLUME_IMPLS = ("kernel", "plain")
+MEGA_IMPLS = ("kernel", "plain")
+# "auto" dispatches the megakernel up to this many elements. The number is
+# the JAX package's (there a fast-memory cap of its kernel); it is kept so
+# that both packages take the same path at the same size.
+MEGA_AUTO_MAX_ELEMENTS = 1024
+MEGA_MAX_NOP = 7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,10 +41,12 @@ class StaticConfig:
     """Python-static solver parameters.
 
     The physics fields of the JAX package's StaticConfig; its backend flags
-    are replaced by the one switch `volume_impl`: "kernel" runs the
-    barotropic volume stage through the CUDA kernel
-    (ops/btp_volume.btp_volume_cuda), "plain" through its plain PyTorch
-    version."""
+    are replaced by `mega_on` (the whole-solve megakernel path was asked
+    for and the size allows it; `mega` adds the envelope) and two
+    implementation switches: `volume_impl` ("kernel" runs the per-stage
+    barotropic volume stage through ops/btp_volume.btp_volume_cuda, "plain"
+    through its plain PyTorch version) and `mega_impl` (the same choice for
+    ops/mega.barotropic_solve_mega_cuda / _plain)."""
 
     nlayers: int
     kstages: int
@@ -61,12 +69,32 @@ class StaticConfig:
     flat_bottom: bool = False     # grad(z_bot) == 0 everywhere
     ti_method_btp: str = "rk35"   # barotropic integrator (SSP only so far)
     volume_impl: str = "plain"    # "kernel" | "plain"
+    mega_on: bool = False         # whole-solve megakernel path (ops/mega)
+    mega_impl: str = "plain"      # "kernel" | "plain"
 
     def __post_init__(self):
         if self.volume_impl not in VOLUME_IMPLS:
             raise ValueError(
                 f"volume_impl must be one of {VOLUME_IMPLS}, got "
                 f"{self.volume_impl!r}")
+        if self.mega_impl not in MEGA_IMPLS:
+            raise ValueError(
+                f"mega_impl must be one of {MEGA_IMPLS}, got {self.mega_impl!r}")
+
+    @property
+    def mega_envelope(self) -> bool:
+        """What the whole-solve megakernel covers: uniform brick geometry,
+        non-periodic walls, the SSP integrator `rk35` (lsrk carries a dq
+        register with a different update), nodal LDG family or no
+        viscosity. f32 and f64 alike."""
+        return (self.uniform_geom and not self.periodic
+                and self.ti_method_btp == "rk35"
+                and (not self.use_visc or self.method_visc != 1))
+
+    @property
+    def mega(self) -> bool:
+        """The barotropic solve goes through ops/mega (one launch per solve)."""
+        return self.mega_on and self.mega_envelope
 
     @property
     def use_visc(self) -> bool:
@@ -261,7 +289,8 @@ def check_ported(cfg: Config) -> None:
 
 
 def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
-                      volume_impl: str = "plain", zbot_ext=None
+                      volume_impl: str = "plain", mega_impl: str = "plain",
+                      zbot_ext=None
                       ) -> tuple[Precomputed, State, StaticConfig, InitialFields]:
     """Build all static tables + initial state as tensors on `device`."""
     check_ported(cfg)
@@ -557,7 +586,21 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
         uniform_geom=uniform_geom, flat_bottom=flat_bottom,
         ti_method_btp=cfg.ti_method_btp,
         volume_impl=volume_impl,
+        # "on" trusts the caller at any element count, "auto" stays under
+        # the cap; both keep the JAX package's order cap (nop <= 7)
+        mega_on=(cfg.mega in ("on", "auto") and cfg.nopx <= MEGA_MAX_NOP
+                 and (cfg.mega == "on"
+                      or cfg.nelx * cfg.nely <= MEGA_AUTO_MAX_ELEMENTS)),
+        mega_impl=mega_impl,
     )
+    if cfg.mega == "on" and not static.mega:
+        raise ValueError(
+            "mega='on' is outside the megakernel's envelope (uniform brick, "
+            "non-periodic walls, ti_method_btp='rk35', method_visc != 1, "
+            f"nop <= {MEGA_MAX_NOP}): got nop={cfg.nopx}, "
+            f"uniform_geom={uniform_geom}, periodic={static.periodic}, "
+            f"ti_method_btp={cfg.ti_method_btp!r}, "
+            f"method_visc={cfg.method_visc}; use mega='auto' or 'off'")
     if cfg.compat_reference_stress and L > 3:
         # the reference expression reads qp(k) for k>3 out of bounds
         raise ValueError("compat_reference_stress only defined for nlayers<=3")

@@ -13,11 +13,12 @@ import torch
 from .config import Config
 from .core.btp import build_vol_operators
 from .core.faces import BCs
-from .core.init import VOLUME_IMPLS, build_precomputed, check_ported
+from .core.init import MEGA_IMPLS, VOLUME_IMPLS, build_precomputed, check_ported
 from .core.stepper import ti_rk_bcl
 from .core.types import State
 from .mesh.grid import build_geometry
 from .ops.dg import device_geom
+from .ops.mega import build_mega_static
 
 
 def _set_full_precision():
@@ -47,28 +48,32 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _resolve_volume_impl(volume_impl, device: torch.device) -> str:
+def _resolve_impl(name: str, impl, allowed, device: torch.device) -> str:
     """Default: the kernel on a CUDA device, the plain version elsewhere."""
-    if volume_impl is None:
+    if impl is None:
         return "kernel" if device.type == "cuda" else "plain"
-    if volume_impl not in VOLUME_IMPLS:
+    if impl not in allowed:
+        raise ValueError(f"{name} must be one of {allowed}, got {impl!r}")
+    if impl == "kernel" and device.type != "cuda":
         raise ValueError(
-            f"volume_impl must be one of {VOLUME_IMPLS}, got {volume_impl!r}")
-    if volume_impl == "kernel" and device.type != "cuda":
-        raise ValueError(
-            f"volume_impl='kernel' needs a CUDA device, got {device}; the CUDA "
-            "kernel has no CPU form (use volume_impl='plain')")
-    return volume_impl
+            f"{name}='kernel' needs a CUDA device, got {device}; the CUDA "
+            f"kernel has no CPU form (use {name}='plain')")
+    return impl
 
 
 class Model:
-    def __init__(self, cfg: Config, device=None, volume_impl: str | None = None):
+    def __init__(self, cfg: Config, device=None, volume_impl: str | None = None,
+                 mega_impl: str | None = None):
         """`device`: None = the CUDA device (raises without one), or any
-        torch device; the tests pass "cpu". `volume_impl`: "kernel" (the CUDA
-        barotropic volume kernel; default on CUDA) or "plain" (its plain
-        PyTorch version; default on the CPU)."""
+        torch device; the tests pass "cpu". `volume_impl` / `mega_impl`:
+        "kernel" (the CUDA kernel of the per-stage volume stage / of the
+        whole-solve megakernel; default on CUDA) or "plain" (its plain
+        PyTorch version; default on the CPU). Which of the two barotropic
+        paths runs is `cfg.mega` (see StaticConfig.mega)."""
         self.device = _resolve_device(device)
-        volume_impl = _resolve_volume_impl(volume_impl, self.device)
+        volume_impl = _resolve_impl("volume_impl", volume_impl, VOLUME_IMPLS,
+                                    self.device)
+        mega_impl = _resolve_impl("mega_impl", mega_impl, MEGA_IMPLS, self.device)
         _set_full_precision()
         check_ported(cfg)
         self.cfg = cfg
@@ -82,18 +87,26 @@ class Model:
         self.g = device_geom(self.geom, self.dtype, self.device)
         self.bc = BCs(*bc)
         self.P, self._state0, self.static, self.init_fields = build_precomputed(
-            cfg, self.geom, self.dtype, self.device, volume_impl=volume_impl)
-        # state-independent operator tables of the volume stage: built once
+            cfg, self.geom, self.dtype, self.device, volume_impl=volume_impl,
+            mega_impl=mega_impl)
+        self._build_operators()
+
+    def _build_operators(self):
+        """State-independent operator tables of the barotropic solve, built
+        once: the volume stage's, and the megakernel's when it is the path."""
         self.vol_ops = build_vol_operators(self.static, self.g, self.P)
+        self.mega_ops = (build_mega_static(self.static, self.g, self.P, self.bc)
+                         if self.static.mega else None)
 
     @classmethod
     def from_tables(cls, cfg: Config, P, g, state0: State, device=None,
-                    volume_impl: str | None = None) -> "Model":
+                    volume_impl: str | None = None,
+                    mega_impl: str | None = None) -> "Model":
         """A model stepping on given tables (see convert.from_numpy_tables)
         in place of the ones its own build_precomputed makes — the static
         parameters still come from `cfg`. Lets a test hold the stepping code
         against another implementation on identical tables."""
-        m = cls(cfg, device=device, volume_impl=volume_impl)
+        m = cls(cfg, device=device, volume_impl=volume_impl, mega_impl=mega_impl)
         want = (m.dtype, m.device)
         for t in (P.pbprime, g.wjac, state0.qb_df):
             if (t.dtype, t.device) != want:
@@ -101,7 +114,7 @@ class Model:
                     f"tables are {t.dtype} on {t.device}, the model is "
                     f"{want[0]} on {want[1]}")
         m.P, m.g, m._state0 = P, g, state0
-        m.vol_ops = build_vol_operators(m.static, g, P)
+        m._build_operators()
         return m
 
     @property
@@ -112,7 +125,7 @@ class Model:
     def step(self, state: State) -> State:
         with torch.no_grad():
             return ti_rk_bcl(self.static, self.P, self.g, self.bc, state,
-                             vol_ops=self.vol_ops)
+                             vol_ops=self.vol_ops, mega_ops=self.mega_ops)
 
     def run(self, state: State, nsteps: int, check_ok: bool = True) -> State:
         for _ in range(nsteps):

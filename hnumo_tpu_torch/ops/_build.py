@@ -5,13 +5,15 @@ compiled by `nvcc` for sm_90a into `hnumo_tpu_torch/_build/` and loaded
 with ctypes. The library file carries a hash of its source and flags, so
 an unchanged source is compiled once per build directory. Nothing here
 runs at import: `load_library` is called by a kernel's wrapper the first
-time it launches. A missing compiler or a failed build raises.
+time it launches; `build_libraries` compiles several sources side by side
+ahead of that. A missing compiler or a failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,7 +22,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -54,21 +56,55 @@ def compile_command(name: str, out: Path) -> list[str]:
     return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
 
 
+def build_libraries(names) -> None:
+    """Compile every `csrc/<name>.cu` whose library is not built yet: one
+    nvcc process per source, all started together, then waited for."""
+    started = []
+    try:
+        for name in names:
+            lib_path = library_path(name)
+            if name in _loaded or lib_path.is_file():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
+            proc = subprocess.Popen(compile_command(name, tmp), stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            started.append((name, proc, tmp, lib_path))
+        for name, proc, tmp, lib_path in started:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                    f"{stdout}\n{stderr}")
+            # what ptxas says of each kernel (registers, spills, shared memory)
+            lib_path.with_suffix(".log").write_text(stderr)
+            os.replace(tmp, lib_path)   # atomic: a concurrent build wins or loses whole
+    finally:
+        for _, proc, _, _ in started:   # a failed build leaves no compiler running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def resource_usage(name: str) -> list[str]:
+    """What `ptxas -v` said of each kernel instantiation in the build of
+    `csrc/<name>.cu`, in the order compiled: "R registers, S B spill stores,
+    L B spill loads" (empty when the library was not built by this module)."""
+    log = library_path(name).with_suffix(".log")
+    if not log.is_file():
+        return []
+    text = log.read_text()
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+    regs = re.findall(r"Used (\d+) registers", text)
+    return [f"{r} registers, {s} B spill stores, {l} B spill loads"
+            for r, (s, l) in zip(regs, spills)]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if its library is not built yet, and load it."""
     if name in _loaded:
         return _loaded[name]
-    lib_path = library_path(name)
-    if not lib_path.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-        proc = subprocess.run(compile_command(name, tmp), capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)   # atomic: a concurrent build wins or loses whole
-    lib = ctypes.CDLL(str(lib_path))
+    build_libraries([name])
+    lib = ctypes.CDLL(str(library_path(name)))
     _loaded[name] = lib
     return lib

@@ -28,7 +28,10 @@ def jax_config(**over):
 
 
 def torch_config(**over):
-    return TorchConfig(**{**BASE, **over})
+    """The port on the same path: per stage, no megakernel (these grids are
+    under 1024 elements, where "auto" would take the mega path); the
+    megakernel tests say mega="on"."""
+    return TorchConfig(**{**BASE, "mega": "off", **over})
 
 
 def to_np(tree):
