@@ -3,15 +3,18 @@
     python3 chip_smoke.py            # everything; needs one CUDA device + nvcc
     python3 chip_smoke.py --profile FILE  # also a torch.profiler table of one step
 
-Builds the CUDA kernels from the sources in this checkout, holds each
+Builds the five CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
 paths through `Model.run` on the double-gyre configuration (f32, p=4,
 2 layers, SSP(5,3), N_btp=20): 32x32 elements through the whole-solve
 megakernel (two launches per step), 64x64 and a short run at 256x256
-through the per-stage path with the volume kernel. Any failure raises and
-the run exits non-zero; there is no CPU path.
+through the per-stage path with the volume kernel, and the same two grids
+through the fused path (`mega="off", fused_tail="on"`: the uniform-geometry
+volume kernel, the all-faces kernel and the update kernel, 200 launches of
+each per step). Any failure raises and the run exits non-zero; there is no
+CPU path.
 
-Output: one line per phase, then a `{"kernels": [...]}` line (both kernels), the card's
+Output: one line per phase, then a `{"kernels": [...]}` line (five kernels), the card's
 name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
@@ -43,7 +46,7 @@ STEP_TOL = 1e-10    # f64, two full steps, megakernel vs per-stage path
 MASS_TOL = 1e-6     # relative total-mass change over the f32 run
 
 
-def main_path_config(nel: int, dtype: str, nop: int = 4, mega: str = "auto"):
+def main_path_config(nel: int, dtype: str, nop: int = 4, mega: str = "auto", **over):
     """The double-gyre basin of the JAX package's bench.py (same dt scaling)."""
     from hnumo_tpu_torch.config import Config
 
@@ -54,7 +57,12 @@ def main_path_config(nel: int, dtype: str, nop: int = 4, mega: str = "auto"):
         dt=500.0 * scale, dt_btp=25.0 * scale, time_final=1e9,
         test_case="double_gyre", f0=9.3e-5, beta=2.0e-11,
         botfr=1, cd_mlswe=1.0e-7, method_visc=2, visc_mlswe=100.0,
-        dtype=dtype, mega=mega)
+        dtype=dtype, mega=mega, **over)
+
+
+def fused_config(nel: int, dtype: str):
+    """The same basin on the fused path: three kernels per barotropic stage."""
+    return main_path_config(nel, dtype, mega="off", fused_tail="on")
 
 
 FREE_SLIP = ((4, 4), (4, 4))
@@ -66,19 +74,20 @@ OTHER_WALLS = ((0, 4), (2, 0))
 
 def small_config(nelx: int, nely: int, dtype: str, botfr: int, mega: str = "off",
                  visc: bool = True, kstages: int = 5, nop: int = 4,
-                 walls=FREE_SLIP):
+                 walls=FREE_SLIP, **over):
     """A small double-gyre grid; `mega="off"` keeps it on the per-stage path
     (under 1024 elements "auto" would take the megakernel). `walls`:
     boundary codes ((west, east), (south, north))."""
     from hnumo_tpu_torch.config import Config
 
-    return Config(nelx=nelx, nely=nely, nopx=nop, nopy=nop, xdims=(0.0, 2e6),
-                  ydims=(0.0, 2e6), nlayers=2, dt=400.0, dt_btp=20.0,
-                  time_final=1e9, test_case="double_gyre", f0=9.3e-5,
-                  beta=2e-11, botfr=botfr, cd_mlswe=1e-7, kstages=kstages,
-                  x_boundary=walls[0], y_boundary=walls[1],
-                  method_visc=2 if visc else 0, visc_mlswe=100.0 if visc else 0.0,
-                  dtype=dtype, mega=mega)
+    kw = dict(nelx=nelx, nely=nely, nopx=nop, nopy=nop, xdims=(0.0, 2e6),
+              ydims=(0.0, 2e6), nlayers=2, dt=400.0, dt_btp=20.0,
+              time_final=1e9, test_case="double_gyre", f0=9.3e-5,
+              beta=2e-11, botfr=botfr, cd_mlswe=1e-7, kstages=kstages,
+              x_boundary=walls[0], y_boundary=walls[1],
+              method_visc=2 if visc else 0, visc_mlswe=100.0 if visc else 0.0,
+              dtype=dtype, mega=mega)
+    return Config(**{**kw, **over})
 
 
 def perturbed_inputs(m, seed: int):
@@ -273,19 +282,236 @@ def check_mega_vs_per_stage():
     return w_solve, n, w_step
 
 
-def time_launches(fn, operand_sets, n):
-    """Mean ms per call of fn(*operands), rotating over the operand sets."""
+def rand_like_shape(rng, shape, like):
+    return torch.as_tensor(rng.normal(size=shape), dtype=like.dtype, device=like.device)
+
+
+def fused_stage_operands(m, seed: int):
+    """The operands of one fused stage at this model's shapes, from a state
+    off the rest state, with random non-zero accumulators: the volume
+    stage's own, and everything the face and update stages take beside what
+    the stages before them produce."""
+    from hnumo_tpu_torch.ops.btp_tail import build_face_tables
+    from hnumo_tpu_torch.ops.btp_volume import eflat
+
+    rng, qb, qp, coup = perturbed_inputs(m, seed)
+    visc = m.static.use_visc
+    qbf = eflat(qb.contiguous())
+    E, npts = qbf.shape[1], qbf.shape[2]
+    ngl, nq = m.g.psiq.shape
+    tabs = build_face_tables(m.P, coup, m.g.psiq, visc, static_rows=m.tail_ops.face_rows)
+    F = tabs.nfx + tabs.nfy
+    op = {
+        "qb": qbf, "qpln": eflat(qp[:, -1].contiguous()),
+        "coup": torch.stack([eflat(c.contiguous()) for c in
+                             (coup.Q_uu_dp, coup.Q_uv_dp, coup.Q_vv_dp, coup.dH_bcl)]),
+        "accv": rand_like_shape(rng, (12, E, nq * nq), qbf),
+        "accn": rand_like_shape(rng, (3, E, npts), qbf),
+        "agr": rand_like_shape(rng, (4, E, npts), qbf) if visc else None,
+        "tabs": tabs, "af": rand_like_shape(rng, (16, F, nq), qbf),
+        "ag": rand_like_shape(rng, (8, F, ngl), qbf) if visc else None,
+        # two more SSPRK registers, so that all three weights matter
+        "qb0": qbf + 1e-3 * rand_like_shape(rng, tuple(qbf.shape), qbf).abs(),
+        "qb2": qbf + 1e-3 * rand_like_shape(rng, tuple(qbf.shape), qbf).abs(),
+        "pbpv": eflat(coup.pbprime_visc.contiguous())[None] if visc else None,
+        "bdg": eflat(coup.btp_dpp_graduv.contiguous()) if visc else None,
+    }
+    return op
+
+
+def update_weights(m):
+    """(a0, a1, a2, dt*beta) for the update stage with all three SSPRK
+    registers weighted (no stage of SSP(5,3) weights all three), and the
+    last stage's RHS weight."""
+    return (0.25, 0.5, 0.25, m.static.dt_btp * float(m.P.ssprk_beta[-1]))
+
+
+def fused_stage(m, op, impl: str, w):
+    """One fused stage (volume, exchange, faces, exchange, update) on copies
+    of the accumulators in `op`, every kernel fed what the PLAIN stages before
+    it produced, so that each comparison is of one kernel alone. Returns
+    {kernel name: {output name: tensor}}."""
+    from hnumo_tpu_torch.core.btp import fused_edge_pack, fused_traces
+    from hnumo_tpu_torch.ops import btp_tail as bt
+    from hnumo_tpu_torch.ops import btp_volume_uni as bu
+
+    fo, visc = m.tail_ops, m.static.use_visc
+    ney, nex = m.cfg.nely, m.cfg.nelx
+    ngl = m.g.psiq.shape[0]
+    kw = volume_kwargs(m.static)
+    out = {}
+
+    def clone(t):
+        return None if t is None else t.clone()
+
+    def run_volume(fn):
+        accv, accn, agr = clone(op["accv"]), clone(op["accn"]), clone(op["agr"])
+        res = fn(fo.vol, op["qb"], op["qpln"], accv, accn, op["coup"], agr, **kw)
+        if res[1] is not accv or res[2] is not accn or (visc and res[4] is not agr):
+            raise AssertionError("the volume stage must return the accumulators it was given")
+        names = ("rhs", "accv", "accn", "gv", "agr")
+        return dict(zip(names, res))
+
+    def run_faces(fn, trL, trR):
+        af, ag = clone(op["af"]), clone(op["ag"])
+        S, Sv, af2, ag2 = fn(op["tabs"], trL, trR, af, ag, use_visc=visc)
+        if af2 is not af or ag2 is not ag:
+            raise AssertionError("the face stage must return the accumulators it was given")
+        res = {"S": S, "af": af}
+        if visc:
+            res.update({"Sv": Sv, "ag": ag})
+        return res
+
+    plain_a = run_volume(bu.btp_volume_uni_plain)
+    out["btp_volume_uni"] = (run_volume(bu.btp_volume_uni_cuda) if impl == "kernel"
+                             else plain_a)
+    trL, trR = fused_traces(m.bc, ney, nex, ngl, op["qb"], plain_a.get("gv"))
+    plain_f = run_faces(bt.btp_faces_plain, trL, trR)
+    out["btp_faces"] = (run_faces(bt.btp_faces_cuda, trL, trR) if impl == "kernel"
+                        else plain_f)
+    edges = fused_edge_pack(m.bc, ney, nex, plain_f["S"])
+    vedges = fused_edge_pack(m.bc, ney, nex, plain_f["Sv"], negate=True) if visc else None
+    upd = bt.btp_update_cuda if impl == "kernel" else bt.btp_update_plain
+    keep = [t.clone() for t in (op["qb0"], op["qb"], op["qb2"])]
+    qb_new = upd(fo.upd, w, plain_a["rhs"], edges, vedges, op["qb0"], op["qb"],
+                 op["qb2"], plain_a.get("gv"), op["pbpv"], op["bdg"], fo.mask,
+                 use_visc=visc)
+    torch.cuda.synchronize()
+    for a, b in zip(keep, (op["qb0"], op["qb"], op["qb2"])):
+        if not torch.equal(a, b):
+            raise AssertionError("the update stage changed one of its registers")
+    out["btp_update"] = {f"qb_new[{c}]": qb_new[c] for c in range(4)}
+    return out
+
+
+def check_fused_kernels(nelx, nely, dtype, botfr, visc=True, test_case="double_gyre"):
+    """Kernels A, F and U against their plain versions on one stage's
+    operands; returns {kernel: (max error/scale, max abs error)}."""
+    from hnumo_tpu_torch.model import Model
+
+    m = Model(small_config(nelx, nely, dtype, botfr, visc=visc, fused_tail="on",
+                           test_case=test_case))
+    if not m.static.fused_tail or m.static.mega or m.tail_ops is None:
+        raise AssertionError("this configuration must take the fused path")
+    if m.static.flat_bottom != (test_case == "double_gyre"):
+        raise AssertionError(f"flat_bottom={m.static.flat_bottom} for {test_case}")
+    op = fused_stage_operands(m, seed=17 + botfr)
+    w = update_weights(m)
+    got, want = fused_stage(m, op, "kernel", w), fused_stage(m, op, "plain", w)
+    tol = F64_TOL if dtype == "float64" else F32_TOL
+    worst = {}
+    for kname in got:
+        ws, wa = 0.0, 0.0
+        for name, a in got[kname].items():
+            b = want[kname][name]
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{kname}: {name}: non-finite kernel output")
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            if not err <= tol * scale:
+                raise AssertionError(
+                    f"{kname} kernel != plain: {name} {dtype} botfr={botfr} visc={visc} "
+                    f"{test_case} E={nelx * nely}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+            ws, wa = max(ws, err / scale), max(wa, err)
+        worst[kname] = (ws, wa)
+    return worst
+
+
+def check_fused_solve():
+    """f64 barotropic solves: the fused path with its three kernels against
+    the fused path with the three plain versions and against the per-stage
+    path with the volume kernel; the per-stage path with the uniform-geometry
+    volume kernel against the same path with the general one. Viscous with
+    free-slip walls at 12x12; viscous and inviscid with copy/no-slip walls at
+    6x5 (a copy boundary amplifies the roundoff between two orders of
+    summation: the fused and the per-stage path, both in plain PyTorch on a
+    CPU, differ by 8e-12 of pbvb at 12x12 after 100 stages, too near the
+    tolerance to test anything, and by 2e-13 at 6x5)."""
+    import dataclasses
+
+    from hnumo_tpu_torch.core.btp import barotropic_solve
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.ops.btp_tail import btp_faces_cuda, btp_update_cuda
+    from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda
+    from hnumo_tpu_torch.ops.btp_volume_uni import btp_volume_uni_cuda
+
+    worst = {"fused kernels vs plain": 0.0, "fused vs per-stage": 0.0,
+             "uni_volume vs general": 0.0}
+    nfields = 0
+    for nelx, nely, visc, walls in ((12, 12, True, FREE_SLIP), (6, 5, True, OTHER_WALLS),
+                                    (6, 5, False, OTHER_WALLS)):
+        mf = Model(small_config(nelx, nely, "float64", 1, visc=visc, walls=walls,
+                                fused_tail="on"))
+        mu = Model(small_config(nelx, nely, "float64", 1, visc=visc, walls=walls,
+                                uni_volume="on"))
+        mp = Model(small_config(nelx, nely, "float64", 1, visc=visc, walls=walls))
+        if not (mf.static.fused_tail and mf.static.tail_impl == "kernel"
+                and mu.static.uni_volume and not mp.static.uni_volume):
+            raise AssertionError("expected one model on each path")
+        _, qb, qp, coup = perturbed_inputs(mp, seed=21)
+        qb_keep = qb.clone()
+
+        def solve(m, **replace):
+            st = dataclasses.replace(m.static, **replace)
+            out = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
+                                   tail_ops=m.tail_ops)
+            torch.cuda.synchronize()
+            return out
+
+        counters = (btp_volume_uni_cuda, btp_faces_cuda, btp_update_cuda, btp_volume_cuda)
+        before = [c.launches for c in counters]
+        fk = solve(mf)
+        nsub = mf.static.n_btp * mf.static.kstages
+        if [c.launches - b for c, b in zip(counters, before)] != [nsub, nsub, nsub, 0]:
+            raise AssertionError("one fused solve must launch each of its three "
+                                 f"kernels {nsub} times and no other")
+        if not torch.equal(qb, qb_keep):
+            raise AssertionError("the fused solve changed its caller's qb_df")
+        fp = solve(mf, volume_impl="plain", tail_impl="plain")
+        ps = solve(mp)
+        before = btp_volume_uni_cuda.launches
+        pu = solve(mu)
+        if btp_volume_uni_cuda.launches - before != nsub:
+            raise AssertionError("uni_volume='on' must run the uniform-geometry kernel")
+        what = f"visc={visc} walls={walls}"
+        for key, a, b in (("fused kernels vs plain", fk, fp),
+                          ("fused vs per-stage", fk, ps),
+                          ("uni_volume vs general", pu, ps)):
+            w, _, nfields = compare_solves(a, b, SOLVE_TOL, f"{key} ({what})")
+            worst[key] = max(worst[key], w)
+    return worst, nfields
+
+
+def time_launches(fn, operand_sets, n, device_only=False):
+    """Mean ms per call of fn(*operands), rotating over the operand sets.
+
+    As is, the host enqueues while the device runs, so a call whose wrapper
+    takes the host longer than its kernel takes the device reads as the
+    wrapper's time. `device_only`: the device is first kept busy (a spin
+    kernel) until the host has enqueued all n calls, so the reading is the
+    device time of n launches back to back; the spin is lengthened until the
+    device was still in it when the last call was enqueued."""
     for ops in operand_sets:
         fn(*ops)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for i in range(n):
-        fn(*operand_sets[i % len(operand_sets)])
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
+    spin_cycles = 50_000_000 if device_only else 0     # >= 25 ms below 2 GHz
+    while True:
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
+        t0.record()
+        for i in range(n):
+            fn(*operand_sets[i % len(operand_sets)])
+        queued_ahead = not t0.query()
+        t1.record()
+        torch.cuda.synchronize()
+        if queued_ahead or not device_only:
+            return t0.elapsed_time(t1) / n
+        if spin_cycles > 3_000_000_000:
+            raise AssertionError("the host could not enqueue the launches ahead "
+                                 "of the device: no device-only time taken")
+        spin_cycles *= 4
 
 
 def time_volume_stage(m, n=60, nsets=None):
@@ -410,40 +636,149 @@ def mega_bound(m):
             "bytes": nbytes, "flops": flops, "barriers": nsub}
 
 
+def time_fused_kernels(m, n=60):
+    """Kernels A, F and U and their plain versions at this model's shapes,
+    each alone, rotating over enough independent operand sets to exceed the
+    50 MB L2 ("cold": every launch reads its data from device memory)."""
+    from hnumo_tpu_torch.core.btp import fused_edge_pack, fused_traces
+    from hnumo_tpu_torch.ops import btp_tail as bt
+    from hnumo_tpu_torch.ops import btp_volume_uni as bu
+
+    fo, visc = m.tail_ops, m.static.use_visc
+    ney, nex = m.cfg.nely, m.cfg.nelx
+    ngl = m.g.psiq.shape[0]
+    kw = volume_kwargs(m.static)
+    op = fused_stage_operands(m, seed=23)
+    w = update_weights(m)
+    st = fused_stage(m, op, "plain", w)
+    pa, pf = st["btp_volume_uni"], st["btp_faces"]
+    trL, trR = fused_traces(m.bc, ney, nex, ngl, op["qb"], pa.get("gv"))
+    edges = fused_edge_pack(m.bc, ney, nex, pf["S"])
+    vedges = fused_edge_pack(m.bc, ney, nex, pf["Sv"], negate=True) if visc else None
+
+    def sets(first):
+        nbytes = sum(t.numel() * t.element_size() for t in first if t is not None)
+        k = max(2, min(8, int(np.ceil(3 * 50e6 / nbytes)) + 1))
+        return [first] + [tuple(None if t is None else t.clone() for t in first)
+                          for _ in range(k - 1)]
+
+    a_sets = sets((op["qb"], op["qpln"], op["accv"], op["accn"], op["coup"], op["agr"]))
+    f_sets = sets((trL, trR, op["af"], op["ag"]))
+    u_sets = sets((pa["rhs"], edges, vedges, op["qb0"], op["qb"], op["qb2"],
+                   pa.get("gv"), op["pbpv"], op["bdg"]))
+    out = {}
+    for name, fns, osets in (
+            ("btp_volume_uni", (bu.btp_volume_uni_cuda, bu.btp_volume_uni_plain), a_sets),
+            ("btp_faces", (bt.btp_faces_cuda, bt.btp_faces_plain), f_sets),
+            ("btp_update", (bt.btp_update_cuda, bt.btp_update_plain), u_sets)):
+        def bind(fn):
+            if name == "btp_volume_uni":
+                return lambda *o: fn(fo.vol, *o, **kw)
+            if name == "btp_faces":
+                return lambda *o: fn(op["tabs"], *o, use_visc=visc)
+            return lambda *o: fn(fo.upd, w, *o, fo.mask, use_visc=visc)
+
+        before = fns[0].launches
+        kernel, plain = bind(fns[0]), bind(fns[1])
+        # the kernel twice: as the host launches it, and with the launches queued
+        # ahead of the device (at 64x64 the wrapper's host time exceeds the
+        # kernel's device time)
+        out[name] = {"ms": time_launches(kernel, osets, n, device_only=True),
+                     "ms_with_wrapper": time_launches(kernel, osets, n),
+                     "plain_ms": time_launches(plain, osets, n)}
+        fns[0].launches = before    # timing launches are not the path's
+    return out
+
+
+def fused_bounds(m):
+    """Least time the card could take for one launch of each of A, F and U at
+    this model's shapes: the values each function must read and write once
+    (counted from its operands; of the three SSPRK registers the update reads
+    rows 1..3 only) over the HBM rate, against its flops (2 per multiply-add
+    of the sum-factorised loops, plus the pointwise blocks counted by hand
+    from the sources) over the f32 peak."""
+    n, q = m.g.psiq.shape
+    npts, nqq = n * n, q * q
+    E = m.cfg.nelx * m.cfg.nely
+    F = m.cfg.nely * (m.cfg.nelx + 1) + (m.cfg.nely + 1) * m.cfg.nelx
+    visc = m.static.use_visc
+    rows = 6 if m.static.flat_bottom else 8
+    itemsize = 8 if m.cfg.dtype == "float64" else 4
+    # A in: qb 4, qpln 3, pbp 1, accn 3 [, agr 4] nodal; ptab 6|8, coup 4, accv 12 quad
+    #   out: rhs 3, accn 3 [, gv 4, agr 4] nodal; accv 12 quad
+    a_vals = E * ((17 + (12 if visc else 0)) * npts + (rows + 28) * nqq)
+    a_flops = E * (2 * (7 * n * q * n + 7 * nqq * n + 5 * q * n * q + 3 * npts * 2 * q
+                        + (4 * npts * n if visc else 0)) + 80 * nqq + 8 * npts)
+    # F in: trL, trR 2*(4|8), ntab 5 [, bgf 10, ag 8] nodal; ftab 15, af 16 quad
+    #   out: S 3 [, Sv 2, ag 8] nodal; af 16 quad
+    f_vals = F * ((16 + (36 if visc else 0)) * n + 47 * q)
+    f_flops = F * (2 * (10 * q * n + 3 * n * q) + 110 * q + (45 * n if visc else 0))
+    # U in: rhs 3, qb rows 3*3, ref 3, pbdf 1, mask 2 [, gv 4, pbpv 1, bdg 4] nodal;
+    #       edges 3 [, vedges 2] x 4*ngl;  out: qb 4 nodal
+    u_vals = E * ((22 + (9 if visc else 0)) * npts + (3 + (2 if visc else 0)) * 4 * n)
+    u_flops = E * (20 * 3 * npts + (2 * 2 * npts * 2 * n + 3 * 4 * npts if visc else 0))
+    out = {}
+    for name, vals, flops in (("btp_volume_uni", a_vals, a_flops),
+                              ("btp_faces", f_vals, f_flops),
+                              ("btp_update", u_vals, u_flops)):
+        t_bytes = vals * itemsize / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / F32_FLOPS_PER_S * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_flops),
+                     "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                     "bytes": vals * itemsize, "flops": flops}
+    return out
+
+
 def total_mass(m, state) -> float:
     dp = (m.P.dpp_ref_df + state.q_df[0]).double()
     return float((m.g.wjac_df.double() * dp).sum())
 
 
-def drive(m, warm: int, steps: int):
-    """`warm` + `steps` baroclinic steps through Model.run; launches are
-    counted over the timed steps only (both counters are zeroed just before).
-    On the megakernel path a step is exactly 2 megakernel launches and no
-    volume kernel launch; on the per-stage path 2*N_btp*kstages volume
-    kernel launches and no megakernel launch."""
+def kernel_wrappers():
+    """{kernel name: its wrapper, whose `launches` counts the launches made}."""
+    from hnumo_tpu_torch.ops.btp_tail import btp_faces_cuda, btp_update_cuda
     from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda
+    from hnumo_tpu_torch.ops.btp_volume_uni import btp_volume_uni_cuda
     from hnumo_tpu_torch.ops.mega import barotropic_solve_mega_cuda
 
+    return {"btp_volume": btp_volume_cuda, "btp_mega": barotropic_solve_mega_cuda,
+            "btp_volume_uni": btp_volume_uni_cuda, "btp_faces": btp_faces_cuda,
+            "btp_update": btp_update_cuda}
+
+
+def drive(m, warm: int, steps: int):
+    """`warm` + `steps` baroclinic steps through Model.run; launches are
+    counted over the timed steps only (all five counters are zeroed just
+    before). On the megakernel path a step is exactly 2 megakernel launches;
+    on the fused path 2*N_btp*kstages launches of each of the uniform-geometry
+    volume kernel, the face kernel and the update kernel; on the per-stage
+    path 2*N_btp*kstages volume kernel launches (of the uniform-geometry one
+    under uni_volume). Every other kernel: none."""
+    wrappers = kernel_wrappers()
     s = m.state0
     mass0 = total_mass(m, s)
     s = m.run(s, warm)
     torch.cuda.synchronize()
-    btp_volume_cuda.launches = 0
-    barotropic_solve_mega_cuda.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     s = m.run(s, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_vol, n_mega = btp_volume_cuda.launches, barotropic_solve_mega_cuda.launches
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    per_stage = 2 * m.static.n_btp * m.static.kstages
     if m.static.mega:
-        launches, per_step, want = n_mega, 2, (0, 2 * steps)
+        per_step = {"btp_mega": 2}
+    elif m.static.fused_tail:
+        per_step = {"btp_volume_uni": per_stage, "btp_faces": per_stage,
+                    "btp_update": per_stage}
+    elif m.static.uni_volume:
+        per_step = {"btp_volume_uni": per_stage}
     else:
-        per_step = 2 * m.static.n_btp * m.static.kstages
-        launches, want = n_vol, (steps * per_step, 0)
-    if (n_vol, n_mega) != want:
-        raise AssertionError(
-            f"{steps} steps launched the volume kernel {n_vol} times and the "
-            f"megakernel {n_mega} times, expected {want[0]} and {want[1]}")
+        per_step = {"btp_volume": per_stage}
+    want = {name: steps * per_step.get(name, 0) for name in wrappers}
+    if counts != want:
+        raise AssertionError(f"{steps} steps launched {counts}, expected {want}")
     if not bool(s.ok):
         raise AssertionError("state.ok is False")
     for name in ("qb_df", "q_df", "qprime_df"):
@@ -454,9 +789,54 @@ def drive(m, warm: int, steps: int):
         raise AssertionError(f"relative total-mass change {drift:.3e} > {MASS_TOL}")
     nq = m.g.psiq.shape[1]
     gp = m.cfg.nelx * m.cfg.nely * nq * nq * m.cfg.nlayers
+    first = next(iter(per_step))
     return {"ms_per_step": wall / steps * 1e3, "gp_steps_per_s": gp * steps / wall,
-            "launches": launches, "launches_per_step": per_step,
-            "mass_drift": drift, "t": float(s.t)}, s
+            "launches": counts[first], "launches_per_step": per_step[first],
+            "counts": counts, "mass_drift": drift, "t": float(s.t)}, s
+
+
+def _device_rows(prof):
+    """Rows of device activities (kernels, memcpys) only: the operator rows
+    repeat their kernels' device time."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profile_solve(m, out_path, title):
+    """torch.profiler over one barotropic solve on this model's path: device
+    activities and busy ms per stage, and the share of the wall time the
+    device idles, appended to `out_path` under `title`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnumo_tpu_torch.core.btp import barotropic_solve
+
+    _, qb, qp, coup = perturbed_inputs(m, seed=29)
+    wrappers = kernel_wrappers()
+    before = {k: fn.launches for k, fn in wrappers.items()}
+
+    def solve():
+        barotropic_solve(m.static, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
+                         mega_ops=m.mega_ops, tail_ops=m.tail_ops)
+        torch.cuda.synchronize()
+
+    solve()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    for k, fn in wrappers.items():    # profiled launches are not the path's
+        fn.launches = before[k]
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+    with open(out_path, "a") as f:
+        f.write(f"==== {title} ====\n{table}\n")
+    dev = _device_rows(prof)
+    nsub = m.static.n_btp * m.static.kstages
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    return {"solve_wall_ms_profiled": wall_ms, "solve_device_busy_ms": busy,
+            "activities_per_stage": sum(e.count for e in dev) / nsub,
+            "device_busy_ms_per_stage": busy / nsub,
+            "solve_device_idle_share": 1.0 - busy / wall_ms}
 
 
 def profile_step(m, state, out_path, title):
@@ -470,10 +850,7 @@ def profile_step(m, state, out_path, title):
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     with open(out_path, "a") as f:
         f.write(f"==== {title} ====\n{table}\n")
-    # rows of device activities (kernels, memcpys) only: the operator rows
-    # repeat their kernels' device time
-    from torch.autograd import DeviceType
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = _device_rows(prof)
     out = {"device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
            "device_activities": sum(e.count for e in dev)}
     mega = [e for e in dev if "btp_mega_kernel" in e.key]
@@ -485,8 +862,9 @@ def profile_step(m, state, out_path, title):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="FILE", default=None,
-                    help="also write torch.profiler tables of one 64x64 step and "
-                         "one 32x32 step to FILE")
+                    help="also write torch.profiler tables of one 64x64 step and one "
+                         "barotropic solve on the per-stage and on the fused path, and "
+                         "of one 32x32 step, to FILE")
     args = ap.parse_args()
 
     # ---- phase 1: device ---------------------------------------------------
@@ -509,12 +887,13 @@ def main() -> int:
 
     # ---- phase 2: build (one nvcc per source, side by side) -----------------
     t0 = time.perf_counter()
-    build_libraries(["btp_volume", "btp_mega"])
-    load_library("btp_volume")
-    load_library("btp_mega")
-    print(f"phase 2 build: btp_volume.cu and btp_mega.cu compiled and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for name in ("btp_volume", "btp_mega"):
+    sources = ["btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update"]
+    build_libraries(sources)
+    for name in sources:
+        load_library(name)
+    print(f"phase 2 build: {', '.join(n + '.cu' for n in sources)} compiled side by "
+          f"side and loaded in {time.perf_counter() - t0:.1f} s")
+    for name in sources:
         print(f"phase 2 ptxas {name}: " + "; ".join(resource_usage(name)))
 
     # ---- phase 3: volume kernel vs plain version -----------------------------
@@ -554,7 +933,9 @@ def main() -> int:
     if args.profile:
         extra = profile_step(m64, s64, args.profile, "64x64 f32, per-stage path")
         extra["device_idle_share"] = 1.0 - extra["device_busy_ms"] / run64["ms_per_step"]
-        print(f"phase 5 profile of one step: {json.dumps(extra)}")
+        extra.update(profile_solve(m64, args.profile,
+                                   "64x64 f32, one barotropic solve, per-stage path"))
+        print(f"phase 5 profile of one step and of one solve: {json.dumps(extra)}")
     del s64, m64
 
     # ---- phase 6: 256x256 f32 -------------------------------------------------
@@ -641,7 +1022,105 @@ def main() -> int:
         print(f"phase 9 profile of one step: {json.dumps(extra32)}")
     del s32, m32
 
-    # ---- phase 10: the kernels line ------------------------------------------
+    # ---- phase 10: kernels A, F, U vs their plain versions ---------------------
+    names = ("btp_volume_uni", "btp_faces", "btp_update")
+    worst3 = {"float64": dict.fromkeys(names, 0.0), "float32": dict.fromkeys(names, 0.0)}
+    main_err3 = None
+    for dtype in ("float64", "float32"):
+        for botfr, visc, case in ((0, True, "double_gyre"), (1, True, "double_gyre"),
+                                  (2, True, "double_gyre"), (1, False, "double_gyre"),
+                                  (1, True, "seamount")):
+            for nelx, nely in ((6, 5), (64, 64)):
+                w = check_fused_kernels(nelx, nely, dtype, botfr, visc=visc, test_case=case)
+                for k in names:
+                    worst3[dtype][k] = max(worst3[dtype][k], w[k][0])
+                if (dtype, botfr, visc, case, nelx) == ("float32", 1, True, "double_gyre", 64):
+                    main_err3 = w       # the main path's shapes
+    print("phase 10 kernels A, F, U vs plain, one stage (viscous botfr 0/1/2, inviscid, "
+          "non-flat bottom; E=30/F=71 and E=4096/F=8320; every output on its own scale), "
+          "max err/scale: " + "; ".join(
+              f"{k} f64 {worst3['float64'][k]:.3e} f32 {worst3['float32'][k]:.3e}"
+              for k in names) + f" (tol f64 {F64_TOL:g}, f32 {F32_TOL:g})")
+
+    # ---- phase 11: fused solve vs plain versions and vs the per-stage path ----
+    wsolve, nfields = check_fused_solve()
+    print(f"phase 11 f64 barotropic_solve (12x12 viscous free-slip; 6x5 viscous and "
+          f"inviscid with copy/no-slip walls), qb + {nfields - 4} averages, max err/scale: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in wsolve.items())
+          + f" (tol {SOLVE_TOL:g})")
+
+    # ---- phase 12: the fused path at full width, 64x64 f32 -------------------
+    f64m = Model(fused_config(64, "float32"))
+    if not (f64m.static.fused_tail and not f64m.static.mega
+            and f64m.static.volume_impl == "kernel" and f64m.static.tail_impl == "kernel"):
+        raise AssertionError("mega='off', fused_tail='on' must take the fused path "
+                             "with its three CUDA kernels")
+    runf64, sf64 = drive(f64m, warm=2, steps=3)
+    tf64 = time_fused_kernels(f64m)
+    bf64 = fused_bounds(f64m)
+    print(f"phase 12 fused path 64x64 p=4 L=2 f32 N_btp={f64m.static.n_btp}: "
+          f"{runf64['ms_per_step']:.2f} ms/step, {runf64['gp_steps_per_s']:.4g} gp-steps/s "
+          f"(per-stage path in this call, phase 5: {run64['ms_per_step']:.2f} ms/step, "
+          f"{run64['gp_steps_per_s']:.4g} gp-steps/s), launches in 3 steps "
+          f"{json.dumps(runf64['counts'])}, ok, finite, mass drift "
+          f"{runf64['mass_drift']:.2e}; " + "; ".join(
+              f"{k} {tf64[k]['ms']:.4f} ms/launch on the device "
+              f"({tf64[k]['ms_with_wrapper']:.4f} as the host launches it), plain "
+              f"{tf64[k]['plain_ms']:.4f}, bound "
+              f"{bf64[k]['bound_ms']:.4f} ms by {bf64[k]['bound_by']}" for k in names))
+    extraf = {}
+    if args.profile:
+        extraf = profile_step(f64m, sf64, args.profile, "64x64 f32, fused path")
+        extraf["device_idle_share"] = (1.0 - extraf["device_busy_ms"]
+                                       / runf64["ms_per_step"])
+        extraf.update(profile_solve(f64m, args.profile,
+                                    "64x64 f32, one barotropic solve, fused path"))
+        print(f"phase 12 profile of one step and of one solve: {json.dumps(extraf)}")
+    del sf64, f64m
+
+    # ---- phase 13: the fused path at 256x256 f32 ------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f256m = Model(fused_config(256, "float32"))
+    runf256, _ = drive(f256m, warm=0, steps=2)
+    peak256 = torch.cuda.max_memory_allocated() / 2**30
+    tf256 = time_fused_kernels(f256m, n=20)
+    bf256 = fused_bounds(f256m)
+    print(f"phase 13 fused path 256x256 p=4 L=2 f32: {runf256['ms_per_step']:.1f} ms/step, "
+          f"{runf256['gp_steps_per_s']:.4g} gp-steps/s (per-stage path in this call, "
+          f"phase 6: {run256['ms_per_step']:.1f} ms/step), ok, finite, mass drift "
+          f"{runf256['mass_drift']:.2e}, peak device memory {peak256:.2f} GiB; "
+          + "; ".join(
+              f"{k} {tf256[k]['ms']:.4f} ms/launch on the device "
+              f"({tf256[k]['ms_with_wrapper']:.4f} as the host launches it), plain "
+              f"{tf256[k]['plain_ms']:.4f}, bound "
+              f"{bf256[k]['bound_ms']:.4f} ms by {bf256[k]['bound_by']}" for k in names))
+    del f256m
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the kernels line ------------------------------------------
+    replaces = {"btp_volume_uni": "hnumo_tpu/ops/pallas_btp.py:287",
+                "btp_faces": "hnumo_tpu/ops/pallas_btp_tail.py:158",
+                "btp_update": "hnumo_tpu/ops/pallas_btp_tail.py:362"}
+    fused_entries = [{
+        "name": k, "route": "cuda", "source": f"hnumo_tpu_torch/ops/csrc/{k}.cu",
+        "replaces": replaces[k], "launches": runf64["counts"][k],
+        "max_abs_err": main_err3[k][1], "max_err_over_scale": main_err3[k][0],
+        "tolerance_over_scale": F32_TOL,
+        "ms": tf64[k]["ms"], "ms_with_wrapper": tf64[k]["ms_with_wrapper"],
+        "plain_ms": tf64[k]["plain_ms"],
+        "bound_ms": bf64[k]["bound_ms"], "bound_by": bf64[k]["bound_by"],
+        "library_ms": None, "checked_against_plain": True,
+        "launches_per_step": runf64["launches_per_step"],
+        "step_ms": runf64["ms_per_step"], "gp_steps_per_s": runf64["gp_steps_per_s"],
+        "step_ms_per_stage_path": run64["ms_per_step"],
+        "ms_256": tf256[k]["ms"], "ms_with_wrapper_256": tf256[k]["ms_with_wrapper"],
+        "plain_ms_256": tf256[k]["plain_ms"],
+        "bound_ms_256": bf256[k]["bound_ms"], "step_ms_256": runf256["ms_per_step"],
+        "gp_steps_per_s_256": runf256["gp_steps_per_s"],
+        "step_ms_256_per_stage_path": run256["ms_per_step"],
+        "peak_memory_gib_256": peak256, **extraf,
+    } for k in names]
     kernels = [{
         "name": "btp_volume", "route": "cuda",
         "source": "hnumo_tpu_torch/ops/csrc/btp_volume.cu",
@@ -674,7 +1153,7 @@ def main() -> int:
         "ms_64": tm64on["ms"], "step_ms_64_mega_on": run64on["ms_per_step"],
         "gp_steps_per_s_64_mega_on": run64on["gp_steps_per_s"],
         **extra32,
-    }]
+    }] + fused_entries
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

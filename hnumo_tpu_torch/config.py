@@ -3,11 +3,11 @@
 Counterpart of hnumo_tpu/config.py: the same physics and namelist fields
 with the same defaults (reference src/mod_input.F90:118-269), so a
 configuration written for one package describes the same run in the other.
-Of the JAX package's backend knobs only `mega` is carried over, with the
-same meaning; use_pallas, pallas_interpret, scan_stages, uni_volume,
-fused_tail, mega_precision and batched_faces have no counterpart here (one
-precision, full f32; kernel or plain version is chosen by
-`Model(..., volume_impl=, mega_impl=)`).
+Of the JAX package's backend knobs `mega`, `fused_tail` and `uni_volume` are
+carried over, with the same meaning and the same defaults; use_pallas,
+pallas_interpret, scan_stages, mega_precision and batched_faces have no
+counterpart here (one precision, full f32; kernel or plain version is chosen
+by `Model(..., volume_impl=, mega_impl=, tail_impl=)`).
 The namelist file parser is not ported yet.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ import math
 
 
 MEGA_MODES = ("auto", "on", "off")
+ON_OFF = ("on", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +80,16 @@ class Config:
     # otherwise; "on" = at any element count, and raises outside the
     # envelope instead of taking the other path.
     mega: str = "auto"
+    # Whole-stage fused barotropic path ("on" | "off"): three kernels per
+    # stage (uniform-geometry volume stage with the velocity gradient, all-
+    # faces flux, edge scatter + viscosity + SSPRK update; ops/btp_volume_uni
+    # and ops/btp_tail) around a plain-PyTorch trace exchange. Envelope:
+    # uniform brick, SSP integrator, nodal/no viscosity; "on" raises outside
+    # it. `mega` is asked first: under 1024 elements say mega="off" too.
+    fused_tail: str = "off"
+    # Uniform-geometry volume kernel (ops/btp_volume_uni) in place of the
+    # general one in the per-stage path ("on" | "off"); uniform brick only.
+    uni_volume: str = "off"
     # Reproduce the reference's wind/bottom-stress vertical distribution
     # verbatim, including its indexing slip (see core/bcl.py).
     compat_reference_stress: bool = False
@@ -93,6 +104,10 @@ class Config:
             raise ValueError(f"dtype must be 'float32' or 'float64', got {self.dtype!r}")
         if self.mega not in MEGA_MODES:
             raise ValueError(f"mega must be one of {MEGA_MODES}, got {self.mega!r}")
+        for name in ("fused_tail", "uni_volume"):
+            if getattr(self, name) not in ON_OFF:
+                raise ValueError(
+                    f"{name} must be one of {ON_OFF}, got {getattr(self, name)!r}")
 
     # Derived quantities (reference src/mod_initial.F90:176-186)
     @property

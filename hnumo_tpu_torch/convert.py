@@ -11,6 +11,13 @@ two packages keep their fields in the same order.
 package's megakernel operands (rows padded to lane blocks) into the layout
 of this package's `ops/mega.MegaStatic`, so that a test can compare the
 fields the two share.
+
+`vol_ops_uni_from_padded`, `face_tables_from_padded` and
+`update_ops_from_padded` do the same for the three operand bundles of the
+fused barotropic stage (the JAX package's `BtpVolOpsUni`, `FaceTailTables`,
+`UpdateOps`): the edge-replicated elements and faces that pad them to a tile
+multiple are dropped, so that a test can run a stage of this package on the
+other package's own tables.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import numpy as np
 import torch
 
 from .core.types import FaceDirGeom, Pair, Precomputed, State
+from .ops.btp_tail import FaceTailTables, UpdateOps
+from .ops.btp_volume_uni import BtpVolOpsUni
 from .ops.dg import DeviceGeom
 
 
@@ -101,3 +110,60 @@ def mega_tables_from_padded(mops_np, nelem: int, ngl: int, nq: int) -> dict:
         "a_tab": np.asarray(src["a_tab"]),
         "b_tab": np.asarray(src["b_tab"]).reshape(-1),
     }
+
+
+def _asdict(src) -> dict:
+    return src if isinstance(src, dict) else src._asdict()
+
+
+def vol_ops_uni_from_padded(ops_np, like: BtpVolOpsUni) -> BtpVolOpsUni:
+    """The JAX package's BtpVolOpsUni (NumPy arrays; element axis padded) as
+    this package's: its Kronecker matrices and element tables, the latter cut
+    to the element count of `like`, replace those of `like` — the bundle this
+    package built for the same grid (`operators_uniform`), which supplies the
+    1-D tables the other package does not carry."""
+    src = _asdict(ops_np)
+    E = like.ptab.shape[1]
+
+    def cast(a):
+        return torch.tensor(np.asarray(a), dtype=like.K.dtype, device=like.K.device)
+
+    grad = {k: (None if src.get(k) is None else cast(src[k])) for k in ("Gx", "Gy")}
+    return like._replace(K=cast(src["K"]), M2=cast(src["M2"]),
+                         ptab=cast(np.asarray(src["ptab"])[:, :E]),
+                         pbp_df=cast(np.asarray(src["pbp_df"])[:E]), **grad)
+
+
+def face_tables_from_padded(tabs_np, use_visc: bool, device,
+                            dtype: torch.dtype) -> FaceTailTables:
+    """The JAX package's FaceTailTables (NumPy arrays; face axis padded to
+    `Fp`) as this package's, cut to the nfx + nfy faces; `bgf` is None when
+    inviscid (there it is a block of zeros)."""
+    src = _asdict(tabs_np)
+    nfx, nfy = int(src["nfx"]), int(src["nfy"])
+    F = nfx + nfy
+
+    def cast(a):
+        return torch.tensor(np.asarray(a)[:, :F], dtype=dtype, device=device)
+
+    return FaceTailTables(
+        ftab=cast(src["ftab"]), ntab=cast(src["ntab"]),
+        bgf=cast(src["bgf"]) if use_visc else None,
+        psiq=torch.tensor(np.asarray(src["psiq"]), dtype=dtype, device=device),
+        nfx=nfx, nfy=nfy)
+
+
+def update_ops_from_padded(uops_np, like: UpdateOps) -> UpdateOps:
+    """The JAX package's UpdateOps (NumPy arrays; element axis padded) as this
+    package's: its matrices and element tables replace those of `like`
+    (`build_update_ops` on the same grid), which supplies the 1-D tables."""
+    src = _asdict(uops_np)
+    E = like.ref.shape[1]
+
+    def cast(a):
+        return torch.tensor(np.asarray(a), dtype=like.ref.dtype, device=like.ref.device)
+
+    return like._replace(
+        Escat=cast(src["Escat"]), Evisc=cast(src["Evisc"]), Vx=cast(src["Vx"]),
+        Vy=cast(src["Vy"]), pbprime_df=cast(np.asarray(src["pbprime_df"])[:E]),
+        ref=cast(np.asarray(src["ref"])[:, :E]))

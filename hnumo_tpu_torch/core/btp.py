@@ -1,10 +1,13 @@
 """Barotropic solver: RHS stages + SSPRK sub-cycling with running averages.
 
 Counterpart of hnumo_tpu/core/btp.py. `barotropic_solve` dispatches like
-the JAX package: within the megakernel's envelope (StaticConfig.mega, by
-default up to 1024 elements) the whole solve is one launch of ops/mega;
-otherwise the per-stage path below runs: one fused volume kernel per stage
-(ops/btp_volume) plus the flat-axis face path in plain PyTorch.
+the JAX package, in its order: within the megakernel's envelope
+(StaticConfig.mega, by default up to 1024 elements) the whole solve is one
+launch of ops/mega; else under StaticConfig.fused_tail the fused path runs,
+three kernels per stage (ops/btp_volume_uni, ops/btp_tail) around a
+plain-PyTorch trace exchange; otherwise the per-stage path below: one fused
+volume kernel per stage (ops/btp_volume, or ops/btp_volume_uni under
+StaticConfig.uni_volume) plus the flat-axis face path in plain PyTorch.
 Reference: src/mod_rhs_btp.F90 (create_rhs_btp, create_rhs_btp_volume_qdf,
 creat_btp_fluxes_qdf), src/mod_rk_mlswe.F90 (ti_barotropic_ssprk_mlswe),
 src/mod_barotropic_terms.F90 (btp_extract_df, btp_mom_boundary_df).
@@ -23,14 +26,20 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from ..ops.btp_tail import (UpdateOps, btp_faces_cuda, btp_faces_plain,
+                            btp_update_cuda, btp_update_plain, build_face_tables,
+                            build_update_ops, static_face_rows)
 from ..ops.btp_volume import (BtpVolOperators, btp_volume_cuda,
                               btp_volume_plain, eflat, operators_from_tables)
+from ..ops.btp_volume_uni import (BtpVolOpsUni, btp_volume_uni_cuda,
+                                  btp_volume_uni_plain, operators_uniform)
 from ..ops.mega import (MegaStatic, barotropic_solve_mega_cuda,
                         barotropic_solve_mega_plain)
 from ..ops.dg import DeviceGeom, grad_nodal, interp_n2q, scatter_volume, scatter_volume_nodal
-from .faces import (BCs, apply_wall_projection, extract_faces_multi,
-                    extract_faces_stacked, face_n2q, face_quad_scatter,
-                    scatter_face_x, scatter_face_y)
+from .faces import (BCs, apply_wall_projection, extract_faces_from_slabs,
+                    extract_faces_multi, extract_faces_stacked, face_n2q,
+                    face_quad_scatter, face_views_x, face_views_y,
+                    scatter_face_x, scatter_face_y, wall_projection_masks)
 from .types import BtpAverages, BtpFaceAvg, CouplingFields, Pair, Precomputed
 
 
@@ -332,35 +341,216 @@ def _averages_view(static, vol, nod, fxa, fya, gvx, gvy, graduvb) -> BtpAverages
                        faces=Pair(face(fxa, gvx), face(fya, gvy)))
 
 
-def build_vol_operators(static, g: DeviceGeom, P: Precomputed) -> BtpVolOperators:
-    """Flat volume operator tables (state-independent).
+def build_vol_operators(static, g: DeviceGeom, P: Precomputed):
+    """Flat volume operator tables of the per-stage path (state-independent):
+    the uniform-geometry ones under `static.uni_volume`, else the general.
 
     Everything here depends only on geometry and precomputed physics
     tables, so callers evaluate it once at model build and pass the result
     through `barotropic_solve(vol_ops=...)`."""
+    if static.uni_volume:
+        return operators_uniform(g, P, static.flat_bottom)
     return operators_from_tables(g, P)
+
+
+class FusedOps(NamedTuple):
+    """State-independent operands of the fused path (built once per model)."""
+
+    vol: BtpVolOpsUni     # kernel A, massinv folded, with the gradient when viscous
+    upd: UpdateOps        # kernel U
+    face_rows: tuple      # static_face_rows: (ftab rows 0-10, ntab) of kernel F
+    mask: Tensor          # (2, E, npts) wall projection of (pbub, pbvb)
+
+
+def build_fused_operators(static, g: DeviceGeom, P: Precomputed, bc: BCs) -> FusedOps:
+    """The fused path's operator tables; callers evaluate them once at model
+    build and pass the result through `barotropic_solve(tail_ops=...)`."""
+    ney, nex = g.wjac.shape[0], g.wjac.shape[1]
+    ngl = g.wjac_df.shape[-1]
+    mu_w, mv_w = wall_projection_masks((ney, nex, ngl, ngl), bc, g.wjac.dtype,
+                                       g.wjac.device)
+    return FusedOps(
+        vol=operators_uniform(g, P, static.flat_bottom, fold_massinv=True,
+                              with_grad=static.use_visc),
+        upd=build_update_ops(static, P, g),
+        face_rows=static_face_rows(P),
+        mask=torch.stack([eflat(mu_w), eflat(mv_w)]))
+
+
+def fused_traces(bc: BCs, ney: int, nex: int, ngl: int, qb: Tensor,
+                 gv: Tensor | None):
+    """Left/right face traces (8|4, F, ngl) of the flat state `qb`
+    (4, E, npts) and, when viscous, of the velocity gradient `gv`
+    (4, E, npts) on the flat face axis [x-faces ; y-faces]: the exchange
+    between the volume and the face stage. Built from strided views of the
+    edge nodes (the thin slabs, not the full fields); the wall mirrors of the
+    momentum and gradient channels are applied here."""
+    def slabs(qf):   # east, west, north, south: (C, ney, nex, ngl)
+        q = qf.view(qf.shape[0], ney, nex, ngl, ngl)
+        return q[..., :, -1], q[..., :, 0], q[..., -1, :], q[..., 0, :]
+
+    if gv is None:
+        slb, vec_pairs = slabs(qb), ((2, 3),)
+    else:
+        slb = tuple(torch.cat([sq, sg]) for sq, sg in zip(slabs(qb), slabs(gv)))
+        vec_pairs = ((2, 3), (4, 5), (6, 7))
+    xl, xr, yl, yr = extract_faces_from_slabs(*slb, bc, vec_pairs=vec_pairs)
+    C = xl.shape[0]
+
+    def pack(xt, yt):
+        return torch.cat([xt.reshape(C, -1, ngl), yt.reshape(C, -1, ngl)], dim=1)
+
+    return pack(xl, yl), pack(xr, yr)
+
+
+def fused_edge_pack(bc: BCs, ney: int, nex: int, Sflat: Tensor,
+                    negate: bool = False) -> Tensor:
+    """(n, F, ngl) face values -> signed element edge stack (n, E, 4*ngl)
+    ordered [W, E, S, N] (the update stage's edge slots): the exchange
+    between the face and the update stage. The sign with which a face value
+    lands on its two elements, and on a boundary element, is applied here
+    (faces.face_views_x/y)."""
+    n, ngl = Sflat.shape[0], Sflat.shape[-1]
+    nfx = ney * (nex + 1)
+    Sx = Sflat[:, :nfx].view(n, ney, nex + 1, ngl)
+    Sy = Sflat[:, nfx:].view(n, ney + 1, nex, ngl)
+    if negate:
+        Sx, Sy = -Sx, -Sy
+    Sw, Se = face_views_x(Sx, bc)
+    Ss, Sn = face_views_y(Sy, bc)
+    return torch.cat([v.reshape(n, ney * nex, ngl) for v in (Sw, Se, Ss, Sn)], dim=-1)
+
+
+def _barotropic_solve_fused(static, P: Precomputed, g: DeviceGeom, bc: BCs,
+                            coup: CouplingFields, qb_df: Tensor,
+                            qprime_df: Tensor, fops: FusedOps):
+    """Whole-stage fused barotropic solve: three kernels per stage — volume
+    (+gradient), all-faces flux, update — around a plain-PyTorch exchange
+    that gathers the edge traces for the face stage and the face values for
+    the update stage.
+
+    Counterpart of hnumo_tpu/core/btp._barotropic_solve_fused. The state
+    and every accumulator are carried FLAT (element- / face-major) across
+    the whole sub-cycling; structured layouts are rebuilt once at the end.
+    Kernel A under `static.volume_impl`, kernels F and U under
+    `static.tail_impl` ("kernel": CUDA, "plain": plain PyTorch). The
+    accumulators are allocated here and updated in place by the stages;
+    `qb_df` is not mutated."""
+    dtype, device = qb_df.dtype, qb_df.device
+    opts = dict(dtype=dtype, device=device)
+    ney, nex = g.wjac.shape[0], g.wjac.shape[1]
+    nq, ngl = g.wjac.shape[-1], g.wjac_df.shape[-1]
+    npts, nqq = ngl * ngl, nq * nq
+    E = ney * nex
+    use_visc = static.use_visc
+    kstages = static.kstages
+
+    volume = (btp_volume_uni_cuda if static.volume_impl == "kernel"
+              else btp_volume_uni_plain)
+    faces, update = ((btp_faces_cuda, btp_update_cuda) if static.tail_impl == "kernel"
+                     else (btp_faces_plain, btp_update_plain))
+    vol_kw = dict(grav=static.gravity, botfr=static.botfr, cd=static.cd_mlswe,
+                  alpha_bot=static.alpha_bot)
+
+    # constant over the whole solve
+    tabs = build_face_tables(P, coup, g.psiq, use_visc, static_rows=fops.face_rows)
+    nfx, nfy = tabs.nfx, tabs.nfy
+    F = nfx + nfy
+    coup_flat = torch.stack([eflat(c.contiguous()) for c in
+                             (coup.Q_uu_dp, coup.Q_uv_dp, coup.Q_vv_dp, coup.dH_bcl)])
+    qpln_flat = eflat(qprime_df[:, -1].contiguous())
+    pbpv = bdg = ag = agr = None
+    if use_visc:
+        pbpv = eflat(coup.pbprime_visc.contiguous())[None]
+        bdg = eflat(coup.btp_dpp_graduv.contiguous())
+        ag = torch.zeros((8, F, ngl), **opts)
+        agr = torch.zeros((4, E, npts), **opts)
+    accv = torch.zeros((12, E, nqq), **opts)
+    accn = torch.zeros((3, E, npts), **opts)
+    af = torch.zeros((16, F, nq), **opts)
+
+    # SSPRK tables as Python floats: no device read inside the stage loop
+    a = [[float(v) for v in row] for row in P.ssprk_a.tolist()]
+    beta = [float(v) for v in P.ssprk_beta.tolist()]
+
+    qb1 = eflat(qb_df.contiguous())
+    qb2 = torch.zeros_like(qb1)
+    for _ in range(static.n_btp):
+        qb0 = qb1            # register 0 of THIS sub-step
+        for ik in range(kstages):
+            # kernel A: volume RHS + volume/nodal averages (+ gradient)
+            if use_visc:
+                rhs, accv, accn, gv, agr = volume(
+                    fops.vol, qb1, qpln_flat, accv, accn, coup_flat, agr, **vol_kw)
+            else:
+                rhs, accv, accn = volume(
+                    fops.vol, qb1, qpln_flat, accv, accn, coup_flat, **vol_kw)
+                gv = None
+
+            # the exchange: traces of the [qb, graduv] channel stack
+            trL, trR = fused_traces(bc, ney, nex, ngl, qb1, gv)
+
+            # kernel F: all-faces flux + face averages
+            S, Sv, af, ag = faces(tabs, trL, trR, af, ag, use_visc=use_visc)
+            vedges = fused_edge_pack(bc, ney, nex, Sv, negate=True) if use_visc else None
+            edges = fused_edge_pack(bc, ney, nex, S)
+
+            # kernel U: edge placement + viscosity volume term + SSPRK combine
+            w = (a[ik][0], a[ik][1], a[ik][2], static.dt_btp * beta[ik])
+            qb1 = update(fops.upd, w, rhs, edges, vedges, qb0, qb1, qb2, gv,
+                         pbpv, bdg, fops.mask, use_visc=use_visc)
+            if kstages == 5 and ik == 1:
+                # SSP(5,3) snapshots the stage-2 state into the third register
+                qb2 = qb1
+
+    n_inv = 1.0 / (kstages * static.n_btp)
+    vol = (accv * n_inv).view(12, ney, nex, nq, nq)
+    nod = (accn * n_inv).view(3, ney, nex, ngl, ngl)
+    af = af * n_inv
+    afx = af[:, :nfx].reshape(16, ney, nex + 1, nq)
+    afy = af[:, nfx:].reshape(16, ney + 1, nex, nq)
+    if use_visc:
+        ag2 = (ag * n_inv).view(2, 4, F, ngl)
+        agx = ag2[:, :, :nfx].reshape(2, 4, ney, nex + 1, ngl)
+        agy = ag2[:, :, nfx:].reshape(2, 4, ney + 1, nex, ngl)
+        agrad = (agr * n_inv).view(4, ney, nex, ngl, ngl)
+    else:
+        agx = torch.zeros((2, 4, ney, nex + 1, ngl), **opts)
+        agy = torch.zeros((2, 4, ney + 1, nex, ngl), **opts)
+        agrad = torch.zeros((4, ney, nex, ngl, ngl), **opts)
+    qb = qb1.view(4, ney, nex, ngl, ngl)
+    return qb, _averages_view(static, vol, nod, afx, afy, agx, agy, agrad)
 
 
 def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
                      coup: CouplingFields, qb_df: Tensor, qprime_df: Tensor,
-                     vol_ops: BtpVolOperators | None = None,
-                     mega_ops: MegaStatic | None = None):
+                     vol_ops: BtpVolOperators | BtpVolOpsUni | None = None,
+                     mega_ops: MegaStatic | None = None,
+                     tail_ops: FusedOps | None = None):
     """SSPRK barotropic sub-cycling over N_btp steps x kstages stages.
 
     Reference ti_barotropic_ssprk_mlswe (src/mod_rk_mlswe.F90:19-151).
     With `static.mega` and `mega_ops` (ops/mega.build_mega_static) the whole
     solve is one call of ops/mega — the CUDA megakernel when
     static.mega_impl == "kernel", its plain version when "plain".
+    Else with `static.fused_tail` the fused path runs
+    (`_barotropic_solve_fused`; `tail_ops` from `build_fused_operators`,
+    rebuilt here when None).
     Otherwise each stage is one fused volume stage — the CUDA kernel when
-    static.volume_impl == "kernel", its plain version when "plain" — which
-    also updates the flat volume/nodal accumulators in place, followed by
-    the flat-axis face path in plain PyTorch and the SSPRK combine.
+    static.volume_impl == "kernel", its plain version when "plain"; the
+    uniform-geometry stage under `static.uni_volume` — which also updates
+    the flat volume/nodal accumulators in place, followed by the flat-axis
+    face path in plain PyTorch and the SSPRK combine.
     Returns (qb_df at t+dt, normalized BtpAverages); `qb_df` is not mutated.
     """
     if static.mega and mega_ops is not None:
         solve = (barotropic_solve_mega_cuda if static.mega_impl == "kernel"
                  else barotropic_solve_mega_plain)
         return solve(static, P, g, bc, coup, qb_df, qprime_df, mega_ops)
+    if static.fused_tail:
+        fops = (tail_ops if tail_ops is not None
+                else build_fused_operators(static, g, P, bc))
+        return _barotropic_solve_fused(static, P, g, bc, coup, qb_df, qprime_df, fops)
 
     dtype, device = qb_df.dtype, qb_df.device
     opts = dict(dtype=dtype, device=device)
@@ -371,8 +561,14 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     F = Fx + (ney + 1) * nex
     kstages, n_btp = static.kstages, static.n_btp
 
-    volume = btp_volume_cuda if static.volume_impl == "kernel" else btp_volume_plain
+    kernel = static.volume_impl == "kernel"
+    if static.uni_volume:
+        volume = btp_volume_uni_cuda if kernel else btp_volume_uni_plain
+    else:
+        volume = btp_volume_cuda if kernel else btp_volume_plain
     ops = vol_ops if vol_ops is not None else build_vol_operators(static, g, P)
+    vol_kw = dict(grav=static.gravity, botfr=static.botfr, cd=static.cd_mlswe,
+                  alpha_bot=static.alpha_bot)
 
     # fresh per solve: the volume stage mutates these two
     accv = torch.zeros((12, E, nq * nq), **opts)
@@ -385,9 +581,13 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     a = [[float(v) for v in row] for row in P.ssprk_a.tolist()]
     beta = [float(v) for v in P.ssprk_beta.tolist()]
 
-    # constant over the whole solve: bottom-layer primes at quad points, the
-    # flattened coupling stack and the flat face bundle
-    qplq_flat = eflat(interp_n2q(g, qprime_df[:, -1]).contiguous())
+    # constant over the whole solve: bottom-layer primes (nodal for the
+    # uniform-geometry stage, which interpolates them itself, else at quad
+    # points), the flattened coupling stack and the flat face bundle
+    if static.uni_volume:
+        qpln_flat = eflat(qprime_df[:, -1].contiguous())
+    else:
+        qplq_flat = eflat(interp_n2q(g, qprime_df[:, -1]).contiguous())
     coup_flat = torch.stack([eflat(coup.Q_uu_dp.contiguous()),
                              eflat(coup.Q_uv_dp.contiguous()),
                              eflat(coup.Q_vv_dp.contiguous()),
@@ -401,10 +601,13 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
         for ik in range(kstages):
             # volume RHS + volume/nodal averages (nodal ones from the
             # pre-stage qb1, reference :90-92)
-            rhs_f, accv, accn = volume(
-                ops, eflat(qb1.contiguous()), qplq_flat, coup_flat, accv, accn,
-                grav=static.gravity, botfr=static.botfr, cd=static.cd_mlswe,
-                alpha_bot=static.alpha_bot)
+            qbf = eflat(qb1.contiguous())
+            if static.uni_volume:     # rhs WITHOUT massinv: the face path applies it
+                rhs_f, accv, accn = volume(ops, qbf, qpln_flat, accv, accn,
+                                           coup_flat, **vol_kw)
+            else:
+                rhs_f, accv, accn = volume(ops, qbf, qplq_flat, coup_flat, accv,
+                                           accn, **vol_kw)
             rhs = rhs_f.view(3, ney, nex, ngl, ngl)
             rhs, inc, graduv, gface_flat = _btp_faces_visc_flat(
                 static, P, g, bc, coup, flat, qb1, rhs)

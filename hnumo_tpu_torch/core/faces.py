@@ -99,13 +99,22 @@ def extract_faces_stacked(q: Tensor, bc: BCs, vec_pairs=()):
     west = q[..., :, :, :, 0]
     north = q[..., :, :, -1, :]
     south = q[..., :, :, 0, :]
-    C = q.shape[0]
+    return extract_faces_from_slabs(east, west, north, south, bc, vec_pairs)
 
+
+def extract_faces_from_slabs(east: Tensor, west: Tensor, north: Tensor,
+                             south: Tensor, bc: BCs, vec_pairs=()):
+    """extract_faces_stacked from the four edge slabs (C, ..., ly, lx, m).
+
+    Lets a caller that holds its fields in the flat element-major layout
+    (the fused barotropic path) build traces from strided views of the
+    edge nodes, without the structured field."""
+    C = east.shape[0]
     vec_pairs = tuple(tuple(p) for p in vec_pairs)
 
     def msig(code, direction):
         return _mirror_sign_tensor(C, code, direction, vec_pairs, east.ndim,
-                                   q.dtype, q.device)
+                                   east.dtype, east.device)
 
     # ---- x-direction (face axis extends the lx axis = -2 of the slabs) ----
     w_own = west[..., :1, :]

@@ -29,6 +29,7 @@ GRAVITY_DEFAULT = 9.806
 
 VOLUME_IMPLS = ("kernel", "plain")
 MEGA_IMPLS = ("kernel", "plain")
+TAIL_IMPLS = ("kernel", "plain")
 # "auto" dispatches the megakernel up to this many elements. The number is
 # the JAX package's (there a fast-memory cap of its kernel); it is kept so
 # that both packages take the same path at the same size.
@@ -42,11 +43,15 @@ class StaticConfig:
 
     The physics fields of the JAX package's StaticConfig; its backend flags
     are replaced by `mega_on` (the whole-solve megakernel path was asked
-    for and the size allows it; `mega` adds the envelope) and two
-    implementation switches: `volume_impl` ("kernel" runs the per-stage
-    barotropic volume stage through ops/btp_volume.btp_volume_cuda, "plain"
-    through its plain PyTorch version) and `mega_impl` (the same choice for
-    ops/mega.barotropic_solve_mega_cuda / _plain)."""
+    for and the size allows it; `mega` adds the envelope), `fused_tail_on`
+    and `uni_volume_on` (asked for; `fused_tail` and `uni_volume` add the
+    envelopes) and three implementation switches: `volume_impl` ("kernel"
+    runs the barotropic volume stage — the general one of the per-stage
+    path, ops/btp_volume, and the uniform-geometry one, ops/btp_volume_uni —
+    through its CUDA kernel, "plain" through its plain PyTorch version),
+    `mega_impl` (the same choice for ops/mega.barotropic_solve_mega_cuda /
+    _plain) and `tail_impl` (for the face and update kernels of the fused
+    path, ops/btp_tail, together)."""
 
     nlayers: int
     kstages: int
@@ -71,6 +76,9 @@ class StaticConfig:
     volume_impl: str = "plain"    # "kernel" | "plain"
     mega_on: bool = False         # whole-solve megakernel path (ops/mega)
     mega_impl: str = "plain"      # "kernel" | "plain"
+    fused_tail_on: bool = False   # opt-in whole-stage fused path (config)
+    uni_volume_on: bool = False   # opt-in uniform-geometry volume kernel
+    tail_impl: str = "plain"      # "kernel" | "plain"
 
     def __post_init__(self):
         if self.volume_impl not in VOLUME_IMPLS:
@@ -80,6 +88,9 @@ class StaticConfig:
         if self.mega_impl not in MEGA_IMPLS:
             raise ValueError(
                 f"mega_impl must be one of {MEGA_IMPLS}, got {self.mega_impl!r}")
+        if self.tail_impl not in TAIL_IMPLS:
+            raise ValueError(
+                f"tail_impl must be one of {TAIL_IMPLS}, got {self.tail_impl!r}")
 
     @property
     def mega_envelope(self) -> bool:
@@ -99,6 +110,24 @@ class StaticConfig:
     @property
     def use_visc(self) -> bool:
         return self.visc_mlswe != 0.0
+
+    @property
+    def uni_volume(self) -> bool:
+        """The per-stage path runs the uniform-geometry volume kernel
+        (ops/btp_volume_uni) in place of the general one. Needs the uniform
+        brick: its metric terms are scalars folded into the weights."""
+        return self.uni_volume_on and self.uniform_geom
+
+    @property
+    def fused_tail(self) -> bool:
+        """Whole-stage fused path (core/btp._barotropic_solve_fused): volume
+        stage with the velocity gradient, all-faces flux and update as three
+        kernels. Needs the uniform-geometry operators, the SSP combine (lsrk
+        carries a dq register with a different update) and the nodal
+        viscosity family or none. `mega` is asked before it."""
+        return (self.fused_tail_on and self.uniform_geom
+                and self.ti_method_btp != "lsrk"
+                and (not self.use_visc or self.method_visc != 1))
 
 
 @dataclasses.dataclass
@@ -290,7 +319,7 @@ def check_ported(cfg: Config) -> None:
 
 def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
                       volume_impl: str = "plain", mega_impl: str = "plain",
-                      zbot_ext=None
+                      tail_impl: str = "plain", zbot_ext=None
                       ) -> tuple[Precomputed, State, StaticConfig, InitialFields]:
     """Build all static tables + initial state as tensors on `device`."""
     check_ported(cfg)
@@ -559,14 +588,21 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
     # geometry/physics structure facts: uniform_geom = every element affine
     # with identical diagonal metrics (true for all brick grids);
     # flat_bottom = no bathymetry gradients.
+    # The metrics are differences of node coordinates, whose rounding grows
+    # with the number of elements across the domain (measured on the 2000 km
+    # double-gyre brick: 1.2e-14 of the metric per element across, 3.1e-12 at
+    # 256), so the tolerance does too: 1e-12 up to 16 elements across — the
+    # JAX package's constant, under which a brick of 128 or more elements
+    # across no longer counts as uniform — and in proportion above.
+    _utol = 1e-12 * max(1.0, max(geom.nelx, geom.nely) / 16.0)
     _mscale = max(np.abs(geom.ksiq_x).max(), np.abs(geom.etaq_y).max())
     _wflat = geom.wjac.reshape(-1, geom.wjac.shape[-2] * geom.wjac.shape[-1])
     uniform_geom = bool(
-        np.abs(geom.ksiq_y).max() <= 1e-12 * _mscale
-        and np.abs(geom.etaq_x).max() <= 1e-12 * _mscale
-        and np.ptp(geom.ksiq_x) <= 1e-12 * _mscale
-        and np.ptp(geom.etaq_y) <= 1e-12 * _mscale
-        and np.ptp(_wflat, axis=0).max() <= 1e-12 * np.abs(_wflat).max())
+        np.abs(geom.ksiq_y).max() <= _utol * _mscale
+        and np.abs(geom.etaq_x).max() <= _utol * _mscale
+        and np.ptp(geom.ksiq_x) <= _utol * _mscale
+        and np.ptp(geom.etaq_y) <= _utol * _mscale
+        and np.ptp(_wflat, axis=0).max() <= _utol * np.abs(_wflat).max())
     # numerical differentiation of a constant zbot leaves ~1e-16*|zbot|*|D|
     # noise; slopes below 1e-13 (dimensionless dz/dx) are physically flat
     flat_bottom = bool(max(np.abs(gzx).max(), np.abs(gzy).max()) <= 1e-13)
@@ -592,6 +628,9 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
                  and (cfg.mega == "on"
                       or cfg.nelx * cfg.nely <= MEGA_AUTO_MAX_ELEMENTS)),
         mega_impl=mega_impl,
+        fused_tail_on=cfg.fused_tail == "on",
+        uni_volume_on=cfg.uni_volume == "on",
+        tail_impl=tail_impl,
     )
     if cfg.mega == "on" and not static.mega:
         raise ValueError(
@@ -601,6 +640,15 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
             f"uniform_geom={uniform_geom}, periodic={static.periodic}, "
             f"ti_method_btp={cfg.ti_method_btp!r}, "
             f"method_visc={cfg.method_visc}; use mega='auto' or 'off'")
+    for name, taken in (("fused_tail", static.fused_tail),
+                        ("uni_volume", static.uni_volume)):
+        if getattr(cfg, name) == "on" and not taken:
+            raise ValueError(
+                f"{name}='on' is outside its envelope (uniform brick"
+                + ("; SSP integrator, method_visc != 1" if name == "fused_tail" else "")
+                + f"): got uniform_geom={uniform_geom}, "
+                f"ti_method_btp={cfg.ti_method_btp!r}, "
+                f"method_visc={cfg.method_visc}; use {name}='off'")
     if cfg.compat_reference_stress and L > 3:
         # the reference expression reads qp(k) for k>3 out of bounds
         raise ValueError("compat_reference_stress only defined for nlayers<=3")

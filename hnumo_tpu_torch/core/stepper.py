@@ -64,14 +64,16 @@ def _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces):
 
 
 def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
-              vol_ops=None, mega_ops=None) -> State:
+              vol_ops=None, mega_ops=None, tail_ops=None) -> State:
     """One baroclinic time step (reference src/ti_rk_bcl.F90:9-87).
 
     `vol_ops`: optional precomputed volume operator tables
     (btp.build_vol_operators) — Model builds them once; None rebuilds them
     in each barotropic solve. `mega_ops`: the megakernel's static operands
     (ops/mega.build_mega_static), which Model builds when `static.mega`;
-    with them both barotropic solves take the whole-solve path."""
+    with them both barotropic solves take the whole-solve path. `tail_ops`:
+    the fused path's operator tables (btp.build_fused_operators), which
+    Model builds when `static.fused_tail`; None rebuilds them per solve."""
     q_df, qb_df, qprime_df = state.q_df, state.qb_df, state.qprime_df
     # the quad-resolution viscosity weight belongs to the quad LDG family
     # (method_visc == 1, not ported yet); the nodal family never reads it
@@ -85,7 +87,8 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
     coup = btp_bcl_coeffs(static, P, g, bc, qprime_df, qprime_faces,
                           dpprime_visc, zq)
     qbp_df, avg = barotropic_solve(static, P, g, bc, coup, qb_df, qprime_df,
-                                   vol_ops=vol_ops, mega_ops=mega_ops)
+                                   vol_ops=vol_ops, mega_ops=mega_ops,
+                                   tail_ops=tail_ops)
 
     # momentum_mass (predictor): mass + momentum + recombination
     q_df2, ok1 = _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces)
@@ -104,7 +107,7 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
                           dpprime_visc, zq)
     qb_new, avg = barotropic_solve(static, P, g, bc, coup, qb_df,
                                    qprime_half, vol_ops=vol_ops,
-                                   mega_ops=mega_ops)
+                                   mega_ops=mega_ops, tail_ops=tail_ops)
 
     # thickness (corrector) with averaged primes
     q_df, ok2 = _thickness_update(static, P, g, bc, avg, q_df,

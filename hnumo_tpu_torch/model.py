@@ -11,9 +11,10 @@ from __future__ import annotations
 import torch
 
 from .config import Config
-from .core.btp import build_vol_operators
+from .core.btp import build_fused_operators, build_vol_operators
 from .core.faces import BCs
-from .core.init import MEGA_IMPLS, VOLUME_IMPLS, build_precomputed, check_ported
+from .core.init import (MEGA_IMPLS, TAIL_IMPLS, VOLUME_IMPLS, build_precomputed,
+                        check_ported)
 from .core.stepper import ti_rk_bcl
 from .core.types import State
 from .mesh.grid import build_geometry
@@ -63,17 +64,20 @@ def _resolve_impl(name: str, impl, allowed, device: torch.device) -> str:
 
 class Model:
     def __init__(self, cfg: Config, device=None, volume_impl: str | None = None,
-                 mega_impl: str | None = None):
+                 mega_impl: str | None = None, tail_impl: str | None = None):
         """`device`: None = the CUDA device (raises without one), or any
-        torch device; the tests pass "cpu". `volume_impl` / `mega_impl`:
-        "kernel" (the CUDA kernel of the per-stage volume stage / of the
-        whole-solve megakernel; default on CUDA) or "plain" (its plain
-        PyTorch version; default on the CPU). Which of the two barotropic
-        paths runs is `cfg.mega` (see StaticConfig.mega)."""
+        torch device; the tests pass "cpu". `volume_impl` / `mega_impl` /
+        `tail_impl`: "kernel" (the CUDA kernel of the volume stage — general
+        or uniform-geometry — / of the whole-solve megakernel / of the face
+        and update stages of the fused path; default on CUDA) or "plain"
+        (its plain PyTorch version; default on the CPU). Which barotropic
+        path runs is `cfg.mega`, then `cfg.fused_tail` (see
+        StaticConfig.mega, .fused_tail, .uni_volume)."""
         self.device = _resolve_device(device)
         volume_impl = _resolve_impl("volume_impl", volume_impl, VOLUME_IMPLS,
                                     self.device)
         mega_impl = _resolve_impl("mega_impl", mega_impl, MEGA_IMPLS, self.device)
+        tail_impl = _resolve_impl("tail_impl", tail_impl, TAIL_IMPLS, self.device)
         _set_full_precision()
         check_ported(cfg)
         self.cfg = cfg
@@ -88,25 +92,30 @@ class Model:
         self.bc = BCs(*bc)
         self.P, self._state0, self.static, self.init_fields = build_precomputed(
             cfg, self.geom, self.dtype, self.device, volume_impl=volume_impl,
-            mega_impl=mega_impl)
+            mega_impl=mega_impl, tail_impl=tail_impl)
         self._build_operators()
 
     def _build_operators(self):
         """State-independent operator tables of the barotropic solve, built
-        once: the volume stage's, and the megakernel's when it is the path."""
+        once: the volume stage's, and the megakernel's or the fused path's
+        when that is the path."""
         self.vol_ops = build_vol_operators(self.static, self.g, self.P)
         self.mega_ops = (build_mega_static(self.static, self.g, self.P, self.bc)
                          if self.static.mega else None)
+        self.tail_ops = (build_fused_operators(self.static, self.g, self.P, self.bc)
+                         if self.static.fused_tail and not self.static.mega else None)
 
     @classmethod
     def from_tables(cls, cfg: Config, P, g, state0: State, device=None,
                     volume_impl: str | None = None,
-                    mega_impl: str | None = None) -> "Model":
+                    mega_impl: str | None = None,
+                    tail_impl: str | None = None) -> "Model":
         """A model stepping on given tables (see convert.from_numpy_tables)
         in place of the ones its own build_precomputed makes — the static
         parameters still come from `cfg`. Lets a test hold the stepping code
         against another implementation on identical tables."""
-        m = cls(cfg, device=device, volume_impl=volume_impl, mega_impl=mega_impl)
+        m = cls(cfg, device=device, volume_impl=volume_impl, mega_impl=mega_impl,
+                tail_impl=tail_impl)
         want = (m.dtype, m.device)
         for t in (P.pbprime, g.wjac, state0.qb_df):
             if (t.dtype, t.device) != want:
@@ -125,7 +134,8 @@ class Model:
     def step(self, state: State) -> State:
         with torch.no_grad():
             return ti_rk_bcl(self.static, self.P, self.g, self.bc, state,
-                             vol_ops=self.vol_ops, mega_ops=self.mega_ops)
+                             vol_ops=self.vol_ops, mega_ops=self.mega_ops,
+                             tail_ops=self.tail_ops)
 
     def run(self, state: State, nsteps: int, check_ok: bool = True) -> State:
         for _ in range(nsteps):

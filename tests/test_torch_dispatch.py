@@ -1,6 +1,8 @@
-"""How the PyTorch package chooses the barotropic path: the `mega` option of
-Config, the envelope of StaticConfig.mega, and the implementation switch
-`mega_impl`. Nothing here needs a CUDA device."""
+"""How the PyTorch package chooses the barotropic path: the `mega`,
+`fused_tail` and `uni_volume` options of Config, the envelopes of
+StaticConfig.mega / .fused_tail / .uni_volume, the order in which they are
+asked, and the implementation switches `mega_impl` and `tail_impl`. Nothing
+here needs a CUDA device."""
 import pytest
 import torch
 
@@ -122,7 +124,147 @@ def test_static_config_rejects_unknown_mega_impl():
         dataclasses.replace(m.static, mega_impl="fast")
 
 
+# ---- fused_tail, uni_volume and tail_impl ------------------------------------------
+
+
+@pytest.mark.parametrize("option", ["fused_tail", "uni_volume"])
+@pytest.mark.parametrize("value", ["onn", "", "ON", "auto", None, True])
+def test_on_off_options_are_validated(option, value):
+    with pytest.raises(ValueError, match=option):
+        Config(**SMALL, **{option: value})
+
+
+@pytest.mark.parametrize("option", ["fused_tail", "uni_volume"])
+def test_on_off_options_default_to_off_as_in_the_jax_package(option):
+    from hnumo_tpu.config import Config as JaxConfig
+
+    assert getattr(Config(**SMALL), option) == "off" == getattr(JaxConfig(), option)
+    assert getattr(Config(**SMALL, **{option: "on"}), option) == "on"
+
+
+@pytest.mark.parametrize("impl", ["pallas", "", "cuda"])
+def test_tail_impl_is_validated(impl):
+    with pytest.raises(ValueError, match="tail_impl"):
+        Model(Config(**SMALL), device="cpu", tail_impl=impl)
+
+
+def test_tail_kernel_on_the_cpu_raises():
+    with pytest.raises(ValueError, match="tail_impl='kernel' needs a CUDA device"):
+        Model(Config(**SMALL, mega="off", fused_tail="on"), device="cpu", tail_impl="kernel")
+    m = Model(Config(**SMALL, mega="off", fused_tail="on"), device="cpu", tail_impl="plain")
+    assert m.static.tail_impl == "plain"
+
+
+def test_static_config_rejects_unknown_tail_impl():
+    import dataclasses
+
+    m = Model(Config(**SMALL), device="cpu")
+    with pytest.raises(ValueError, match="tail_impl"):
+        dataclasses.replace(m.static, tail_impl="fast")
+
+
+@pytest.mark.parametrize("nelx,nely,mega,want_mega", [
+    (6, 5, "auto", True),       # under 1024 elements the megakernel is asked first
+    (32, 32, "auto", True),
+    (6, 5, "off", False),
+    (33, 32, "auto", False),    # over the cap "auto" leaves the solve to fused_tail
+    (6, 5, "on", True),
+])
+def test_mega_beats_fused_tail(nelx, nely, mega, want_mega):
+    """Both flags can be up at once, as in the JAX package; barotropic_solve
+    asks `mega` first, and Model builds the operands of the path that runs."""
+    m = Model(Config(**{**SMALL, "nelx": nelx, "nely": nely, "nopx": 1, "nopy": 1},
+                     mega=mega, fused_tail="on"), device="cpu")
+    assert m.static.fused_tail
+    assert m.static.mega is want_mega
+    assert (m.mega_ops is not None) is want_mega
+    assert (m.tail_ops is not None) is (not want_mega)
+
+
+def test_solve_with_both_flags_up_runs_the_megakernel_path():
+    from hnumo_tpu_torch.ops import btp_tail, btp_volume_uni
+
+    m = Model(Config(**SMALL, dt=40.0, dt_btp=20.0, fused_tail="on"), device="cpu")
+    assert m.static.mega and m.static.fused_tail
+    before = (btp_volume_uni.btp_volume_uni_plain.calls, btp_tail.btp_faces_plain.calls,
+              btp_tail.btp_update_plain.calls)
+    s = m.step(m.state0)
+    assert bool(s.ok)
+    assert before == (btp_volume_uni.btp_volume_uni_plain.calls,
+                      btp_tail.btp_faces_plain.calls, btp_tail.btp_update_plain.calls)
+    # the same configuration with mega="off" does run the three stages
+    m2 = Model(Config(**SMALL, dt=40.0, dt_btp=20.0, fused_tail="on", mega="off"),
+               device="cpu")
+    m2.step(m2.state0)
+    nsub = 2 * m2.static.n_btp * m2.static.kstages
+    assert btp_tail.btp_faces_plain.calls - before[1] == nsub
+    assert btp_tail.btp_update_plain.calls - before[2] == nsub
+    assert btp_volume_uni.btp_volume_uni_plain.calls - before[0] == nsub
+
+
+@pytest.mark.parametrize("option", ["fused_tail", "uni_volume"])
+@pytest.mark.parametrize("over", [
+    dict(x_boundary=(3, 3)),
+    dict(ti_method_btp="lsrk"),
+    dict(method_visc=1, visc_mlswe=10.0),
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def test_fused_options_on_outside_what_is_ported_raise(option, over):
+    with pytest.raises((ValueError, NotImplementedError)):
+        Model(Config(**{**SMALL, **over}, mega="off", **{option: "on"}), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["fused_tail", "uni_volume"])
+def test_on_outside_the_envelope_raises_and_names_it(option, monkeypatch):
+    """`on` never quietly takes the other path: a grid whose metrics differ
+    between elements (here: the uniformity tolerance set to nothing) raises."""
+    import numpy as np
+
+    from hnumo_tpu_torch.mesh import grid
+
+    real = grid.build_geometry
+
+    def stretched(*a, **k):
+        geom = real(*a, **k)
+        geom.ksiq_x[0, 0] *= 1.0 + 1e-6      # one element with another metric
+        return geom
+
+    monkeypatch.setattr("hnumo_tpu_torch.model.build_geometry", stretched)
+    with pytest.raises(ValueError, match="envelope"):
+        Model(Config(**SMALL, mega="off", **{option: "on"}), device="cpu")
+    m = Model(Config(**SMALL, mega="off"), device="cpu")
+    assert not m.static.uniform_geom and np.ptp(m.geom.ksiq_x) > 0
+
+
+@pytest.mark.parametrize("replace,fused,uni", [
+    (dict(), True, True),
+    (dict(uniform_geom=False), False, False),
+    (dict(ti_method_btp="lsrk"), False, True),
+    (dict(method_visc=1, visc_mlswe=10.0), False, True),
+    (dict(method_visc=1, visc_mlswe=0.0), True, True),    # no viscosity: family unused
+    (dict(fused_tail_on=False), False, True),
+    (dict(uni_volume_on=False), True, False),
+])
+def test_static_envelopes_are_the_jax_package_s(replace, fused, uni):
+    import dataclasses
+
+    m = Model(Config(**SMALL, mega="off", fused_tail="on", uni_volume="on",
+                     method_visc=2, visc_mlswe=10.0), device="cpu")
+    st = dataclasses.replace(m.static, **replace)
+    assert st.fused_tail is fused and st.uni_volume is uni
+
+
+@pytest.mark.parametrize("nel", [16, 64, 128, 256])
+def test_brick_grids_count_as_uniform_at_every_size(nel):
+    """The rounding of the metrics grows with the elements across the domain;
+    the uniformity test allows for it (p=1 keeps this cheap)."""
+    m = Model(Config(**{**SMALL, "nelx": nel, "nely": nel, "nopx": 1, "nopy": 1},
+                     mega="off", fused_tail="on"), device="cpu")
+    assert m.static.uniform_geom and m.static.fused_tail
+
+
 # ---- the builder of the CUDA sources, driven with a stand-in compiler --------
+
+PORT_SOURCES = ("btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update")
 
 _FAKE_NVCC = """#!/bin/sh
 # stand-in for nvcc: writes the output file named after -o, talks like ptxas -v
@@ -149,7 +291,7 @@ def fake_toolchain(tmp_path, monkeypatch):
     nvcc.chmod(0o755)
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for name in ("one", "two", "broken"):
+    for name in ("one", "two", "broken") + PORT_SOURCES:
         (csrc / f"{name}.cu").write_text(f"// {name}\n")
     monkeypatch.setenv("CUDA_HOME", str(nvcc.parents[1]))
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
@@ -175,6 +317,27 @@ def test_build_libraries_builds_each_source_once(fake_toolchain):
     before = b.library_path("one")
     (b.CSRC_DIR / "one.cu").write_text("// one, changed\n")
     assert b.library_path("one") != before
+
+
+def test_build_libraries_builds_the_five_sources_side_by_side(fake_toolchain):
+    b = fake_toolchain
+    b.build_libraries(PORT_SOURCES)
+    libs = {b.library_path(name) for name in PORT_SOURCES}
+    assert len(libs) == 5 and all(p.read_text() == "built\n" for p in libs)
+    for name in PORT_SOURCES:
+        assert b.compile_command(name, b.library_path(name))[-1].endswith(f"{name}.cu")
+
+
+def test_every_cuda_source_of_the_package_is_one_the_smoke_run_builds():
+    import pathlib
+
+    from hnumo_tpu_torch.ops import _build
+
+    on_disk = {p.stem for p in pathlib.Path(_build.CSRC_DIR).glob("*.cu")}
+    assert on_disk == set(PORT_SOURCES)
+    smoke = (pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    for name in PORT_SOURCES:
+        assert f'"{name}"' in smoke
 
 
 def test_failed_build_raises_and_leaves_no_library(fake_toolchain):

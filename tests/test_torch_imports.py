@@ -16,7 +16,10 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+hnumo_tpu(\s|\.|$
 @pytest.mark.parametrize("module", ["hnumo_tpu_torch", "hnumo_tpu_torch.model",
                                     "hnumo_tpu_torch.convert",
                                     "hnumo_tpu_torch.ops.btp_volume",
-                                    "hnumo_tpu_torch.ops.mega"])
+                                    "hnumo_tpu_torch.ops.mega",
+                                    "hnumo_tpu_torch.ops.btp_volume_uni",
+                                    "hnumo_tpu_torch.ops.btp_tail",
+                                    "hnumo_tpu_torch.core.btp"])
 def test_import_pulls_in_no_jax(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

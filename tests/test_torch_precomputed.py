@@ -57,10 +57,11 @@ def test_device_geom_and_state0(pair):
 def test_static_shared_fields(pair):
     _, jm, tm = pair
     for f in dataclasses.fields(StaticConfig):
-        if f.name in ("volume_impl", "mega_impl"):   # the port's own switches
+        if f.name in ("volume_impl", "mega_impl", "tail_impl"):   # the port's own switches
             continue
         assert getattr(tm.static, f.name) == getattr(jm.static, f.name), f.name
     assert tm.static.volume_impl == "plain" and tm.static.mega_impl == "plain"
+    assert tm.static.tail_impl == "plain"
     assert tm.static.mega == jm.static.mega
 
 
