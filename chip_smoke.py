@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # everything; needs one CUDA device + nvcc
     python3 chip_smoke.py --profile FILE  # also a torch.profiler table of one step
 
-Builds the five CUDA kernels from the sources in this checkout, holds each
+Builds the five CUDA kernels from the sources in this checkout (and, to be
+timed only, two ablated variants of the two volume kernels), holds each
 against its plain PyTorch version on the card, and drives the port's main
 paths through `Model.run` on the double-gyre configuration (f32, p=4,
 2 layers, SSP(5,3), N_btp=20): 32x32 elements through the whole-solve
@@ -32,6 +33,28 @@ import torch
 # published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of `bound_ms`
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+
+# Builds of the two volume kernels with one of their two halves compiled out
+# (ops/csrc/btp_volume_common.cuh, BTP_ABLATE): they compute wrong numbers on
+# purpose and are only timed, to say what limits the real kernel.
+ABLATIONS = (("memory_only", ("BTP_ABLATE=1",)),    # contractions compiled out
+             ("compute_only", ("BTP_ABLATE=2",)))   # no global reads
+VOLUME_SOURCES = ("btp_volume", "btp_volume_uni")
+
+# The kernels these two replaced (one element per block of 128 threads, no
+# ring; kernel 1 with the full Kronecker products), timed with the same
+# method by tools/volume_ablation.py on their sources patched with the same
+# two switches: one NVIDIA H100 80GB HBM3 at 700 W, f32, p=4, cold operands,
+# launches queued ahead of the device; ms at 64x64 and at 256x256.
+BEFORE_REDESIGN = {
+    "btp_volume": {"ms_before": 0.07705, "ms_256_before": 0.97903,
+                   "ms_before_memory_only": 0.06419, "ms_256_before_memory_only": 0.84293,
+                   "ms_before_compute_only": 0.03903, "ms_256_before_compute_only": 0.53713},
+    "btp_volume_uni": {"ms_before": 0.05795, "ms_256_before": 0.74485,
+                       "ms_before_memory_only": 0.06377, "ms_256_before_memory_only": 0.83783,
+                       "ms_before_compute_only": 0.01763,
+                       "ms_256_before_compute_only": 0.26358},
+}
 
 F64_TOL = 1e-12     # kernel vs plain, f64: same operations, other summation order
 F32_TOL = 2e-5      # kernel vs plain, f32: ~100-term sums in another order
@@ -134,21 +157,47 @@ def volume_kwargs(static):
                 alpha_bot=static.alpha_bot)
 
 
-def check_kernel_against_plain(nelx, nely, dtype, botfr):
-    """One comparison; returns (max scaled error, max abs error)."""
+def curvilinear_like(ops, seed: int):
+    """The volume operators with the metric of every element and quad point
+    perturbed (all four derivatives non-zero, positive weights): the general
+    path is not checked on bricks alone."""
+    rng = np.random.default_rng(seed)
+    met = ops.met
+    size = float(met[:4].abs().max())
+
+    def r(shape):
+        return torch.as_tensor(rng.uniform(-1.0, 1.0, size=tuple(shape)), dtype=met.dtype,
+                               device=met.device)
+
+    new = met.clone()
+    new[:4] = met[:4] * (1.0 + 0.2 * r(met[:4].shape)) + 0.3 * size * r(met[:4].shape)
+    new[4] = met[4] * (1.0 + 0.2 * r(met[4].shape))
+    return ops._replace(met=new)
+
+
+def check_kernel_against_plain(nelx, nely, dtype, botfr, nop=4, curvilinear=False):
+    """One comparison; returns (max scaled error, max abs error). The kernel
+    must leave its inputs as they were and update each accumulator once (the
+    plain version's result says what once is)."""
     from hnumo_tpu_torch.model import Model
     from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda, btp_volume_plain
 
-    m = Model(small_config(nelx, nely, dtype, botfr))
+    m = Model(small_config(nelx, nely, dtype, botfr, nop=nop))
+    ops = curvilinear_like(m.vol_ops, seed=botfr) if curvilinear else m.vol_ops
     qbf, qplq, coupf, accv0, accn0 = volume_operands(m, seed=botfr)
     kw = volume_kwargs(m.static)
+    inputs = (qbf, qplq, coupf, ops.met, ops.ptab, ops.pbp_df)
+    keep = [t.clone() for t in inputs]
     av_k, an_k = accv0.clone(), accn0.clone()
-    rhs_k, av_k2, an_k2 = btp_volume_cuda(m.vol_ops, qbf, qplq, coupf, av_k, an_k, **kw)
+    rhs_k, av_k2, an_k2 = btp_volume_cuda(ops, qbf, qplq, coupf, av_k, an_k, **kw)
     torch.cuda.synchronize()
     if av_k2 is not av_k or an_k2 is not an_k:
         raise AssertionError("kernel wrapper must return the accumulators it was given")
+    for a, b in zip(keep, inputs):
+        if not torch.equal(a, b):
+            raise AssertionError("the volume kernel changed one of its inputs")
     av_p, an_p = accv0.clone(), accn0.clone()
-    rhs_p, _, _ = btp_volume_plain(m.vol_ops, qbf, qplq, coupf, av_p, an_p, **kw)
+    rhs_p, _, _ = btp_volume_plain(ops, qbf, qplq, coupf, av_p, an_p, **kw)
     torch.cuda.synchronize()
     tol = F64_TOL if dtype == "float64" else F32_TOL
     worst_scaled, worst_abs = 0.0, 0.0
@@ -161,8 +210,8 @@ def check_kernel_against_plain(nelx, nely, dtype, botfr):
         worst_abs = max(worst_abs, err)
         if not err <= tol * scale:
             raise AssertionError(
-                f"kernel != plain: {name} {dtype} botfr={botfr} E={nelx * nely}: "
-                f"max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+                f"kernel != plain: {name} {dtype} botfr={botfr} E={nelx * nely} p={nop} "
+                f"curvilinear={curvilinear}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
     return worst_scaled, worst_abs
 
 
@@ -346,7 +395,13 @@ def fused_stage(m, op, impl: str, w):
 
     def run_volume(fn):
         accv, accn, agr = clone(op["accv"]), clone(op["accn"]), clone(op["agr"])
+        inputs = (op["qb"], op["qpln"], op["coup"], fo.vol.ptab, fo.vol.pbp_df)
+        keep = [t.clone() for t in inputs]
         res = fn(fo.vol, op["qb"], op["qpln"], accv, accn, op["coup"], agr, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(keep, inputs):
+            if not torch.equal(a, b):
+                raise AssertionError("the volume stage changed one of its inputs")
         if res[1] is not accv or res[2] is not accn or (visc and res[4] is not agr):
             raise AssertionError("the volume stage must return the accumulators it was given")
         names = ("rhs", "accv", "accn", "gv", "agr")
@@ -384,13 +439,14 @@ def fused_stage(m, op, impl: str, w):
     return out
 
 
-def check_fused_kernels(nelx, nely, dtype, botfr, visc=True, test_case="double_gyre"):
+def check_fused_kernels(nelx, nely, dtype, botfr, visc=True, test_case="double_gyre",
+                        nop=4):
     """Kernels A, F and U against their plain versions on one stage's
     operands; returns {kernel: (max error/scale, max abs error)}."""
     from hnumo_tpu_torch.model import Model
 
     m = Model(small_config(nelx, nely, dtype, botfr, visc=visc, fused_tail="on",
-                           test_case=test_case))
+                           test_case=test_case, nop=nop))
     if not m.static.fused_tail or m.static.mega or m.tail_ops is None:
         raise AssertionError("this configuration must take the fused path")
     if m.static.flat_bottom != (test_case == "double_gyre"):
@@ -411,7 +467,7 @@ def check_fused_kernels(nelx, nely, dtype, botfr, visc=True, test_case="double_g
             if not err <= tol * scale:
                 raise AssertionError(
                     f"{kname} kernel != plain: {name} {dtype} botfr={botfr} visc={visc} "
-                    f"{test_case} E={nelx * nely}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+                    f"{test_case} E={nelx * nely} p={nop}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
             ws, wa = max(ws, err / scale), max(wa, err)
         worst[kname] = (ws, wa)
     return worst
@@ -514,20 +570,46 @@ def time_launches(fn, operand_sets, n, device_only=False):
         spin_cycles *= 4
 
 
+def cold_sets(first, most=8):
+    """`first` and enough clones of this tuple of operands to exceed the 50 MB
+    L2 three times over (at most `most` sets, at least 2): a launch that
+    rotates over them reads its data from device memory."""
+    nbytes = sum(t.numel() * t.element_size() for t in first if t is not None)
+    k = max(2, min(most, int(np.ceil(3 * 50e6 / nbytes)) + 1))
+    return [first] + [tuple(None if t is None else t.clone() for t in first)
+                      for _ in range(k - 1)]
+
+
+def with_variant(module, defines, fn):
+    """fn() with the kernel library of `module` (ops.btp_volume or
+    ops.btp_volume_uni) swapped for its build with `defines`."""
+    real = module._library
+    module._library = lambda: real(defines)
+    try:
+        return fn()
+    finally:
+        module._library = real
+
+
+def time_ablations(module, kernel, sets, n):
+    """{"ms_memory_only", "ms_compute_only"}: the device time of `kernel` (a
+    call of `module`'s CUDA wrapper) under each ablated build."""
+    return {"ms_" + name: with_variant(
+        module, defines, lambda: time_launches(kernel, sets, n, device_only=True))
+        for name, defines in ABLATIONS}
+
+
 def time_volume_stage(m, n=60, nsets=None):
     """Kernel and plain version at this model's shapes.
 
     Times are taken twice: rotating over enough independent operand sets to
     exceed the 50 MB L2 ("cold": every launch reads its data from device
     memory), and on one set again and again ("hot")."""
+    from hnumo_tpu_torch.ops import btp_volume
     from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda, btp_volume_plain
 
     kw = volume_kwargs(m.static)
-    first = volume_operands(m, seed=11)
-    set_bytes = sum(t.numel() * t.element_size() for t in first)
-    if nsets is None:
-        nsets = max(2, min(6, int(np.ceil(3 * 50e6 / set_bytes)) + 1))
-    sets = [first] + [tuple(t.clone() for t in first) for _ in range(nsets - 1)]
+    sets = cold_sets(volume_operands(m, seed=11), most=nsets or 6)
 
     def kernel(*ops):
         btp_volume_cuda(m.vol_ops, *ops, **kw)
@@ -535,10 +617,19 @@ def time_volume_stage(m, n=60, nsets=None):
     def plain(*ops):
         btp_volume_plain(m.vol_ops, *ops, **kw)
 
-    return {"ms": time_launches(kernel, sets, n),
-            "plain_ms": time_launches(plain, sets, n),
-            "ms_hot": time_launches(kernel, sets[:1], n),
-            "plain_ms_hot": time_launches(plain, sets[:1], n)}
+    before = btp_volume_cuda.launches
+    # the kernel twice: with the launches queued ahead of the device, and as
+    # the host launches it (at 64x64 the wrapper's host time exceeds the
+    # kernel's device time)
+    out = {"ms": time_launches(kernel, sets, n, device_only=True),
+           "ms_with_wrapper": time_launches(kernel, sets, n),
+           "plain_ms": time_launches(plain, sets, n),
+           "ms_hot": time_launches(kernel, sets[:1], n, device_only=True),
+           "ms_hot_with_wrapper": time_launches(kernel, sets[:1], n),
+           "plain_ms_hot": time_launches(plain, sets[:1], n),
+           **time_ablations(btp_volume, kernel, sets, n)}
+    btp_volume_cuda.launches = before   # timing launches are not the path's
+    return out
 
 
 def volume_bound(m):
@@ -656,15 +747,9 @@ def time_fused_kernels(m, n=60):
     edges = fused_edge_pack(m.bc, ney, nex, pf["S"])
     vedges = fused_edge_pack(m.bc, ney, nex, pf["Sv"], negate=True) if visc else None
 
-    def sets(first):
-        nbytes = sum(t.numel() * t.element_size() for t in first if t is not None)
-        k = max(2, min(8, int(np.ceil(3 * 50e6 / nbytes)) + 1))
-        return [first] + [tuple(None if t is None else t.clone() for t in first)
-                          for _ in range(k - 1)]
-
-    a_sets = sets((op["qb"], op["qpln"], op["accv"], op["accn"], op["coup"], op["agr"]))
-    f_sets = sets((trL, trR, op["af"], op["ag"]))
-    u_sets = sets((pa["rhs"], edges, vedges, op["qb0"], op["qb"], op["qb2"],
+    a_sets = cold_sets((op["qb"], op["qpln"], op["accv"], op["accn"], op["coup"], op["agr"]))
+    f_sets = cold_sets((trL, trR, op["af"], op["ag"]))
+    u_sets = cold_sets((pa["rhs"], edges, vedges, op["qb0"], op["qb"], op["qb2"],
                    pa.get("gv"), op["pbpv"], op["bdg"]))
     out = {}
     for name, fns, osets in (
@@ -686,6 +771,8 @@ def time_fused_kernels(m, n=60):
         out[name] = {"ms": time_launches(kernel, osets, n, device_only=True),
                      "ms_with_wrapper": time_launches(kernel, osets, n),
                      "plain_ms": time_launches(plain, osets, n)}
+        if name == "btp_volume_uni":
+            out[name].update(time_ablations(bu, kernel, osets, n))
         fns[0].launches = before    # timing launches are not the path's
     return out
 
@@ -895,20 +982,50 @@ def main() -> int:
           f"side and loaded in {time.perf_counter() - t0:.1f} s")
     for name in sources:
         print(f"phase 2 ptxas {name}: " + "; ".join(resource_usage(name)))
+    t0 = time.perf_counter()
+    for _, defines in ABLATIONS:
+        build_libraries(VOLUME_SOURCES, defines)
+    print(f"phase 2 build: the two ablated variants of {' and '.join(VOLUME_SOURCES)} "
+          f"(timed only) in {time.perf_counter() - t0:.1f} s")
+    from hnumo_tpu_torch.ops.btp_volume import btp_volume_layout
+    from hnumo_tpu_torch.ops.btp_volume_uni import btp_volume_uni_layout
+
+    layouts = {"btp_volume": btp_volume_layout, "btp_volume_uni": btp_volume_uni_layout}
+    for name, layout in layouts.items():
+        print(f"phase 2 layout {name} (elements per tile, shared memory per block, "
+              f"resident blocks per SM): " + "; ".join(
+                  f"{dt} p={ngl - 1} {json.dumps(layout(getattr(torch, dt), ngl, nq))}"
+                  for dt in ("float32", "float64") for ngl, nq in ((5, 9), (9, 17))))
 
     # ---- phase 3: volume kernel vs plain version -----------------------------
+    # E=30 and E=4096 (1024 tiles of 4 for 264 resident blocks: the ring turns
+    # over, the aligned 16-byte route); E=35, 9, 2: 3, 1, 2 modulo 4 and less
+    # than a tile (value-by-value route, ragged last tile); p=8 (tiles of 2 in
+    # f32, of 1 in f64, sizes at run time); a metric that differs at every point
     worst = {"float64": 0.0, "float32": 0.0}
+    worst_p8 = dict(worst)
+    worst_curv = dict(worst)
     main_err = None
     for dtype in ("float64", "float32"):
         for botfr in (0, 1, 2):
-            for nelx, nely in ((6, 5), (64, 64)):
+            for nelx, nely in ((6, 5), (7, 5), (3, 3), (1, 2), (64, 64)):
                 scaled, abs_err = check_kernel_against_plain(nelx, nely, dtype, botfr)
                 worst[dtype] = max(worst[dtype], scaled)
                 if (dtype, botfr, nelx) == ("float32", 1, 64):   # the main path's shapes
                     main_err = (abs_err, scaled)
-    print(f"phase 3 kernel vs plain (botfr 0/1/2, E=30 and E=4096, rhs+accv+accn): "
-          f"f64 max err/scale {worst['float64']:.3e} (tol {F64_TOL:g}), "
-          f"f32 {worst['float32']:.3e} (tol {F32_TOL:g})")
+            for nelx, nely in ((3, 3), (4, 4)):
+                scaled, _ = check_kernel_against_plain(nelx, nely, dtype, botfr, nop=8)
+                worst_p8[dtype] = max(worst_p8[dtype], scaled)
+            for nelx, nely, nop in ((7, 5, 4), (16, 16, 4), (3, 3, 8)):
+                scaled, _ = check_kernel_against_plain(nelx, nely, dtype, botfr, nop=nop,
+                                                       curvilinear=True)
+                worst_curv[dtype] = max(worst_curv[dtype], scaled)
+    print(f"phase 3 kernel vs plain (botfr 0/1/2; rhs+accv+accn; inputs unchanged), max "
+          f"err/scale f64 / f32 (tol {F64_TOL:g} / {F32_TOL:g}): p=4 E=30, 35, 9, 2, 4096 "
+          f"{worst['float64']:.3e} / {worst['float32']:.3e}; p=8 E=9, 16 "
+          f"{worst_p8['float64']:.3e} / {worst_p8['float32']:.3e}; metric perturbed at "
+          f"every point, p=4 E=35, 256 and p=8 E=9 {worst_curv['float64']:.3e} / "
+          f"{worst_curv['float32']:.3e}")
 
     # ---- phase 4: barotropic solve, kernel vs plain stage --------------------
     w, n = check_solve_kernel_vs_plain()
@@ -927,8 +1044,9 @@ def main() -> int:
           f"{run64['ms_per_step']:.2f} ms/step, {run64['gp_steps_per_s']:.4g} gp-steps/s, "
           f"{run64['launches_per_step']} kernel launches/step, ok, finite, "
           f"mass drift {run64['mass_drift']:.2e}; volume kernel {tv64['ms']:.4f} ms/launch "
-          f"(hot {tv64['ms_hot']:.4f}), plain {tv64['plain_ms']:.4f}, "
-          f"bound {b64['bound_ms']:.4f} ms by {b64['bound_by']}")
+          f"on the device ({tv64['ms_with_wrapper']:.4f} as the host launches it; hot "
+          f"{tv64['ms_hot']:.4f} / {tv64['ms_hot_with_wrapper']:.4f}), plain "
+          f"{tv64['plain_ms']:.4f}, bound {b64['bound_ms']:.4f} ms by {b64['bound_by']}")
     extra = {}
     if args.profile:
         extra = profile_step(m64, s64, args.profile, "64x64 f32, per-stage path")
@@ -947,11 +1065,13 @@ def main() -> int:
     b256 = volume_bound(m256)
     print(f"phase 6 256x256 p=4 L=2 f32: {run256['ms_per_step']:.1f} ms/step, "
           f"{run256['gp_steps_per_s']:.4g} gp-steps/s, ok, finite, mass drift "
-          f"{run256['mass_drift']:.2e}; volume kernel {tv256['ms']:.4f} ms/launch, "
+          f"{run256['mass_drift']:.2e}; volume kernel {tv256['ms']:.4f} ms/launch on the "
+          f"device ({tv256['ms_with_wrapper']:.4f} as the host launches it), "
           f"plain {tv256['plain_ms']:.4f}, bound {b256['bound_ms']:.4f} ms by "
           f"{b256['bound_by']}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    big = {"ms_256": tv256["ms"], "plain_ms_256": tv256["plain_ms"],
+    big = {"ms_256": tv256["ms"], "ms_with_wrapper_256": tv256["ms_with_wrapper"],
+           "plain_ms_256": tv256["plain_ms"],
            "bound_ms_256": b256["bound_ms"],
            "step_ms_256": run256["ms_per_step"],
            "gp_steps_per_s_256": run256["gp_steps_per_s"]}
@@ -1026,6 +1146,7 @@ def main() -> int:
     names = ("btp_volume_uni", "btp_faces", "btp_update")
     worst3 = {"float64": dict.fromkeys(names, 0.0), "float32": dict.fromkeys(names, 0.0)}
     main_err3 = None
+    worst_a = {"float64": 0.0, "float32": 0.0}   # kernel A at the ragged counts and at p=8
     for dtype in ("float64", "float32"):
         for botfr, visc, case in ((0, True, "double_gyre"), (1, True, "double_gyre"),
                                   (2, True, "double_gyre"), (1, False, "double_gyre"),
@@ -1036,11 +1157,17 @@ def main() -> int:
                     worst3[dtype][k] = max(worst3[dtype][k], w[k][0])
                 if (dtype, botfr, visc, case, nelx) == ("float32", 1, True, "double_gyre", 64):
                     main_err3 = w       # the main path's shapes
+            for nelx, nely, nop in ((7, 5, 4), (3, 3, 4), (1, 2, 4), (3, 3, 8), (4, 4, 8)):
+                w = check_fused_kernels(nelx, nely, dtype, botfr, visc=visc, test_case=case,
+                                        nop=nop)
+                worst_a[dtype] = max(worst_a[dtype], w["btp_volume_uni"][0])
     print("phase 10 kernels A, F, U vs plain, one stage (viscous botfr 0/1/2, inviscid, "
           "non-flat bottom; E=30/F=71 and E=4096/F=8320; every output on its own scale), "
           "max err/scale: " + "; ".join(
               f"{k} f64 {worst3['float64'][k]:.3e} f32 {worst3['float32'][k]:.3e}"
-              for k in names) + f" (tol f64 {F64_TOL:g}, f32 {F32_TOL:g})")
+              for k in names) + f"; kernel A at E=35, 9, 2 (p=4) and E=9, 16 (p=8): f64 "
+          f"{worst_a['float64']:.3e} f32 {worst_a['float32']:.3e}"
+          f" (tol f64 {F64_TOL:g}, f32 {F32_TOL:g})")
 
     # ---- phase 11: fused solve vs plain versions and vs the per-stage path ----
     wsolve, nfields = check_fused_solve()
@@ -1097,11 +1224,34 @@ def main() -> int:
               f"{bf256[k]['bound_ms']:.4f} ms by {bf256[k]['bound_by']}" for k in names))
     del f256m
     torch.cuda.empty_cache()
+    for name, t64, t256 in (("btp_volume", tv64, tv256),
+                            ("btp_volume_uni", tf64["btp_volume_uni"],
+                             tf256["btp_volume_uni"])):
+        old = BEFORE_REDESIGN[name]
+        print(f"phase 13 what limits {name}, ms at 64x64 / 256x256 (whole kernel; "
+              f"contractions compiled out; no global reads): {t64['ms']:.4f} / "
+              f"{t256['ms']:.4f}; {t64['ms_memory_only']:.4f} / {t256['ms_memory_only']:.4f}; "
+              f"{t64['ms_compute_only']:.4f} / {t256['ms_compute_only']:.4f}; the kernel it "
+              f"replaced: {old['ms_before']:.4f} / {old['ms_256_before']:.4f}; "
+              f"{old['ms_before_memory_only']:.4f} / {old['ms_256_before_memory_only']:.4f}; "
+              f"{old['ms_before_compute_only']:.4f} / {old['ms_256_before_compute_only']:.4f}")
 
     # ---- phase 14: the kernels line ------------------------------------------
     replaces = {"btp_volume_uni": "hnumo_tpu/ops/pallas_btp.py:287",
                 "btp_faces": "hnumo_tpu/ops/pallas_btp_tail.py:158",
                 "btp_update": "hnumo_tpu/ops/pallas_btp_tail.py:362"}
+    def redesigned(name, t64, t256):
+        """What the two redesigned volume kernels add to their entries: the
+        kernel they replaced, both ablations of old and new, the launch's
+        layout and what ptxas said."""
+        return {**BEFORE_REDESIGN[name],
+                "ms_memory_only": t64["ms_memory_only"],
+                "ms_compute_only": t64["ms_compute_only"],
+                "ms_256_memory_only": t256["ms_memory_only"],
+                "ms_256_compute_only": t256["ms_compute_only"],
+                "layout": layouts[name](torch.float32, 5, 9),
+                "ptxas": resource_usage(name)}
+
     fused_entries = [{
         "name": k, "route": "cuda", "source": f"hnumo_tpu_torch/ops/csrc/{k}.cu",
         "replaces": replaces[k], "launches": runf64["counts"][k],
@@ -1120,6 +1270,7 @@ def main() -> int:
         "gp_steps_per_s_256": runf256["gp_steps_per_s"],
         "step_ms_256_per_stage_path": run256["ms_per_step"],
         "peak_memory_gib_256": peak256, **extraf,
+        **(redesigned(k, tf64[k], tf256[k]) if k in BEFORE_REDESIGN else {}),
     } for k in names]
     kernels = [{
         "name": "btp_volume", "route": "cuda",
@@ -1127,11 +1278,14 @@ def main() -> int:
         "replaces": "hnumo_tpu/ops/pallas_btp.py:117",
         "launches": run64["launches"], "max_abs_err": main_err[0],
         "max_err_over_scale": main_err[1], "tolerance_over_scale": F32_TOL,
-        "ms": tv64["ms"], "plain_ms": tv64["plain_ms"],
+        "ms": tv64["ms"], "ms_with_wrapper": tv64["ms_with_wrapper"],
+        "plain_ms": tv64["plain_ms"],
         "bound_ms": b64["bound_ms"], "bound_by": b64["bound_by"],
         "library_ms": None,
         "checked_against_plain": True, "ms_hot": tv64["ms_hot"],
+        "ms_hot_with_wrapper": tv64["ms_hot_with_wrapper"],
         "plain_ms_hot": tv64["plain_ms_hot"],
+        **redesigned("btp_volume", tv64, tv256),
         "launches_per_step": run64["launches_per_step"],
         "step_ms": run64["ms_per_step"], "gp_steps_per_s": run64["gp_steps_per_s"],
         **big, **extra,

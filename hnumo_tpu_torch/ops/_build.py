@@ -2,8 +2,11 @@
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), is
 compiled by `nvcc` for sm_90a into `hnumo_tpu_torch/_build/` and loaded
-with ctypes. The library file carries a hash of its source and flags, so
-an unchanged source is compiled once per build directory. Nothing here
+with ctypes. The library file carries a hash of its source, of the headers
+of `csrc/` that the source includes, and of the flags, so an unchanged source
+is compiled once per build directory and a changed header is never left with
+a stale library. `defines` (`NAME=VALUE` strings) build a variant of a source
+beside the default one; the measurement tools use it. Nothing here
 runs at import: `load_library` is called by a kernel's wrapper the first
 time it launches; `build_libraries` compiles several sources side by side
 ahead of that. A missing compiler or a failed build raises.
@@ -24,7 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -45,29 +50,48 @@ def find_nvcc() -> str:
         "the CUDA kernels of hnumo_tpu_torch cannot be built")
 
 
-def library_path(name: str) -> Path:
+def source_files(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and, after it, every file of `csrc/` that it includes
+    with `#include "..."`, directly or through another such file."""
+    files = [CSRC_DIR / f"{name}.cu"]
+    for f in files:     # grows while it is walked
+        for inc in _INCLUDE.findall(f.read_text()):
+            path = CSRC_DIR / inc
+            if path not in files:
+                if not path.is_file():
+                    raise RuntimeError(f"{f.name} includes \"{inc}\", which is not in "
+                                       f"{CSRC_DIR}")
+                files.append(path)
+    return files
+
+
+def library_path(name: str, defines=()) -> Path:
     """Where the library of `csrc/<name>.cu` is (or will be) built."""
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
+    for f in source_files(name):
+        h.update(f.read_bytes())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def compile_command(name: str, out: Path) -> list[str]:
-    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+def compile_command(name: str, out: Path, defines=()) -> list[str]:
+    return [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(out),
+            str(CSRC_DIR / f"{name}.cu")]
 
 
-def build_libraries(names) -> None:
+def build_libraries(names, defines=()) -> None:
     """Compile every `csrc/<name>.cu` whose library is not built yet: one
     nvcc process per source, all started together, then waited for."""
     started = []
     try:
         for name in names:
-            lib_path = library_path(name)
-            if name in _loaded or lib_path.is_file():
+            lib_path = library_path(name, defines)
+            if (name, tuple(defines)) in _loaded or lib_path.is_file():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-            proc = subprocess.Popen(compile_command(name, tmp), stdout=subprocess.PIPE,
+            proc = subprocess.Popen(compile_command(name, tmp, defines),
+                                    stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
             started.append((name, proc, tmp, lib_path))
         for name, proc, tmp, lib_path in started:
@@ -86,25 +110,36 @@ def build_libraries(names) -> None:
                 proc.wait()
 
 
-def resource_usage(name: str) -> list[str]:
+def resource_usage(name: str, defines=()) -> list[str]:
     """What `ptxas -v` said of each kernel instantiation in the build of
     `csrc/<name>.cu`, in the order compiled: "R registers, S B spill stores,
-    L B spill loads" (empty when the library was not built by this module)."""
-    log = library_path(name).with_suffix(".log")
+    L B spill loads", led by the instantiation's template arguments where the
+    entry's name shows them ("f<5,9>: ..."); empty when the library was not
+    built by this module."""
+    log = library_path(name, defines).with_suffix(".log")
     if not log.is_file():
         return []
     text = log.read_text()
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
     regs = re.findall(r"Used (\d+) registers", text)
-    return [f"{r} registers, {s} B spill stores, {l} B spill loads"
-            for r, (s, l) in zip(regs, spills)]
+    entries = re.findall(r"Compiling entry function '([^']+)'", text)
+    tags = []
+    for e in entries:
+        targs = re.search(r"I([a-z])((?:Li\d+E)+)E", e)
+        tags.append(f"{targs.group(1)}<{','.join(re.findall(r'Li(\d+)E', targs.group(2)))}>: "
+                    if targs else "")
+    if len(tags) != len(regs):
+        tags = [""] * len(regs)
+    return [f"{t}{r} registers, {s} B spill stores, {l} B spill loads"
+            for t, r, (s, l) in zip(tags, regs, spills)]
 
 
-def load_library(name: str) -> ctypes.CDLL:
+def load_library(name: str, defines=()) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if its library is not built yet, and load it."""
-    if name in _loaded:
-        return _loaded[name]
-    build_libraries([name])
-    lib = ctypes.CDLL(str(library_path(name)))
-    _loaded[name] = lib
+    key = (name, tuple(defines))
+    if key in _loaded:
+        return _loaded[key]
+    build_libraries([name], defines)
+    lib = ctypes.CDLL(str(library_path(name, defines)))
+    _loaded[key] = lib
     return lib

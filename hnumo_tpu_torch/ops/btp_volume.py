@@ -13,7 +13,10 @@ single products with Kronecker matrices:
   interp     u_q = u_n @ K,           K[n,Q]  = psi_j(J) psi_i(I)
   scatter    r_n = a_ksi @ DkT + a_eta @ DeT + s @ K^T
 where DkT[Q,n] = psi_j(J) dpsi_i(I), DeT[Q,n] = dpsi_j(J) psi_i(I) — the
-flattened form of ops.dg.scatter_volume.
+flattened form of ops.dg.scatter_volume. The plain version multiplies by
+these matrices; the kernel applies the same operators as two passes each
+over the 1-D tables psiq, dpsiq they are built from (sum factorisation),
+which holds for any geometry: the metric enters pointwise, through `met`.
 
 Two implementations of one function with one contract — `accv` and `accn`
 are updated IN PLACE and returned beside the freshly allocated `rhs`:
@@ -39,7 +42,10 @@ SMEM_LIMIT_BYTES = 232448
 
 
 class BtpVolOperators(NamedTuple):
-    """Static flattened tensor-product operator matrices + element tables."""
+    """Static flattened tensor-product operator matrices + element tables.
+
+    The Kronecker matrices serve the plain version, the 1-D tables the
+    kernel; both describe the same operators."""
 
     K: Tensor       # (npts, nqq) node->quad interp (its transpose scatters Fs)
     DkT: Tensor     # (nqq, npts) d/dksi-weighted scatter
@@ -48,6 +54,8 @@ class BtpVolOperators(NamedTuple):
     ptab: Tensor    # (8, E, nqq): coriolis, tau_u, tau_v, gzx, gzy,
     #                 one_over_pbprime, dpp_ref_q[-1], H_bcl_ref
     pbp_df: Tensor  # (E, npts): 1/pbprime_df (nodal, for the mu2_df average)
+    psiq: Tensor    # (ngl, nq) 1-D node->quad interpolation
+    dpsiq: Tensor   # (ngl, nq) 1-D derivative at the quad points
 
 
 def eflat(a: Tensor) -> Tensor:
@@ -78,7 +86,8 @@ def operators_from_tables(g, P) -> BtpVolOperators:
         ef(P.one_over_pbprime), ef(P.dpp_ref_q[-1]), ef(P.H_bcl_ref)])
     return BtpVolOperators(K=K.contiguous(), DkT=Dk.T.contiguous(),
                            DeT=De.T.contiguous(), met=met, ptab=ptab,
-                           pbp_df=ef(P.one_over_pbprime_df))
+                           pbp_df=ef(P.one_over_pbprime_df),
+                           psiq=g.psiq.contiguous(), dpsiq=g.dpsiq.contiguous())
 
 
 def _check_operands(ops: BtpVolOperators, qb_n, qpl_q, coup_q, accv, accn, botfr):
@@ -89,12 +98,19 @@ def _check_operands(ops: BtpVolOperators, qb_n, qpl_q, coup_q, accv, accn, botfr
         raise ValueError("qb_n must be (4, E, npts) and coup_q (4, E, nqq)")
     _, E, npts = qb_n.shape
     nqq = coup_q.shape[2]
+    if ops.psiq.ndim != 2:
+        raise ValueError(f"ops.psiq must be (ngl, nq), got {tuple(ops.psiq.shape)}")
+    ngl, nq = ops.psiq.shape
+    if (ngl * ngl, nq * nq) != (npts, nqq):
+        raise ValueError(f"the 1-D tables are for npts={ngl * ngl}, nqq={nq * nq}; "
+                         f"the operands have npts={npts}, nqq={nqq}")
     want = {"qb_n": (qb_n, (4, E, npts)), "qpl_q": (qpl_q, (3, E, nqq)),
             "coup_q": (coup_q, (4, E, nqq)), "accv": (accv, (12, E, nqq)),
             "accn": (accn, (3, E, npts)), "ops.K": (ops.K, (npts, nqq)),
             "ops.DkT": (ops.DkT, (nqq, npts)), "ops.DeT": (ops.DeT, (nqq, npts)),
             "ops.met": (ops.met, (5, E, nqq)), "ops.ptab": (ops.ptab, (8, E, nqq)),
-            "ops.pbp_df": (ops.pbp_df, (E, npts))}
+            "ops.pbp_df": (ops.pbp_df, (E, npts)),
+            "ops.psiq": (ops.psiq, (ngl, nq)), "ops.dpsiq": (ops.dpsiq, (ngl, nq))}
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
@@ -104,7 +120,7 @@ def _check_operands(ops: BtpVolOperators, qb_n, qpl_q, coup_q, accv, accn, botfr
                 f"{qb_n.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    return E, npts, nqq
+    return E, ngl, nq
 
 
 def btp_volume_plain(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
@@ -176,13 +192,18 @@ def btp_volume_plain(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
     return rhs, accv, accn
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = load_library("btp_volume")
+def _library(defines=()) -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared (`defines`:
+    a variant build, for the measurement tools)."""
+    lib = load_library("btp_volume", defines)
     if not getattr(lib, "_hnumo_declared", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.btp_volume_launch.argtypes = [i, i] + [p] * 12 + [i, i, i, d, d, d, p]
+        lib.btp_volume_launch.argtypes = [i, i] + [p] * 11 + [i, i, i, d, d, d, p]
         lib.btp_volume_launch.restype = ctypes.c_int
+        lib.btp_volume_describe.argtypes = [i, i, i, ctypes.POINTER(i),
+                                            ctypes.POINTER(ctypes.c_longlong),
+                                            ctypes.POINTER(i)]
+        lib.btp_volume_describe.restype = ctypes.c_int
         lib.btp_volume_smem_bytes.argtypes = [i, i, i]
         lib.btp_volume_smem_bytes.restype = ctypes.c_longlong
         lib.btp_volume_error_string.argtypes = [i]
@@ -202,7 +223,7 @@ def btp_volume_cuda(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
     refused launch; builds the kernel at the first call.
     `btp_volume_cuda.launches` counts the launches made.
     """
-    E, npts, nqq = _check_operands(ops, qb_n, qpl_q, coup_q, accv, accn, botfr)
+    E, ngl, nq = _check_operands(ops, qb_n, qpl_q, coup_q, accv, accn, botfr)
     if qb_n.device.type != "cuda":
         raise ValueError(
             f"btp_volume_cuda takes CUDA tensors, got {qb_n.device}; use "
@@ -211,21 +232,21 @@ def btp_volume_cuda(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
         raise ValueError(f"btp_volume_cuda takes float32/float64, got {qb_n.dtype}")
     is_double = int(qb_n.dtype == torch.float64)
     lib = _library()
-    smem = lib.btp_volume_smem_bytes(is_double, npts, nqq)
+    smem = lib.btp_volume_smem_bytes(is_double, ngl, nq)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
-            f"btp_volume_cuda stages its operators in shared memory: "
-            f"npts={npts}, nqq={nqq}, {qb_n.dtype} needs {smem} bytes, the "
+            f"btp_volume_cuda stages two elements' inputs in shared memory: "
+            f"ngl={ngl}, nq={nq}, {qb_n.dtype} needs {smem} bytes, the "
             f"card allows {SMEM_LIMIT_BYTES}")
-    rhs = torch.empty((3, E, npts), dtype=qb_n.dtype, device=qb_n.device)
+    rhs = torch.empty((3, E, ngl * ngl), dtype=qb_n.dtype, device=qb_n.device)
     with torch.cuda.device(qb_n.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.btp_volume_launch(
             is_double, botfr, qb_n.data_ptr(), qpl_q.data_ptr(),
             ops.met.data_ptr(), ops.ptab.data_ptr(), coup_q.data_ptr(),
-            ops.K.data_ptr(), ops.DkT.data_ptr(), ops.DeT.data_ptr(),
+            ops.psiq.data_ptr(), ops.dpsiq.data_ptr(),
             ops.pbp_df.data_ptr(), accv.data_ptr(), accn.data_ptr(),
-            rhs.data_ptr(), E, npts, nqq, float(grav), float(cd),
+            rhs.data_ptr(), E, ngl, nq, float(grav), float(cd),
             float(alpha_bot), stream)
     if err != 0:
         raise RuntimeError(
@@ -236,3 +257,25 @@ def btp_volume_cuda(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
 
 
 btp_volume_cuda.launches = 0
+
+
+def launch_layout(lib, prefix: str, dtype: torch.dtype, ngl: int, nq: int) -> dict:
+    """How the kernel `prefix` of the built library `lib` lays a launch out
+    on the current CUDA device at these sizes: elements per tile, bytes of
+    shared memory per block, resident blocks per SM."""
+    tile, blocks = ctypes.c_int(), ctypes.c_int()
+    smem = ctypes.c_longlong()
+    err = getattr(lib, f"{prefix}_describe")(
+        int(dtype == torch.float64), ngl, nq, ctypes.byref(tile), ctypes.byref(smem),
+        ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(
+            f"{prefix}: no launch layout at ngl={ngl}, nq={nq}, {dtype}: CUDA error "
+            f"{err} ({getattr(lib, f'{prefix}_error_string')(err).decode()})")
+    return {"tile_elements": tile.value, "smem_bytes": smem.value,
+            "blocks_per_sm": blocks.value}
+
+
+def btp_volume_layout(dtype: torch.dtype, ngl: int, nq: int) -> dict:
+    """`launch_layout` of the volume kernel (builds it at the first call)."""
+    return launch_layout(_library(), "btp_volume", dtype, ngl, nq)

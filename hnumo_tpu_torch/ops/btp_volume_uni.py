@@ -38,7 +38,7 @@ import torch
 from torch import Tensor
 
 from ._build import load_library
-from .btp_volume import SMEM_LIMIT_BYTES, eflat
+from .btp_volume import SMEM_LIMIT_BYTES, eflat, launch_layout
 
 
 class BtpVolOpsUni(NamedTuple):
@@ -233,13 +233,18 @@ def btp_volume_uni_plain(ops: BtpVolOpsUni, qb_n: Tensor, qpln: Tensor,
 btp_volume_uni_plain.calls = 0
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = load_library("btp_volume_uni")
+def _library(defines=()) -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared (`defines`:
+    a variant build, for the measurement tools)."""
+    lib = load_library("btp_volume_uni", defines)
     if not getattr(lib, "_hnumo_declared", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.btp_volume_uni_launch.argtypes = [i] * 7 + [p] * 15 + [d] * 5 + [p]
         lib.btp_volume_uni_launch.restype = ctypes.c_int
+        lib.btp_volume_uni_describe.argtypes = [i, i, i, ctypes.POINTER(i),
+                                                ctypes.POINTER(ctypes.c_longlong),
+                                                ctypes.POINTER(i)]
+        lib.btp_volume_uni_describe.restype = ctypes.c_int
         lib.btp_volume_uni_smem_bytes.argtypes = [i, i, i]
         lib.btp_volume_uni_smem_bytes.restype = ctypes.c_longlong
         lib.btp_volume_uni_error_string.argtypes = [i]
@@ -303,3 +308,9 @@ def btp_volume_uni_cuda(ops: BtpVolOpsUni, qb_n: Tensor, qpln: Tensor,
 
 
 btp_volume_uni_cuda.launches = 0
+
+
+def btp_volume_uni_layout(dtype: torch.dtype, ngl: int, nq: int) -> dict:
+    """`launch_layout` of the uniform-geometry volume kernel (builds it at the
+    first call)."""
+    return launch_layout(_library(), "btp_volume_uni", dtype, ngl, nq)

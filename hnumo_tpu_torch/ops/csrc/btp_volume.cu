@@ -4,7 +4,7 @@
 // Replaces the TPU kernel hnumo_tpu/ops/pallas_btp.py::_kernel (wrapper
 // btp_volume_pallas). Per element it computes, from the flat element-major
 // operands (C, E, npts) / (C, E, nqq):
-//   - node->quad interpolation of the 4 barotropic channels (u_q = u_n @ K),
+//   - node->quad interpolation of the 4 barotropic channels,
 //   - 1/dp, bottom drag (botfr 0/1/2), Coriolis / wind / bathymetry sources,
 //   - the delta-form pressure term dHq and the momentum flux tensors,
 //   - the curvilinear weak-form scatter
@@ -13,38 +13,66 @@
 //   - the in-place += of the 12 quad averages (accv) and of the 3 nodal
 //     averages (accn), the latter from the PRE-stage qb.
 //
-// What bounds it on this card: bytes. Per element it must move
-// 14*npts + 44*nqq values (3914 at p=4) against ~57k flops, far under the
-// card's flop-per-byte ridge; 24 of the 44 quad-sized channels are the
-// accumulators' read and write. What the design does about it: every global
-// access is one coalesced pass (thread q reads/writes element row entries q
-// of each channel), the three operator matrices are staged in shared memory
-// once per block and reused for all elements the block walks over, and
-// all intermediates (quad fields, weighted flux rows) stay in registers /
-// shared memory. No tensor cores: 25 and 81 are not MMA tile sizes, and the
-// contraction is not the limit.
+// The TPU kernel multiplies by the Kronecker matrices K, DkT, DeT (25x81 at
+// p=4) because its matrix unit wants large products. They are pure
+// reference-element tensor products (K = psiq x psiq, Dk = psiq x dpsiq,
+// De = dpsiq x psiq); the general metric enters only pointwise, through
+// `met`, before the scatter. So here every product is two passes over the
+// 1-D tables psiq and dpsiq (sum factorisation), for any geometry: 7.6 k
+// multiply-adds per element at p=4 instead of 24 k, and 90 table values in
+// shared memory instead of 6075 — which is what lets p=8 (and any order
+// whose single element fits the shared memory) run at all.
 //
-// Layout of one block's work on element e (grid-stride loop over e):
-//   phase 0: threads stage qb[:, e, :] (4*npts values) in shared memory
-//   phase 1: thread q < nqq interpolates the 4 channels, does the pointwise
-//            physics, the 12 accumulator read-modify-writes, and leaves the
-//            8 weighted flux rows in shared memory
-//   phase 2: thread (c, n), c < 3, n < npts does the three scatters;
-//            threads n < npts do the 3 nodal accumulators
+// What bounds it on this card: bytes (per element 14*npts + 44*nqq values,
+// 3914 at p=4, against ~30 kflop; 24 of the 44 quad-sized channels are the
+// accumulators' read and write). The first version of this kernel sat at
+// 3.2x that bound at 256x256 (0.979 ms) for two reasons that were measured
+// apart: with its global reads replaced by computed values it still took
+// 0.537 ms — one shared-memory load per multiply-add of the full Kronecker
+// products, on 75-81 of 128 threads — and with the contractions compiled
+// out 0.843 ms — one element per block, and the 12 accumulator updates as
+// 12 dependent round trips to device memory. What the design does about
+// both (btp_volume_common.cuh has the shared parts, the same as in
+// btp_volume_uni.cu):
+//   - sum-factorised passes in which a thread owns a line, holds it in
+//     registers and produces all of its outputs;
+//   - a block works a tile of 4 consecutive elements: the pointwise phase is
+//     one flat, coalesced run of 324 quad points for 352 threads;
+//   - every global input of tile t+1, the accumulators' old values included,
+//     is on its way into the other stage of a two-stage shared-memory ring
+//     (cp.async, 16 bytes a copy where aligned) while tile t is computed; the
+//     accumulators are written once, from registers.
+// Two blocks of 352 threads are resident per SM (106 KB of shared memory
+// each at p=4 in f32): the ring, not the number of warps, keeps the loads in
+// flight — each block has a whole tile (45 KB) under way at any time.
+// No tensor cores: f32 products stay full f32, and wgmma has no f32 input.
+//
+// One tile's phases (block-wide barrier between them):
+//   top:     start the copies of the next tile; wait for this tile's
+//   phase 1: interpolation pass 1 (along i); nodal averages
+//   phase 2: interpolation pass 2 (along j)
+//   phase 3: thread = quad point of the tile: pointwise physics and metric,
+//            the 12 accumulator rows written, 8 weighted flux rows
+//   phase 4: scatter pass 1 (along I)
+//   phase 5: scatter pass 2 (along J) -> rhs
 //
 // Plain C interface (loaded with ctypes; no PyTorch headers): the launcher
 // returns the cudaError_t of the launch as an int, 0 on success.
 
 #include <cuda_runtime.h>
 
+#include "btp_volume_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kFluxRows = 8;
+using namespace btpvol;
 
-template <typename T> __device__ __forceinline__ T t_sqrt(T x);
-template <> __device__ __forceinline__ float t_sqrt<float>(float x) { return sqrtf(x); }
-template <> __device__ __forceinline__ double t_sqrt<double>(double x) { return sqrt(x); }
+// channels of a stage: nodal qb 4, pbp 1, accn 3; quad qpl 3, met 5, ptab 8,
+// coup 4, accv 12
+constexpr int kNodalIn = 8;
+constexpr int kQuadIn = 32;
+constexpr int kPbp = 4, kAccn = 5;
+constexpr int kMet = 3, kPtab = 8, kCoup = 16, kAccv = 20;
 
 template <typename T>
 struct Args {
@@ -54,80 +82,157 @@ struct Args {
   const T* ptab;  // (8, E, nqq)   coriolis, tau_u, tau_v, gzx, gzy,
                   //               1/pbprime, dpp_ref_q[-1], H_bcl_ref
   const T* coup;  // (4, E, nqq)   Quu, Quv, Qvv, dH_bcl
-  const T* K;     // (npts, nqq)
-  const T* DkT;   // (nqq, npts)
-  const T* DeT;   // (nqq, npts)
+  const T* psiq;  // (ngl, nq)     1-D interpolation
+  const T* dpsiq; // (ngl, nq)     1-D derivative at the quad points
   const T* pbp;   // (E, npts)     1/pbprime_df
   T* accv;        // (12, E, nqq)  in place
   T* accn;        // (3, E, npts)  in place
   T* rhs;         // (3, E, npts)  out
-  int E, npts, nqq;
+  int E, ngl, nq, botfr;
+  int G;          // elements per tile
   T grav, cd, alpha_bot;
 };
 
-template <typename T, int BOTFR>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+struct Smem {
+  T *psiq, *dpsiq;     // operators
+  T *stage[kStages];   // nodal channels (kNodalIn slots), then quad (kQuadIn)
+  T *vf;       // (8, slot_q)       interpolated channels, then flux rows
+  T *tt;       // (8, G*ngl*nq)     first pass of interpolation and of scatter
+  int slot_n, slot_q;
+};
+
+template <typename T>
+__host__ __device__ size_t carve(Smem<T>& s, T* base, int n, int m, int G) {
+  s.slot_n = slot_values<T>(G * n * n);
+  s.slot_q = slot_values<T>(G * m * m);
+  size_t o = 0;
+  auto take = [&](size_t count) {
+    T* p = base + o;
+    o += slot_values<T>(int(count));
+    return p;
+  };
+  for (int k = 0; k < kStages; ++k)
+    s.stage[k] = take(size_t(kNodalIn) * s.slot_n + size_t(kQuadIn) * s.slot_q);
+  s.vf = take(size_t(kFluxRows) * s.slot_q);
+  s.tt = take(size_t(kFluxRows) * G * n * m);
+  s.psiq = take(n * m);
+  s.dpsiq = take(n * m);
+  return o;
+}
+
+// NGL, NQ > 0 fix the 1-D sizes at compile time (index arithmetic by
+// constants, lines in registers, inner loops unrolled); 0 takes them from
+// the arguments. f32 is held to the registers of 2 blocks per SM. `botfr`
+// is a kernel argument, the same for every thread: its branches do not
+// diverge.
+template <typename T, int NGL, int NQ>
+__global__ void __launch_bounds__(kThreads, (sizeof(T) == 4 && NGL > 0) ? 2 : 1)
 btp_volume_kernel(const Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);       // npts*nqq
-  T* sDk = sK + a.npts * a.nqq;                 // nqq*npts
-  T* sDe = sDk + a.npts * a.nqq;                // nqq*npts
-  T* sQb = sDe + a.npts * a.nqq;                // 4*npts
-  T* sF = sQb + 4 * a.npts;                     // kFluxRows*nqq
+  const int n = NGL > 0 ? NGL : a.ngl, m = NQ > 0 ? NQ : a.nq;
+  const int npts = n * n, nqq = m * m;
+  const int G = a.G;
+  Smem<T> s;
+  carve(s, reinterpret_cast<T*>(smem_raw), n, m, G);
+  const int slot_n = s.slot_n, slot_q = s.slot_q;
+  const int tt_chan = G * n * m;
 
   const int tid = threadIdx.x;
-  const int npts = a.npts, nqq = a.nqq;
   const long long E = a.E;
   const long long sn = E * npts;   // channel stride, nodal arrays
   const long long sq = E * nqq;    // channel stride, quad arrays
+  const long long ntiles = (E + G - 1) / G;
 
-  for (int i = tid; i < npts * nqq; i += kThreads) {
-    sK[i] = a.K[i];
-    sDk[i] = a.DkT[i];
-    sDe[i] = a.DeT[i];
+  for (int t = tid; t < n * m; t += kThreads) {
+    s.psiq[t] = a.psiq[t];
+    s.dpsiq[t] = a.dpsiq[t];
   }
 
-  for (long long e = blockIdx.x; e < E; e += gridDim.x) {
-    const long long en = e * npts;
-    const long long eq = e * nqq;
+  // start the copies of one tile's inputs into a stage (one group per tile)
+  auto start_copies = [&](long long tile, T* st) {
+    if (tile < ntiles) {
+      const long long e0 = tile * G;
+      const int g = int(E - e0 < G ? E - e0 : G);
+      const long long on = e0 * npts, oq = e0 * nqq;
+      T* qst = st + kNodalIn * slot_n;
+      // (first slot, array, channels): the slot index also rotates the warps
+      auto nodal = [&](int slot0, const T* src, long long stride, int nchan) {
+        stage_channels(st + slot0 * slot_n, slot_n, src, stride, on, g * npts, nchan, slot0,
+                       tid);
+      };
+      auto quad = [&](int slot0, const T* src, int nchan) {
+        stage_channels(qst + slot0 * slot_q, slot_q, src, sq, oq, g * nqq, nchan,
+                       kNodalIn + slot0, tid);
+      };
+      nodal(0, a.qb, sn, 4);
+      nodal(kPbp, a.pbp, 0, 1);
+      nodal(kAccn, a.accn, sn, 3);
+      quad(0, a.qpl, 3);
+      quad(kMet, a.met, 5);
+      quad(kPtab, a.ptab, 8);
+      quad(kCoup, a.coup, 4);
+      quad(kAccv, a.accv, 12);
+    }
+    cp_async_commit();
+  };
 
-    // ---- phase 0: this element's nodal state -> shared memory ----------
-    __syncthreads();   // previous element's readers of sQb/sF are done
-    for (int i = tid; i < 4 * npts; i += kThreads) {
-      const int c = i / npts, n = i - c * npts;
-      sQb[i] = a.qb[c * sn + en + n];
+  fill_stages(s.stage[0], kStages * (kNodalIn * slot_n + kQuadIn * slot_q), tid);
+  start_copies(blockIdx.x, s.stage[0]);
+  int k = 0;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, k ^= 1) {
+    const long long e0 = tile * G;
+    const int g = int(E - e0 < G ? E - e0 : G);
+    const long long on = e0 * npts, oq = e0 * nqq;
+    const T* sN = s.stage[k];
+    const T* sQ = sN + kNodalIn * slot_n;
+
+    // ---- top: next tile's copies start, this tile's have landed ------------
+    // (every thread is past the previous tile's barrier after phase 4, so the
+    // other stage, read up to phase 3, and vf/tt are free)
+    start_copies(tile + gridDim.x, s.stage[k ^ 1]);
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // ---- phase 1: interpolation pass 1, nodal averages ---------------------
+    interp_pass1<T, NGL, NQ>(sN, slot_n, 4, g, s.tt, tt_chan, s.psiq, n, m, tid);
+    for (int P = kThreads - 1 - tid; P < g * npts; P += kThreads) {
+      // nodal averages from the PRE-stage qb (the threads pass 1 leaves idle)
+      const T t_df = sN[slot_n + P] * sN[kPbp * slot_n + P];
+      const T inv_pb = T(1) / sN[P];
+      a.accn[on + P] = sN[kAccn * slot_n + P] + t_df * (T(2) + t_df);
+      a.accn[sn + on + P] = sN[(kAccn + 1) * slot_n + P] + sN[2 * slot_n + P] * inv_pb;
+      a.accn[2 * sn + on + P] = sN[(kAccn + 2) * slot_n + P] + sN[3 * slot_n + P] * inv_pb;
     }
     __syncthreads();
 
-    // ---- phase 1: quad-point work ---------------------------------------
-    for (int q = tid; q < nqq; q += kThreads) {
-      T dp = T(0), dpp = T(0), udp = T(0), vdp = T(0);
-      for (int n = 0; n < npts; ++n) {
-        const T k = sK[n * nqq + q];
-        dp += sQb[n] * k;
-        dpp += sQb[npts + n] * k;
-        udp += sQb[2 * npts + n] * k;
-        vdp += sQb[3 * npts + n] * k;
-      }
-      const long long iq = eq + q;
-      const T ppq = a.qpl[iq], up = a.qpl[sq + iq], vp = a.qpl[2 * sq + iq];
-      const T cor = a.ptab[iq];
-      const T tau_u = a.ptab[sq + iq], tau_v = a.ptab[2 * sq + iq];
-      const T gzx = a.ptab[3 * sq + iq], gzy = a.ptab[4 * sq + iq];
-      const T opbp = a.ptab[5 * sq + iq];
-      const T pp = a.ptab[6 * sq + iq] + ppq;   // full bottom-layer dp'
-      const T Href = a.ptab[7 * sq + iq];
+    // ---- phase 2: interpolation pass 2 -------------------------------------
+    interp_pass2<T, NGL, NQ>(s.tt, tt_chan, 4, g, s.vf, slot_q, s.psiq, n, m, tid);
+    __syncthreads();
+
+    // ---- phase 3: quad-point work over the tile as one flat run ------------
+    for (int P = tid; P < g * nqq; P += kThreads) {
+      const T dp = s.vf[P], dpp = s.vf[slot_q + P];
+      const T udp = s.vf[2 * slot_q + P], vdp = s.vf[3 * slot_q + P];
+      const T ppq = sQ[P], up = sQ[slot_q + P], vp = sQ[2 * slot_q + P];
+      const T* sP = sQ + kPtab * slot_q;
+      const T cor = sP[P];
+      const T tau_u = sP[slot_q + P], tau_v = sP[2 * slot_q + P];
+      const T gzx = sP[3 * slot_q + P], gzy = sP[4 * slot_q + P];
+      const T opbp = sP[5 * slot_q + P];
+      const T pp = sP[6 * slot_q + P] + ppq;   // full bottom-layer dp'
+      const T Href = sP[7 * slot_q + P];
 
       const T inv_dp = T(1) / dp;
       const T ub = udp * inv_dp;
       const T vb = vdp * inv_dp;
 
       T tb_u = T(0), tb_v = T(0);
-      if (BOTFR == 1) {          // linear bottom drag
+      if (a.botfr == 1) {          // linear bottom drag
         const T spd = (a.cd / a.grav) * pp;
         tb_u = spd * (up + ub);
         tb_v = spd * (vp + vb);
-      } else if (BOTFR == 2) {   // quadratic bottom drag
+      } else if (a.botfr == 2) {   // quadratic bottom drag
         const T ubot = up + ub, vbot = vp + vb;
         const T spd = (a.cd / a.alpha_bot) * t_sqrt<T>(ubot * ubot + vbot * vbot);
         tb_u = spd * ubot;
@@ -137,8 +242,9 @@ btp_volume_kernel(const Args<T> a) {
       const T sc_x = cor * vdp + a.grav * (tau_u - tb_u) - a.grav * dpp * gzx;
       const T sc_y = -cor * udp + a.grav * (tau_v - tb_v) - a.grav * dpp * gzy;
 
-      const T Quu = a.coup[iq], Quv = a.coup[sq + iq];
-      const T Qvv = a.coup[2 * sq + iq], dHbcl = a.coup[3 * sq + iq];
+      const T* sC = sQ + kCoup * slot_q;
+      const T Quu = sC[P], Quv = sC[slot_q + P];
+      const T Qvv = sC[2 * slot_q + P], dHbcl = sC[3 * slot_q + P];
       const T mu = dpp * opbp;
       const T mu2 = mu * (T(2) + mu);
       const T ope = T(1) + mu;
@@ -147,159 +253,154 @@ btp_volume_kernel(const Args<T> a) {
       const T quv = ub * vdp + ope * Quv;
       const T qv = vb * vdp + ope * Qvv;
 
-      // 12 running averages, order of core/btp._VOL_ORDER
+      // 12 running averages, order of core/btp._VOL_ORDER: old value from the
+      // stage, new value written once
       const T inc[12] = {dHq, qu, qv, quv, mu, mu2, ub, vb, udp, vdp, tb_u, tb_v};
+      const T* sA = sQ + kAccv * slot_q;
+      // (plain stores: streaming stores, __stcs, gained nothing at 256x256)
 #pragma unroll
-      for (int c = 0; c < 12; ++c) a.accv[c * sq + iq] += inc[c];
+      for (int c = 0; c < 12; ++c) a.accv[c * sq + oq + P] = sA[c * slot_q + P] + inc[c];
 
-      const T kx = a.met[iq], ky = a.met[sq + iq];
-      const T ex = a.met[2 * sq + iq], ey = a.met[3 * sq + iq];
-      const T wj = a.met[4 * sq + iq];
-      // weighted flux rows: (a_ksi, a_eta) of the 3 channels, then the 2 sources
+      const T* sM = sQ + kMet * slot_q;
+      const T kx = sM[P], ky = sM[slot_q + P];
+      const T ex = sM[2 * slot_q + P], ey = sM[3 * slot_q + P];
+      const T wj = sM[4 * slot_q + P];
+      // weighted flux rows: (a_ksi, a_eta) of the 3 channels, then the 2
+      // sources; they take the place of this point's interpolated values
       const T fx1 = dHq + qu, fy2 = dHq + qv;
-      sF[0 * nqq + q] = wj * (udp * kx + vdp * ky);
-      sF[1 * nqq + q] = wj * (udp * ex + vdp * ey);
-      sF[2 * nqq + q] = wj * (fx1 * kx + quv * ky);
-      sF[3 * nqq + q] = wj * (fx1 * ex + quv * ey);
-      sF[4 * nqq + q] = wj * (quv * kx + fy2 * ky);
-      sF[5 * nqq + q] = wj * (quv * ex + fy2 * ey);
-      sF[6 * nqq + q] = wj * sc_x;
-      sF[7 * nqq + q] = wj * sc_y;
+      s.vf[0 * slot_q + P] = wj * (udp * kx + vdp * ky);
+      s.vf[1 * slot_q + P] = wj * (udp * ex + vdp * ey);
+      s.vf[2 * slot_q + P] = wj * (fx1 * kx + quv * ky);
+      s.vf[3 * slot_q + P] = wj * (fx1 * ex + quv * ey);
+      s.vf[4 * slot_q + P] = wj * (quv * kx + fy2 * ky);
+      s.vf[5 * slot_q + P] = wj * (quv * ex + fy2 * ey);
+      s.vf[6 * slot_q + P] = wj * sc_x;
+      s.vf[7 * slot_q + P] = wj * sc_y;
     }
     __syncthreads();
 
-    // ---- phase 2: weak-form scatter + nodal averages --------------------
-    for (int i = tid; i < 3 * npts; i += kThreads) {
-      const int c = i / npts, n = i - c * npts;
-      const T* fk = sF + (2 * c) * nqq;
-      const T* fe = fk + nqq;
-      T rk = T(0), re = T(0);
-      for (int q = 0; q < nqq; ++q) {
-        rk += fk[q] * sDk[q * npts + n];
-        re += fe[q] * sDe[q * npts + n];
-      }
-      T r = rk + re;
-      if (c > 0) {
-        const T* fs = sF + (5 + c) * nqq;
-        T rs = T(0);
-        for (int q = 0; q < nqq; ++q) rs += fs[q] * sK[n * nqq + q];
-        r += rs;
-      }
-      a.rhs[c * sn + en + n] = r;
-    }
-    for (int n = tid; n < npts; n += kThreads) {
-      // nodal averages from the PRE-stage qb
-      const T t_df = sQb[npts + n] * a.pbp[en + n];
-      const T inv_pb = T(1) / sQb[n];
-      a.accn[en + n] += t_df * (T(2) + t_df);
-      a.accn[sn + en + n] += sQb[2 * npts + n] * inv_pb;
-      a.accn[2 * sn + en + n] += sQb[3 * npts + n] * inv_pb;
-    }
+    // ---- phase 4: scatter pass 1 -------------------------------------------
+    scatter_pass1<T, NGL, NQ>(s.vf, slot_q, g, s.tt, tt_chan, s.psiq, s.dpsiq, n, m, tid);
+    __syncthreads();
+
+    // ---- phase 5: scatter pass 2 -------------------------------------------
+    scatter_pass2<T, NGL, NQ>(s.tt, tt_chan, g, s.psiq, s.dpsiq, static_cast<const T*>(nullptr),
+                              a.rhs, sn, e0, n, m, tid);
   }
+  cp_async_wait<0>();
 }
 
 template <typename T>
-size_t smem_bytes(int npts, int nqq) {
-  return sizeof(T) * (size_t(3) * npts * nqq + 4 * npts + kFluxRows * nqq);
+size_t smem_bytes(int ngl, int nq, int G) {
+  Smem<T> s;
+  return sizeof(T) * carve<T>(s, nullptr, ngl, nq, G);
 }
 
-template <typename T, int BOTFR>
-cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(a.npts, a.nqq);
-  auto kernel = btp_volume_kernel<T, BOTFR>;
-  // The attribute and the resident-block count depend only on the
-  // instantiation and the shared-memory size: asked once, then reused (the
-  // solver launches this 2*N_btp*kstages times per step with one size).
-  static size_t cached_smem = 0;
-  static long long cached_blocks = 0;
-  if (cached_smem != smem || cached_blocks == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-    cached_blocks = (long long)sms * per_sm;
-    cached_smem = smem;
+template <typename T>
+int tile_elements(int ngl, int nq) {
+  return pick_tile([&](int G) { return smem_bytes<T>(ngl, nq, G); }, kSmemLimit);
+}
+
+template <typename T, int NGL, int NQ>
+cudaError_t launch(Args<T>& a, cudaStream_t stream, LaunchPlan* describe) {
+  a.G = tile_elements<T>(a.ngl, a.nq);
+  if (a.G < 1) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T>(a.ngl, a.nq, a.G);
+  auto kernel = btp_volume_kernel<T, NGL, NQ>;
+  static LaunchPlan plan;
+  cudaError_t err = plan_launch(kernel, smem, plan);
+  if (err != cudaSuccess) return err;
+  if (describe) {
+    *describe = plan;
+    return cudaSuccess;
   }
-  long long blocks = cached_blocks;
-  if (blocks > a.E) blocks = a.E;
+  const long long ntiles = ((long long)a.E + a.G - 1) / a.G;
+  const long long blocks = plan.resident_blocks < ntiles ? plan.resident_blocks : ntiles;
   kernel<<<dim3((unsigned)blocks), dim3(kThreads), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int botfr, const Args<T>& a, cudaStream_t stream) {
-  switch (botfr) {
-    case 0: return launch<T, 0>(a, stream);
-    case 1: return launch<T, 1>(a, stream);
-    case 2: return launch<T, 2>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-Args<T> make_args(const void* qb, const void* qpl, const void* met,
-                  const void* ptab, const void* coup, const void* K,
-                  const void* DkT, const void* DeT, const void* pbp,
-                  void* accv, void* accn, void* rhs, int E, int npts, int nqq,
-                  double grav, double cd, double alpha_bot) {
+cudaError_t run(int botfr, const void* qb, const void* qpl, const void* met,
+                const void* ptab, const void* coup, const void* psiq,
+                const void* dpsiq, const void* pbp, void* accv, void* accn, void* rhs,
+                int E, int ngl, int nq, double grav, double cd, double alpha_bot,
+                cudaStream_t stream, LaunchPlan* describe) {
   Args<T> a;
   a.qb = static_cast<const T*>(qb);
   a.qpl = static_cast<const T*>(qpl);
   a.met = static_cast<const T*>(met);
   a.ptab = static_cast<const T*>(ptab);
   a.coup = static_cast<const T*>(coup);
-  a.K = static_cast<const T*>(K);
-  a.DkT = static_cast<const T*>(DkT);
-  a.DeT = static_cast<const T*>(DeT);
+  a.psiq = static_cast<const T*>(psiq);
+  a.dpsiq = static_cast<const T*>(dpsiq);
   a.pbp = static_cast<const T*>(pbp);
   a.accv = static_cast<T*>(accv);
   a.accn = static_cast<T*>(accn);
   a.rhs = static_cast<T*>(rhs);
   a.E = E;
-  a.npts = npts;
-  a.nqq = nqq;
+  a.ngl = ngl;
+  a.nq = nq;
+  a.botfr = botfr;
+  a.G = 0;
   a.grav = T(grav);
   a.cd = T(cd);
   a.alpha_bot = T(alpha_bot);
-  return a;
+  // p = 4 with exact integration (ngl = 5, nq = 9), the order the model is
+  // run at, has its own instantiation; every other order takes the sizes at
+  // run time
+  if (ngl == 5 && nq == 9) return launch<T, 5, 9>(a, stream, describe);
+  return launch<T, 0, 0>(a, stream, describe);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes (the caller checks it against
-// the card's limit before launching).
-long long btp_volume_smem_bytes(int is_double, int npts, int nqq) {
-  return (long long)(is_double ? smem_bytes<double>(npts, nqq)
-                               : smem_bytes<float>(npts, nqq));
+// Shared memory one block needs at least (a tile of one element), in bytes:
+// the caller checks it against the card's limit before launching.
+long long btp_volume_smem_bytes(int is_double, int ngl, int nq) {
+  return (long long)(is_double ? smem_bytes<double>(ngl, nq, 1)
+                               : smem_bytes<float>(ngl, nq, 1));
+}
+
+// How a launch at these sizes is laid out on the current device: elements
+// per tile, shared memory per block (bytes), resident blocks per SM.
+// Returns a cudaError_t.
+int btp_volume_describe(int is_double, int ngl, int nq, int* tile, long long* smem,
+                        int* blocks_per_sm) {
+  LaunchPlan plan;
+  const cudaError_t err =
+      is_double ? run<double>(0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, nullptr, 1, ngl, nq, 0, 0, 0, nullptr,
+                              &plan)
+                : run<float>(0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, 1, ngl, nq, 0, 0, 0, nullptr,
+                             &plan);
+  if (err != cudaSuccess) return int(err);
+  *tile = is_double ? tile_elements<double>(ngl, nq) : tile_elements<float>(ngl, nq);
+  *smem = (long long)plan.smem;
+  *blocks_per_sm = plan.blocks_per_sm;
+  return 0;
 }
 
 // Launch on `stream`; does not synchronise. Returns the launch's cudaError_t.
 int btp_volume_launch(int is_double, int botfr,
                       const void* qb, const void* qpl, const void* met,
-                      const void* ptab, const void* coup, const void* K,
-                      const void* DkT, const void* DeT, const void* pbp,
+                      const void* ptab, const void* coup, const void* psiq,
+                      const void* dpsiq, const void* pbp,
                       void* accv, void* accn, void* rhs,
-                      int E, int npts, int nqq,
+                      int E, int ngl, int nq,
                       double grav, double cd, double alpha_bot, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E <= 0 || npts <= 0 || nqq <= 0) return int(cudaErrorInvalidValue);
+  if (E <= 0 || ngl <= 0 || nq <= 0 || botfr < 0 || botfr > 2)
+    return int(cudaErrorInvalidValue);
   if (is_double) {
-    return int(dispatch<double>(botfr, make_args<double>(
-        qb, qpl, met, ptab, coup, K, DkT, DeT, pbp, accv, accn, rhs,
-        E, npts, nqq, grav, cd, alpha_bot), s));
+    return int(run<double>(botfr, qb, qpl, met, ptab, coup, psiq, dpsiq, pbp, accv, accn,
+                           rhs, E, ngl, nq, grav, cd, alpha_bot, s, nullptr));
   }
-  return int(dispatch<float>(botfr, make_args<float>(
-      qb, qpl, met, ptab, coup, K, DkT, DeT, pbp, accv, accn, rhs,
-      E, npts, nqq, grav, cd, alpha_bot), s));
+  return int(run<float>(botfr, qb, qpl, met, ptab, coup, psiq, dpsiq, pbp, accv, accn, rhs,
+                        E, ngl, nq, grav, cd, alpha_bot, s, nullptr));
 }
 
 const char* btp_volume_error_string(int code) {

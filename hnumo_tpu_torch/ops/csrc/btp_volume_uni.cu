@@ -19,43 +19,64 @@
 //     u = pbub/pb, v = pbvb/pb (PRE-stage), written out and added to agr.
 //
 // The TPU kernel multiplies by Kronecker matrices K (25x81), M2 (243x25) and
-// Gx, Gy (25x25) because its matrix unit wants large products. Here the 1-D
-// tables psiq, dpsiq, dpsi sit in shared memory and every product is two
-// passes of short loops (sum factorisation): 9.5 k multiply-adds per element
-// at p=4 instead of 35 k, and no per-element metric table at all.
+// Gx, Gy (25x25) because its matrix unit wants large products. Here every
+// product is two passes over the 1-D tables psiq, dpsiq, dpsi (sum
+// factorisation): 9.5 k multiply-adds per element at p=4 instead of 35 k.
 //
-// What bounds it on this card: bytes. With the gradient and a flat bottom an
-// element moves 2157 values in and 1322 out (3479 at p=4; 24 of the 43
-// quad-sized channels are the accumulators' read and write) against ~25 kflop.
-// What the design does about it: every global access is one coalesced pass
-// over an element's row of a channel, the operators are staged once per block
-// and reused for all elements the block walks over, and all intermediates
-// stay in shared memory or registers. The three flags (botfr, flat, grad) are
-// kernel arguments, the same for every thread, so the branches on them do not
-// diverge and the build stays at four instantiations (f32/f64, p=4 sizes at
-// compile time / any order at run time).
+// What bounds it on this card: bytes (with the gradient and a flat bottom an
+// element moves 2157 values in and 1322 out, 3479 at p=4, against ~25 kflop),
+// and what held the first version of this kernel at 2.7x that bound was the
+// latency of its loads, not their number: built with its global reads
+// replaced by computed values it took 0.264 ms at 256x256 where the whole
+// kernel took 0.745 and the loads alone (contractions compiled out) 0.838 —
+// one element per block, five block-wide barriers per element, and the 12
+// accumulator updates as 12 dependent round trips to device memory (a load
+// behind each store through the same pointer). What the design does about
+// it (btp_volume_common.cuh has the shared parts):
+//   - a block works a tile of 4 consecutive elements, so the pointwise phase
+//     is one flat, coalesced run of 324 quad points for 352 threads, and the
+//     five barriers are paid once per 4 elements;
+//   - every global input of tile t+1, the accumulators' old values included,
+//     is on its way into the other stage of a two-stage shared-memory ring
+//     (cp.async, 16 bytes a copy where aligned) while tile t is computed; the
+//     accumulators are then written once, from registers, with no read in
+//     front of them;
+//   - in the four 1-D passes a thread owns a line, holds it in registers and
+//     produces all of its outputs.
+// Two blocks of 352 threads are resident per SM (93 KB of shared memory
+// each at p=4 in f32): fewer threads than the SM could keep, which is enough
+// because the ring, not the number of warps, keeps the loads in flight —
+// each block has a whole tile (37 KB) under way at any time.
+// The three flags (botfr, flat, grad) are kernel arguments, the same for
+// every thread, so the branches on them do not diverge and the build stays
+// at four instantiations (f32/f64, p=4 sizes at compile time / any order at
+// run time).
 //
-// Layout of one block's work on element e (grid-stride loop over e):
-//   phase 0: the element's 7 nodal channels -> shared memory
+// One tile's phases (block-wide barrier between them):
+//   top:     start the copies of the next tile; wait for this tile's
 //   phase 1: interpolation pass 1 (along i); nodal averages; u, v
-//   phase 2: thread q < nqq: interpolation pass 2 (along j), the pointwise
-//            physics, the 12 accumulator read-modify-writes, 8 weighted flux
-//            rows -> shared memory; threads (c, node): gv and agr
-//   phase 3: scatter pass 1 (along I)
-//   phase 4: scatter pass 2 (along J), times minv -> rhs
+//   phase 2: interpolation pass 2 (along j); velocity gradient gv and agr
+//   phase 3: thread = quad point of the tile: pointwise physics, the 12
+//            accumulator rows written, 8 weighted flux rows -> shared memory
+//   phase 4: scatter pass 1 (along I)
+//   phase 5: scatter pass 2 (along J), times minv -> rhs
 //
 // Plain C interface (loaded with ctypes; no PyTorch headers): the launcher
 // returns the cudaError_t of the launch as an int, 0 on success.
 
 #include <cuda_runtime.h>
 
+#include "btp_volume_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+using namespace btpvol;
 
-template <typename T> __device__ __forceinline__ T t_sqrt(T x);
-template <> __device__ __forceinline__ float t_sqrt<float>(float x) { return sqrtf(x); }
-template <> __device__ __forceinline__ double t_sqrt<double>(double x) { return sqrt(x); }
+// channels of a stage: nodal qb 4, qpl 3, pbp 1, accn 3, agr 4; quad ptab
+// 6|8, coup 4, accv 12 (room for 8 rows of ptab either way)
+constexpr int kNodalIn = 15;
+constexpr int kQuadIn = 24;
+constexpr int kPbp = 7, kAccn = 8, kAgr = 11;
 
 template <typename T>
 struct Args {
@@ -76,48 +97,63 @@ struct Args {
   T* rhs;          // (3, E, npts)  out
   T* gv;           // (4, E, npts)  out (grad)
   int E, ngl, nq, botfr, flat, grad;
+  int G;           // elements per tile
   T grav, cd, alpha_bot, kx_df, ey_df;
 };
 
 template <typename T>
 struct Smem {
   T *psiq, *dpsiq, *dpsi, *wq3, *minv;   // operators
-  T *q;        // (7, npts)   own nodal channels
-  T *uv;       // (2, npts)   u, v
-  T *tmp;      // (7, ngl, nq) interpolation, first pass
-  T *f;        // (8, nqq)    weighted flux rows
-  T *t1, *t2;  // (3, nq, ngl) scatter, first pass
+  T *stage[kStages];   // nodal channels (kNodalIn slots), then quad (kQuadIn)
+  T *vf;       // (8, slot_q)       interpolated channels, then flux rows
+  T *tt;       // (8, G*ngl*nq)     first pass of interpolation and of scatter
+  T *uv;       // (2, G*npts)       u, v
+  int slot_n, slot_q;
 };
 
 template <typename T>
-__host__ __device__ size_t carve(Smem<T>& s, T* base, int n, int m) {
+__host__ __device__ size_t carve(Smem<T>& s, T* base, int n, int m, int G) {
   const int npts = n * n, nqq = m * m;
+  s.slot_n = slot_values<T>(G * npts);
+  s.slot_q = slot_values<T>(G * nqq);
   size_t o = 0;
-  auto take = [&](size_t count) { T* p = base + o; o += count; return p; };
+  auto take = [&](size_t count) {
+    T* p = base + o;
+    o += slot_values<T>(int(count));
+    return p;
+  };
+  for (int k = 0; k < kStages; ++k)
+    s.stage[k] = take(size_t(kNodalIn) * s.slot_n + size_t(kQuadIn) * s.slot_q);
+  s.vf = take(size_t(kFluxRows) * s.slot_q);
+  s.tt = take(size_t(kFluxRows) * G * n * m);
+  s.uv = take(2 * G * npts);
   s.psiq = take(n * m);   s.dpsiq = take(n * m);   s.dpsi = take(n * n);
   s.wq3 = take(3 * nqq);  s.minv = take(npts);
-  s.q = take(7 * npts);   s.uv = take(2 * npts);
-  s.tmp = take(7 * n * m);
-  s.f = take(8 * nqq);
-  s.t1 = take(3 * m * n); s.t2 = take(3 * m * n);
   return o;
 }
 
 // NGL, NQ > 0 fix the 1-D sizes at compile time (index arithmetic by
-// constants, inner loops unrolled); 0 takes them from the arguments.
+// constants, lines in registers, inner loops unrolled); 0 takes them from
+// the arguments. f32 is held to the registers of 2 blocks per SM.
 template <typename T, int NGL, int NQ>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (sizeof(T) == 4 && NGL > 0) ? 2 : 1)
 btp_volume_uni_kernel(const Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = NGL > 0 ? NGL : a.ngl, m = NQ > 0 ? NQ : a.nq;
   const int npts = n * n, nqq = m * m;
+  const int G = a.G;
   Smem<T> s;
-  carve(s, reinterpret_cast<T*>(smem_raw), n, m);
+  carve(s, reinterpret_cast<T*>(smem_raw), n, m, G);
+  const int slot_n = s.slot_n, slot_q = s.slot_q;
+  const int tt_chan = G * n * m;
+  const int uv_chan = G * npts;
+  const int rows = a.flat ? 6 : 8;   // of ptab; coup and accv follow it in a stage
 
   const int tid = threadIdx.x;
   const long long E = a.E;
   const long long sn = E * npts;   // channel stride, nodal arrays
   const long long sq = E * nqq;    // channel stride, quad arrays
+  const long long ntiles = (E + G - 1) / G;
 
   for (int t = tid; t < n * m; t += kThreads) {
     s.psiq[t] = a.psiq[t];
@@ -127,61 +163,104 @@ btp_volume_uni_kernel(const Args<T> a) {
   for (int t = tid; t < 3 * nqq; t += kThreads) s.wq3[t] = a.wq3[t];
   for (int t = tid; t < npts; t += kThreads) s.minv[t] = a.minv[t];
 
-  for (long long e = blockIdx.x; e < E; e += gridDim.x) {
-    const long long en = e * npts;
-    const long long eq = e * nqq;
-
-    // ---- phase 0: this element's nodal channels -> shared memory -----------
-    __syncthreads();   // the previous element's readers are done
-    for (int t = tid; t < 7 * npts; t += kThreads) {
-      const int c = t / npts, nn = t - c * npts;
-      s.q[t] = c < 4 ? a.qb[c * sn + en + nn] : a.qpl[(c - 4) * sn + en + nn];
+  // start the copies of one tile's inputs into a stage (one group per tile)
+  auto start_copies = [&](long long tile, T* st) {
+    if (tile < ntiles) {
+      const long long e0 = tile * G;
+      const int g = int(E - e0 < G ? E - e0 : G);
+      const long long on = e0 * npts, oq = e0 * nqq;
+      T* qst = st + kNodalIn * slot_n;
+      // (first slot, array, channels): the slot index also rotates the warps
+      auto nodal = [&](int slot0, const T* src, long long stride, int nchan) {
+        stage_channels(st + slot0 * slot_n, slot_n, src, stride, on, g * npts, nchan, slot0,
+                       tid);
+      };
+      auto quad = [&](int slot0, const T* src, int nchan) {
+        stage_channels(qst + slot0 * slot_q, slot_q, src, sq, oq, g * nqq, nchan,
+                       kNodalIn + slot0, tid);
+      };
+      nodal(0, a.qb, sn, 4);
+      nodal(4, a.qpl, sn, 3);
+      nodal(kPbp, a.pbp, 0, 1);
+      nodal(kAccn, a.accn, sn, 3);
+      if (a.grad) nodal(kAgr, a.agr, sn, 4);
+      quad(0, a.ptab, rows);
+      quad(rows, a.coup, 4);
+      quad(rows + 4, a.accv, 12);
     }
+    cp_async_commit();
+  };
+
+  fill_stages(s.stage[0], kStages * (kNodalIn * slot_n + kQuadIn * slot_q), tid);
+  start_copies(blockIdx.x, s.stage[0]);
+  int k = 0;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, k ^= 1) {
+    const long long e0 = tile * G;
+    const int g = int(E - e0 < G ? E - e0 : G);
+    const long long on = e0 * npts, oq = e0 * nqq;
+    const T* sN = s.stage[k];
+    const T* sQ = sN + kNodalIn * slot_n;
+
+    // ---- top: next tile's copies start, this tile's have landed ------------
+    // (every thread is past the previous tile's barrier after phase 4, so the
+    // other stage, read up to phase 3, and vf/tt/uv are free)
+    start_copies(tile + gridDim.x, s.stage[k ^ 1]);
+    cp_async_wait<1>();
     __syncthreads();
 
     // ---- phase 1: interpolation pass 1, nodal averages, u and v ------------
-    for (int t = tid; t < 7 * n * m; t += kThreads) {
-      // tmp[c][j][I] = sum_i q[c][j][i] psiq[i][I]
-      const int c = t / (n * m), r = t - c * n * m;
-      const int j = r / m, I = r - j * m;
-      const T* row = s.q + c * npts + j * n;
-      T acc = T(0);
-      for (int i = 0; i < n; ++i) acc += row[i] * s.psiq[i * m + I];
-      s.tmp[t] = acc;
-    }
-    for (int nn = tid; nn < npts; nn += kThreads) {
-      // nodal averages from the PRE-stage qb
-      const T inv_pb = T(1) / s.q[nn];
-      const T t_df = s.q[npts + nn] * a.pbp[en + nn];
-      const T u = s.q[2 * npts + nn] * inv_pb;
-      const T v = s.q[3 * npts + nn] * inv_pb;
-      a.accn[en + nn] += t_df * (T(2) + t_df);
-      a.accn[sn + en + nn] += u;
-      a.accn[2 * sn + en + nn] += v;
-      s.uv[nn] = u;
-      s.uv[npts + nn] = v;
+    interp_pass1<T, NGL, NQ>(sN, slot_n, 7, g, s.tt, tt_chan, s.psiq, n, m, tid);
+    for (int P = kThreads - 1 - tid; P < g * npts; P += kThreads) {
+      // nodal averages from the PRE-stage qb (the threads pass 1 leaves idle)
+      const T inv_pb = T(1) / sN[P];
+      const T t_df = sN[slot_n + P] * sN[kPbp * slot_n + P];
+      const T u = sN[2 * slot_n + P] * inv_pb;
+      const T v = sN[3 * slot_n + P] * inv_pb;
+      a.accn[on + P] = sN[kAccn * slot_n + P] + t_df * (T(2) + t_df);
+      a.accn[sn + on + P] = sN[(kAccn + 1) * slot_n + P] + u;
+      a.accn[2 * sn + on + P] = sN[(kAccn + 2) * slot_n + P] + v;
+      s.uv[P] = u;
+      s.uv[uv_chan + P] = v;
     }
     __syncthreads();
 
-    // ---- phase 2: quad-point work, velocity gradient -----------------------
-    for (int q = tid; q < nqq; q += kThreads) {
-      const int J = q / m, I = q - J * m;
-      T v7[7];
-#pragma unroll
-      for (int c = 0; c < 7; ++c) v7[c] = T(0);
-      for (int j = 0; j < n; ++j) {
-        const T p = s.psiq[j * m + J];
-#pragma unroll
-        for (int c = 0; c < 7; ++c) v7[c] += s.tmp[(c * n + j) * m + I] * p;
+    // ---- phase 2: interpolation pass 2, velocity gradient ------------------
+    interp_pass2<T, NGL, NQ>(s.tt, tt_chan, 7, g, s.vf, slot_q, s.psiq, n, m, tid);
+    if (a.grad) {
+      // gv[c]: c = 0, 2 d/dx of u, v (along i, a thread owns row j);
+      //        c = 1, 3 d/dy (along j, a thread owns column i)
+      const int lines = g * n;
+      for (int t = kThreads - 1 - tid; t < 4 * lines; t += kThreads) {
+        const int c = t / lines, r = t - c * lines;
+        const int gg = r / n, l = r - gg * n;
+        const bool along_i = (c & 1) == 0;
+        const T* f = s.uv + (c >> 1) * uv_chan + gg * npts + (along_i ? l * n : l);
+        const T scale = along_i ? a.kx_df : a.ey_df;
+        const int first = gg * npts + (along_i ? l * n : l), step = along_i ? 1 : n;
+        const T* old = sN + (kAgr + c) * slot_n + first;
+        T* gv = a.gv + c * sn + on + first;
+        T* agr = a.agr + c * sn + on + first;
+        contract_line<T, NGL, NGL>(f, step, n, n, s.dpsi, n, 1, [&](int o, T acc) {
+          acc *= scale;
+          gv[o * step] = acc;
+          agr[o * step] = old[o * step] + acc;
+        });
       }
-      const T dp = v7[0], dpp = v7[1], udp = v7[2], vdp = v7[3];
-      const T ppq = v7[4], up = v7[5], vp = v7[6];
-      const long long iq = eq + q;
-      const T cor = a.ptab[iq];
-      const T tau_u = a.ptab[sq + iq], tau_v = a.ptab[2 * sq + iq];
-      const T opbp = a.ptab[3 * sq + iq];
-      const T pp = a.ptab[4 * sq + iq] + ppq;   // full bottom-layer dp'
-      const T Href = a.ptab[5 * sq + iq];
+    }
+    __syncthreads();
+
+    // ---- phase 3: quad-point work over the tile as one flat run ------------
+    for (int P = tid; P < g * nqq; P += kThreads) {
+      const int q = P % nqq;
+      const T dp = s.vf[P], dpp = s.vf[slot_q + P];
+      const T udp = s.vf[2 * slot_q + P], vdp = s.vf[3 * slot_q + P];
+      const T ppq = s.vf[4 * slot_q + P];
+      const T up = s.vf[5 * slot_q + P], vp = s.vf[6 * slot_q + P];
+      const T cor = sQ[P];
+      const T tau_u = sQ[slot_q + P], tau_v = sQ[2 * slot_q + P];
+      const T opbp = sQ[3 * slot_q + P];
+      const T pp = sQ[4 * slot_q + P] + ppq;   // full bottom-layer dp'
+      const T Href = sQ[5 * slot_q + P];
 
       const T inv_dp = T(1) / dp;
       const T ub = udp * inv_dp;
@@ -202,12 +281,13 @@ btp_volume_uni_kernel(const Args<T> a) {
       T sc_x = cor * vdp + a.grav * (tau_u - tb_u);
       T sc_y = -cor * udp + a.grav * (tau_v - tb_v);
       if (!a.flat) {
-        sc_x -= a.grav * dpp * a.ptab[6 * sq + iq];
-        sc_y -= a.grav * dpp * a.ptab[7 * sq + iq];
+        sc_x -= a.grav * dpp * sQ[6 * slot_q + P];
+        sc_y -= a.grav * dpp * sQ[7 * slot_q + P];
       }
 
-      const T Quu = a.coup[iq], Quv = a.coup[sq + iq];
-      const T Qvv = a.coup[2 * sq + iq], dHbcl = a.coup[3 * sq + iq];
+      const T* sC = sQ + rows * slot_q;
+      const T Quu = sC[P], Quv = sC[slot_q + P];
+      const T Qvv = sC[2 * slot_q + P], dHbcl = sC[3 * slot_q + P];
       const T mu = dpp * opbp;
       const T mu2 = mu * (T(2) + mu);
       const T ope = T(1) + mu;
@@ -216,113 +296,65 @@ btp_volume_uni_kernel(const Args<T> a) {
       const T quv = ub * vdp + ope * Quv;
       const T qv = vb * vdp + ope * Qvv;
 
-      // 12 running averages, order of core/btp._VOL_ORDER
+      // 12 running averages, order of core/btp._VOL_ORDER: old value from the
+      // stage, new value written once
       const T inc[12] = {dHq, qu, qv, quv, mu, mu2, ub, vb, udp, vdp, tb_u, tb_v};
+      const T* sA = sC + 4 * slot_q;
+      // (plain stores: streaming stores, __stcs, gained nothing at 256x256)
 #pragma unroll
-      for (int c = 0; c < 12; ++c) a.accv[c * sq + iq] += inc[c];
+      for (int c = 0; c < 12; ++c) a.accv[c * sq + oq + P] = sA[c * slot_q + P] + inc[c];
 
-      // weighted flux rows: (x, y) of the 3 channels, then the 2 sources
+      // weighted flux rows: (x, y) of the 3 channels, then the 2 sources; they
+      // take the place of this point's interpolated values
       const T wkx = s.wq3[q], wey = s.wq3[nqq + q], w = s.wq3[2 * nqq + q];
-      s.f[0 * nqq + q] = wkx * udp;
-      s.f[1 * nqq + q] = wey * vdp;
-      s.f[2 * nqq + q] = wkx * (dHq + qu);
-      s.f[3 * nqq + q] = wey * quv;
-      s.f[4 * nqq + q] = wkx * quv;
-      s.f[5 * nqq + q] = wey * (dHq + qv);
-      s.f[6 * nqq + q] = w * sc_x;
-      s.f[7 * nqq + q] = w * sc_y;
-    }
-    if (a.grad) {
-      // gv[c] at node (j, i): c = 0, 2 d/dx of u, v (along i); 1, 3 d/dy (along j)
-      for (int t = tid; t < 4 * npts; t += kThreads) {
-        const int c = t / npts, nn = t - c * npts;
-        const int j = nn / n, i = nn - j * n;
-        const T* f = s.uv + (c >> 1) * npts;
-        T acc = T(0);
-        if ((c & 1) == 0) {
-          for (int k = 0; k < n; ++k) acc += f[j * n + k] * s.dpsi[k * n + i];
-          acc *= a.kx_df;
-        } else {
-          for (int k = 0; k < n; ++k) acc += f[k * n + i] * s.dpsi[k * n + j];
-          acc *= a.ey_df;
-        }
-        a.gv[c * sn + en + nn] = acc;
-        a.agr[c * sn + en + nn] += acc;
-      }
+      s.vf[0 * slot_q + P] = wkx * udp;
+      s.vf[1 * slot_q + P] = wey * vdp;
+      s.vf[2 * slot_q + P] = wkx * (dHq + qu);
+      s.vf[3 * slot_q + P] = wey * quv;
+      s.vf[4 * slot_q + P] = wkx * quv;
+      s.vf[5 * slot_q + P] = wey * (dHq + qv);
+      s.vf[6 * slot_q + P] = w * sc_x;
+      s.vf[7 * slot_q + P] = w * sc_y;
     }
     __syncthreads();
 
-    // ---- phase 3: scatter pass 1 -------------------------------------------
-    for (int t = tid; t < 3 * m * n; t += kThreads) {
-      // t1[c][J][i] = sum_I Fx[c][J][I] dpsiq[i][I] (+ Fs[c][J][I] psiq[i][I])
-      // t2[c][J][i] = sum_I Fy[c][J][I] psiq[i][I]
-      const int c = t / (m * n), r = t - c * m * n;
-      const int J = r / n, i = r - J * n;
-      const T* fx = s.f + (2 * c) * nqq + J * m;
-      const T* fy = fx + nqq;
-      T a1 = T(0), a2 = T(0);
-      for (int I = 0; I < m; ++I) {
-        a1 += fx[I] * s.dpsiq[i * m + I];
-        a2 += fy[I] * s.psiq[i * m + I];
-      }
-      if (c > 0) {
-        const T* fs = s.f + (5 + c) * nqq + J * m;
-        T a3 = T(0);
-        for (int I = 0; I < m; ++I) a3 += fs[I] * s.psiq[i * m + I];
-        a1 += a3;
-      }
-      s.t1[t] = a1;
-      s.t2[t] = a2;
-    }
+    // ---- phase 4: scatter pass 1 -------------------------------------------
+    scatter_pass1<T, NGL, NQ>(s.vf, slot_q, g, s.tt, tt_chan, s.psiq, s.dpsiq, n, m, tid);
     __syncthreads();
 
-    // ---- phase 4: scatter pass 2, inverse mass -----------------------------
-    for (int t = tid; t < 3 * npts; t += kThreads) {
-      // rhs[c][j][i] = sum_J t1[c][J][i] psiq[j][J] + t2[c][J][i] dpsiq[j][J]
-      const int c = t / npts, nn = t - c * npts;
-      const int j = nn / n, i = nn - j * n;
-      T acc = T(0);
-      for (int J = 0; J < m; ++J) {
-        acc += s.t1[(c * m + J) * n + i] * s.psiq[j * m + J];
-        acc += s.t2[(c * m + J) * n + i] * s.dpsiq[j * m + J];
-      }
-      a.rhs[c * sn + en + nn] = s.minv[nn] * acc;
-    }
+    // ---- phase 5: scatter pass 2, inverse mass -----------------------------
+    scatter_pass2<T, NGL, NQ>(s.tt, tt_chan, g, s.psiq, s.dpsiq, s.minv, a.rhs, sn, e0, n, m,
+                              tid);
   }
+  cp_async_wait<0>();
 }
 
 template <typename T>
-size_t smem_bytes(int ngl, int nq) {
+size_t smem_bytes(int ngl, int nq, int G) {
   Smem<T> s;
-  return sizeof(T) * carve<T>(s, nullptr, ngl, nq);
+  return sizeof(T) * carve<T>(s, nullptr, ngl, nq, G);
+}
+
+template <typename T>
+int tile_elements(int ngl, int nq) {
+  return pick_tile([&](int G) { return smem_bytes<T>(ngl, nq, G); }, kSmemLimit);
 }
 
 template <typename T, int NGL, int NQ>
-cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(a.ngl, a.nq);
+cudaError_t launch(Args<T>& a, cudaStream_t stream, LaunchPlan* describe) {
+  a.G = tile_elements<T>(a.ngl, a.nq);
+  if (a.G < 1) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T>(a.ngl, a.nq, a.G);
   auto kernel = btp_volume_uni_kernel<T, NGL, NQ>;
-  // The attribute and the resident-block count depend only on the
-  // instantiation and the shared-memory size: asked once, then reused (the
-  // solver launches this 2*N_btp*kstages times per step with one size).
-  static size_t cached_smem = 0;
-  static long long cached_blocks = 0;
-  if (cached_smem != smem || cached_blocks == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-    cached_blocks = (long long)sms * per_sm;
-    cached_smem = smem;
+  static LaunchPlan plan;
+  cudaError_t err = plan_launch(kernel, smem, plan);
+  if (err != cudaSuccess) return err;
+  if (describe) {
+    *describe = plan;
+    return cudaSuccess;
   }
-  long long blocks = cached_blocks;
-  if (blocks > a.E) blocks = a.E;
+  const long long ntiles = ((long long)a.E + a.G - 1) / a.G;
+  const long long blocks = plan.resident_blocks < ntiles ? plan.resident_blocks : ntiles;
   kernel<<<dim3((unsigned)blocks), dim3(kThreads), smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -333,7 +365,8 @@ cudaError_t run(int E, int ngl, int nq, int botfr, int flat, int grad,
                 const void* pbp, const void* psiq, const void* dpsiq,
                 const void* dpsi, const void* wq3, const void* minv, void* accv,
                 void* accn, void* agr, void* rhs, void* gv, double grav, double cd,
-                double alpha_bot, double kx_df, double ey_df, cudaStream_t stream) {
+                double alpha_bot, double kx_df, double ey_df, cudaStream_t stream,
+                LaunchPlan* describe) {
   Args<T> a;
   a.qb = static_cast<const T*>(qb);
   a.qpl = static_cast<const T*>(qpl);
@@ -352,23 +385,45 @@ cudaError_t run(int E, int ngl, int nq, int botfr, int flat, int grad,
   a.gv = static_cast<T*>(gv);
   a.E = E; a.ngl = ngl; a.nq = nq;
   a.botfr = botfr; a.flat = flat; a.grad = grad;
+  a.G = 0;
   a.grav = T(grav); a.cd = T(cd); a.alpha_bot = T(alpha_bot);
   a.kx_df = T(kx_df); a.ey_df = T(ey_df);
   // p = 4 with exact integration (ngl = 5, nq = 9), the order the model is
   // run at, has its own instantiation; every other order takes the sizes at
   // run time
-  if (ngl == 5 && nq == 9) return launch<T, 5, 9>(a, stream);
-  return launch<T, 0, 0>(a, stream);
+  if (ngl == 5 && nq == 9) return launch<T, 5, 9>(a, stream, describe);
+  return launch<T, 0, 0>(a, stream, describe);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes (the caller checks it against
-// the card's limit before launching).
+// Shared memory one block needs at least (a tile of one element), in bytes:
+// the caller checks it against the card's limit before launching.
 long long btp_volume_uni_smem_bytes(int is_double, int ngl, int nq) {
-  return (long long)(is_double ? smem_bytes<double>(ngl, nq) : smem_bytes<float>(ngl, nq));
+  return (long long)(is_double ? smem_bytes<double>(ngl, nq, 1)
+                               : smem_bytes<float>(ngl, nq, 1));
+}
+
+// How a launch at these sizes is laid out on the current device: elements
+// per tile, shared memory per block (bytes), resident blocks per SM.
+// Returns a cudaError_t.
+int btp_volume_uni_describe(int is_double, int ngl, int nq, int* tile,
+                            long long* smem, int* blocks_per_sm) {
+  LaunchPlan plan;
+  const cudaError_t err =
+      is_double ? run<double>(1, ngl, nq, 0, 1, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, nullptr, &plan)
+                : run<float>(1, ngl, nq, 0, 1, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, nullptr, &plan);
+  if (err != cudaSuccess) return int(err);
+  *tile = is_double ? tile_elements<double>(ngl, nq) : tile_elements<float>(ngl, nq);
+  *smem = (long long)plan.smem;
+  *blocks_per_sm = plan.blocks_per_sm;
+  return 0;
 }
 
 // Launch on `stream`; does not synchronise. Returns the launch's cudaError_t.
@@ -387,11 +442,11 @@ int btp_volume_uni_launch(int is_double, int E, int ngl, int nq, int botfr, int 
   if (is_double) {
     return int(run<double>(E, ngl, nq, botfr, flat, grad, qb, qpl, ptab, coup, pbp, psiq,
                            dpsiq, dpsi, wq3, minv, accv, accn, agr, rhs, gv, grav, cd,
-                           alpha_bot, kx_df, ey_df, s));
+                           alpha_bot, kx_df, ey_df, s, nullptr));
   }
   return int(run<float>(E, ngl, nq, botfr, flat, grad, qb, qpl, ptab, coup, pbp, psiq,
                         dpsiq, dpsi, wq3, minv, accv, accn, agr, rhs, gv, grav, cd,
-                        alpha_bot, kx_df, ey_df, s));
+                        alpha_bot, kx_df, ey_df, s, nullptr));
 }
 
 const char* btp_volume_uni_error_string(int code) {

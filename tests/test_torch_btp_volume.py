@@ -143,3 +143,169 @@ def test_wrapper_contract_raises(breakage):
         tv.btp_volume_plain(m.vol_ops, *args, **kw)
     with pytest.raises(RuntimeError):
         tv.eflat(torch.ones((2, 2, 5, 7, 5)).transpose(-1, -2)[..., :5, :5])
+
+
+# ---- the 1-D tables the CUDA kernel reads, and its sum-factorised arithmetic ----
+
+
+def _torch_case(nop, botfr, seed=5, nelx=3, nely=2):
+    """A small model of the port on the CPU and seeded flat operands."""
+    from hnumo_tpu_torch.core.bcl import extract_qprime_faces as t_faces
+    from hnumo_tpu_torch.core.coupling import btp_bcl_coeffs as t_coeffs
+    from hnumo_tpu_torch.model import Model as TorchModel
+    from hnumo_tpu_torch.ops.dg import interp_n2q as t_n2q
+    from test_torch_common import torch_config
+
+    m = TorchModel(torch_config(nelx=nelx, nely=nely, nopx=nop, nopy=nop, botfr=botfr),
+                   device="cpu")
+    rng, qb_np, qp_np = perturb(to_np_state(m.state0), seed, "float64")
+    qb, qp = tt(qb_np), tt(qp_np)
+    zq = torch.zeros(qp.shape[1:-2] + m.g.wjac.shape[-2:], dtype=qp.dtype)
+    coup = t_coeffs(m.static, m.P, m.g, m.bc, qp, t_faces(m.bc, qp), qp[0], zq)
+    coup_flat = torch.stack([tv.eflat(c.contiguous()) for c in
+                             (coup.Q_uu_dp, coup.Q_uv_dp, coup.Q_vv_dp, coup.dH_bcl)])
+    qplq = tv.eflat(t_n2q(m.g, qp[:, -1]).contiguous())
+    kw = dict(grav=m.static.gravity, botfr=botfr, cd=m.static.cd_mlswe,
+              alpha_bot=m.static.alpha_bot)
+    return m, rng, tv.eflat(qb), qplq, coup_flat, kw
+
+
+@pytest.mark.parametrize("nop", [2, 4, 8])
+def test_one_d_tables_reproduce_the_kronecker_matrices(nop):
+    """psiq and dpsiq (what the kernel reads) rebuild K, DkT, DeT (what the
+    plain version reads) as Kronecker products, at every order."""
+    m = _torch_case(nop, 1)[0]
+    ops = m.vol_ops
+    psiq, dpsiq = ops.psiq.numpy(), ops.dpsiq.numpy()
+    assert psiq.shape == dpsiq.shape == (nop + 1, m.g.wjac.shape[-1])
+    assert ops.psiq.is_contiguous() and ops.dpsiq.is_contiguous()
+    np.testing.assert_allclose(ops.K.numpy(), np.kron(psiq, psiq), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(ops.DkT.numpy(), np.kron(psiq, dpsiq).T, rtol=0, atol=1e-13)
+    np.testing.assert_allclose(ops.DeT.numpy(), np.kron(dpsiq, psiq).T, rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("botfr", [0, 1, 2])
+@pytest.mark.parametrize("nop", [2, 4, 8])
+def test_sum_factorised_stage_matches_plain_on_a_curvilinear_metric(nop, botfr):
+    """The arithmetic of the CUDA kernel — interpolation and scatter as two
+    1-D passes each, the metric applied pointwise in between — written out in
+    numpy, against btp_volume_plain with its Kronecker matrices, on a metric
+    that differs at every element and quad point (all four derivatives
+    non-zero): 1e-12 of each output's max in f64."""
+    from test_torch_common import sumfact_interp, sumfact_scatter
+
+    m, rng, qbf, qplq, coupf, kw = _torch_case(nop, botfr)
+    met = m.vol_ops.met.numpy()
+    size = np.abs(met[:4]).max()
+    new = met.copy()
+    new[:4] = (met[:4] * (1.0 + 0.2 * rng.uniform(-1, 1, met[:4].shape))
+               + 0.3 * size * rng.uniform(-1, 1, met[:4].shape))
+    new[4] = met[4] * (1.0 + 0.2 * rng.uniform(-1, 1, met[4].shape))
+    ops = m.vol_ops._replace(met=tt(new))
+    E, npts = qbf.shape[1], qbf.shape[2]
+    nqq = coupf.shape[2]
+    accv0, accn0 = rng.normal(size=(12, E, nqq)), rng.normal(size=(3, E, npts))
+    accv, accn = tt(accv0), tt(accn0)
+    rhs, _, _ = tv.btp_volume_plain(ops, qbf, qplq, coupf, accv, accn, **kw)
+
+    psiq, dpsiq = ops.psiq.numpy(), ops.dpsiq.numpy()
+    dp, dpp, udp, vdp = sumfact_interp(psiq, qbf.numpy())
+    ppq, up, vp = qplq.numpy()
+    cor, tau_u, tau_v, gzx, gzy, opbp, pref, Href = ops.ptab.numpy()
+    pp = pref + ppq
+    ub, vb = udp / dp, vdp / dp
+    g_ = kw["grav"]
+    if botfr == 1:
+        spd = (kw["cd"] / g_) * pp
+        tb_u, tb_v = spd * (up + ub), spd * (vp + vb)
+    elif botfr == 2:
+        spd = (kw["cd"] / kw["alpha_bot"]) * np.hypot(up + ub, vp + vb)
+        tb_u, tb_v = spd * (up + ub), spd * (vp + vb)
+    else:
+        tb_u = tb_v = np.zeros_like(dp)
+    sc_x = cor * vdp + g_ * (tau_u - tb_u) - g_ * dpp * gzx
+    sc_y = -cor * udp + g_ * (tau_v - tb_v) - g_ * dpp * gzy
+    Quu, Quv, Qvv, dHbcl = coupf.numpy()
+    mu = dpp * opbp
+    mu2 = mu * (2.0 + mu)
+    dHq = dHbcl + mu2 * (Href + dHbcl)
+    qu, quv, qv = ub * udp + (1 + mu) * Quu, ub * vdp + (1 + mu) * Quv, vb * vdp + (1 + mu) * Qvv
+    kx, ky, ex, ey, wj = new
+
+    def scatter(Fx, Fy, Fs):
+        return sumfact_scatter(psiq, dpsiq, wj * (Fx * kx + Fy * ky), wj * (Fx * ex + Fy * ey),
+                               None if Fs is None else wj * Fs)
+
+    want = np.stack([scatter(udp, vdp, None), scatter(dHq + qu, quv, sc_x),
+                     scatter(quv, dHq + qv, sc_y)])
+    np.testing.assert_allclose(rhs.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+    inc = np.stack([dHq, qu, qv, quv, mu, mu2, ub, vb, udp, vdp, tb_u, tb_v])
+    np.testing.assert_allclose(accv.numpy(), accv0 + inc, rtol=0,
+                               atol=1e-12 * np.abs(accv0 + inc).max())
+    t_df = qbf[1].numpy() * ops.pbp_df.numpy()
+    ninc = np.stack([t_df * (2.0 + t_df), qbf[2].numpy() / qbf[0].numpy(),
+                     qbf[3].numpy() / qbf[0].numpy()])
+    np.testing.assert_allclose(accn.numpy(), accn0 + ninc, rtol=0,
+                               atol=1e-12 * np.abs(accn0 + ninc).max())
+
+
+def test_converted_tables_yield_the_reference_operators():
+    """The port's operators built on tables carried over from the JAX package
+    equal that package's own, field by field; the 1-D tables are its psiq and
+    dpsiq."""
+    m = JaxModel(jax_config(dtype="float64", botfr=1))
+    ref = jp.operators_from_tables(m.g, m.P)
+    Pt, gt, _ = from_numpy_tables(to_np(m.P), to_np(m.g), to_np(m.state0), "cpu",
+                                  torch.float64)
+    ops = tv.operators_from_tables(gt, Pt)
+    for name in ("K", "DkT", "DeT", "met", "ptab", "pbp_df"):
+        got, want = getattr(ops, name).numpy(), np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-14 * np.abs(want).max(),
+                                   err_msg=name)
+    assert np.array_equal(ops.psiq.numpy(), np.asarray(m.g.psiq))
+    assert np.array_equal(ops.dpsiq.numpy(), np.asarray(m.g.dpsiq))
+    assert ops._fields == ("K", "DkT", "DeT", "met", "ptab", "pbp_df", "psiq", "dpsiq")
+
+
+@pytest.mark.parametrize("breakage", ["psiq_shape", "dpsiq_shape", "dpsiq_dtype",
+                                      "tables_of_another_order", "psiq_noncontiguous",
+                                      "psiq_not_2d"])
+@pytest.mark.parametrize("which", ["plain", "cuda"])
+def test_wrapper_checks_the_one_d_tables(which, breakage):
+    """Both implementations refuse 1-D tables that do not fit the operands,
+    and the CUDA wrapper refuses them before it would build or launch."""
+    m, rng, qbf, qplq, coupf, kw = _torch_case(4, 1, nelx=2, nely=2)
+    ops = m.vol_ops
+    other = _torch_case(2, 1, nelx=2, nely=2)[0].vol_ops
+    if breakage == "psiq_shape":
+        ops = ops._replace(psiq=ops.psiq[:, :-1].contiguous())
+    elif breakage == "dpsiq_shape":
+        ops = ops._replace(dpsiq=ops.dpsiq[:-1].contiguous())
+    elif breakage == "dpsiq_dtype":
+        ops = ops._replace(dpsiq=ops.dpsiq.float())
+    elif breakage == "tables_of_another_order":
+        ops = ops._replace(psiq=other.psiq, dpsiq=other.dpsiq)
+    elif breakage == "psiq_noncontiguous":
+        ops = ops._replace(psiq=ops.psiq.T.contiguous().T)
+    else:
+        ops = ops._replace(psiq=ops.psiq.reshape(-1))
+    E = qbf.shape[1]
+    accv = torch.zeros((12, E, 81), dtype=qbf.dtype)
+    accn = torch.zeros((3, E, 25), dtype=qbf.dtype)
+    fn = tv.btp_volume_plain if which == "plain" else tv.btp_volume_cuda
+    before = tv.btp_volume_cuda.launches
+    with pytest.raises(ValueError, match="psiq|1-D tables"):
+        fn(ops, qbf, qplq, coupf, accv, accn, **kw)
+    assert tv.btp_volume_cuda.launches == before
+    assert not accv.any() and not accn.any()
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """On CPU tensors the CUDA wrapper raises; it never swaps in the plain version."""
+    m, rng, qbf, qplq, coupf, kw = _torch_case(4, 1, nelx=2, nely=2)
+    accv = torch.zeros((12, 4, 81), dtype=qbf.dtype)
+    accn = torch.zeros((3, 4, 25), dtype=qbf.dtype)
+    before = tv.btp_volume_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tv.btp_volume_cuda(m.vol_ops, qbf, qplq, coupf, accv, accn, **kw)
+    assert tv.btp_volume_cuda.launches == before and not accv.any()

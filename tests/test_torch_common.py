@@ -73,3 +73,31 @@ def leaves(tree, prefix=""):
             yield from leaves(v, f"{prefix}{i}.")
     else:
         yield prefix[:-1], tree
+
+
+def sumfact_interp(psiq, u):
+    """Node->quad interpolation of flat nodal rows u (..., ngl*ngl) as two 1-D
+    passes with psiq (ngl, nq), in numpy: the arithmetic of the CUDA volume
+    kernels, written independently of the Kronecker matrices."""
+    ngl, nq = psiq.shape
+    u = np.asarray(u).reshape(u.shape[:-1] + (ngl, ngl))           # [j, i]
+    t = np.einsum("...ji,iI->...jI", u, psiq)                      # pass 1, along i
+    return np.einsum("...jI,jJ->...JI", t, psiq).reshape(u.shape[:-2] + (nq * nq,))
+
+
+def sumfact_scatter(psiq, dpsiq, a_ksi, a_eta, s=None):
+    """Weak-form scatter of flat quad rows (..., nq*nq) as two 1-D passes:
+    a_ksi through (dpsiq along i, psiq along j), a_eta through (psiq, dpsiq),
+    s through (psiq, psiq); returns flat nodal rows (..., ngl*ngl)."""
+    ngl, nq = psiq.shape
+
+    def sq(a):
+        a = np.asarray(a)
+        return a.reshape(a.shape[:-1] + (nq, nq))                   # [J, I]
+
+    t1 = np.einsum("...JI,iI->...Ji", sq(a_ksi), dpsiq)            # pass 1, along I
+    t2 = np.einsum("...JI,iI->...Ji", sq(a_eta), psiq)
+    if s is not None:
+        t1 = t1 + np.einsum("...JI,iI->...Ji", sq(s), psiq)
+    r = np.einsum("...Ji,jJ->...ji", t1, psiq) + np.einsum("...Ji,jJ->...ji", t2, dpsiq)
+    return r.reshape(r.shape[:-2] + (ngl * ngl,))

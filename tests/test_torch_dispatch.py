@@ -319,6 +319,67 @@ def test_build_libraries_builds_each_source_once(fake_toolchain):
     assert b.library_path("one") != before
 
 
+def test_library_follows_the_headers_its_source_includes(fake_toolchain):
+    """A header of csrc/ that a source includes, directly or through another
+    header, enters the library's name: a changed header is built anew."""
+    b = fake_toolchain
+    (b.CSRC_DIR / "one.cu").write_text('// one\n#include "shared.cuh"\n#include <cuda_runtime.h>\n')
+    (b.CSRC_DIR / "shared.cuh").write_text('#pragma once\n  #  include "deep.cuh"\n')
+    (b.CSRC_DIR / "deep.cuh").write_text("// deep\n")
+    assert [f.name for f in b.source_files("one")] == ["one.cu", "shared.cuh", "deep.cuh"]
+    assert [f.name for f in b.source_files("two")] == ["two.cu"]
+    first, other = b.library_path("one"), b.library_path("two")
+    b.build_libraries(["one", "two"])
+    (b.CSRC_DIR / "deep.cuh").write_text("// deep, changed\n")
+    assert b.library_path("one") != first and not b.library_path("one").exists()
+    assert b.library_path("two") == other
+    b.build_libraries(["one"])
+    assert b.library_path("one").read_text() == "built\n"
+    (b.CSRC_DIR / "shared.cuh").write_text("#pragma once\n")
+    assert b.library_path("one") not in (first,)
+    assert [f.name for f in b.source_files("one")] == ["one.cu", "shared.cuh"]
+    (b.CSRC_DIR / "one.cu").write_text('#include "missing.cuh"\n')
+    with pytest.raises(RuntimeError, match="missing.cuh"):
+        b.library_path("one")
+
+
+def test_defines_build_a_variant_beside_the_default(fake_toolchain):
+    b = fake_toolchain
+    plain, variant = b.library_path("one"), b.library_path("one", ("FLAG=1",))
+    assert plain != variant
+    b.build_libraries(["one"], ("FLAG=1",))
+    assert variant.exists() and not plain.exists()
+    assert "-DFLAG=1" in b.compile_command("one", variant, ("FLAG=1",))
+    assert not any(a.startswith("-D") for a in b.compile_command("one", plain))
+    assert b.resource_usage("one", ("FLAG=1",)) and b.resource_usage("one") == []
+
+
+def test_the_volume_sources_share_one_header():
+    from hnumo_tpu_torch.ops import _build
+
+    for name in ("btp_volume", "btp_volume_uni"):
+        assert [f.name for f in _build.source_files(name)] == [f"{name}.cu",
+                                                               "btp_volume_common.cuh"]
+    for name in ("btp_mega", "btp_faces", "btp_update"):
+        assert [f.name for f in _build.source_files(name)] == [f"{name}.cu"]
+
+
+def test_resource_usage_names_the_instantiations(fake_toolchain):
+    b = fake_toolchain
+    b.build_libraries(["one"])
+    log = b.library_path("one").with_suffix(".log")
+    log.write_text(
+        "ptxas info    : Compiling entry function '_ZN3abc6kernelIfLi5ELi9EEEvNS_4ArgsIT_EE'"
+        " for 'sm_90a'\n    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 80 registers\n"
+        "ptxas info    : Compiling entry function '_ZN3abc6kernelIdLi0ELi0EEEvNS_4ArgsIT_EE'"
+        " for 'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 144 registers\n")
+    assert b.resource_usage("one") == [
+        "f<5,9>: 80 registers, 8 B spill stores, 4 B spill loads",
+        "d<0,0>: 144 registers, 0 B spill stores, 0 B spill loads"]
+
+
 def test_build_libraries_builds_the_five_sources_side_by_side(fake_toolchain):
     b = fake_toolchain
     b.build_libraries(PORT_SOURCES)

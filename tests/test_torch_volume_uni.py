@@ -122,11 +122,23 @@ def test_own_operator_tables_match_the_reference(variant, bottom):
         assert torch.equal(ops.minv, torch.ones_like(ops.minv))
 
 
+def _own_ops(nop, variant):
+    """The port's own operators at order `nop` on a small brick (CPU)."""
+    from hnumo_tpu_torch.model import Model as TorchModel
+    from test_torch_common import torch_config
+
+    m = TorchModel(torch_config(nelx=2, nely=2, nopx=nop, nopy=nop), device="cpu")
+    return tu.operators_uniform(m.g, m.P, True, fold_massinv=variant == "grad",
+                                with_grad=variant == "grad")
+
+
+@pytest.mark.parametrize("nop", [None, 2, 8])
 @pytest.mark.parametrize("variant", ["grad", "bare"])
-def test_one_d_tables_describe_the_same_operators(variant):
+def test_one_d_tables_describe_the_same_operators(variant, nop):
     """What the CUDA kernel reads (psiq, dpsiq, dpsi, wq3, minv, kx_df, ey_df)
-    rebuilds what the plain version reads (K, M2, Gx, Gy)."""
-    ops = _case("float64", 1, "flat")[0][variant]
+    rebuilds what the plain version reads (K, M2, Gx, Gy): at p=4 on the
+    tables carried over from the JAX package, at p=2 and p=8 on the port's."""
+    ops = _case("float64", 1, "flat")[0][variant] if nop is None else _own_ops(nop, variant)
     ngl, nq = ops.psiq.shape
     K = torch.einsum("jJ,iI->jiJI", ops.psiq, ops.psiq).reshape(ngl**2, nq**2)
     Dk = torch.einsum("jJ,iI->jiJI", ops.psiq, ops.dpsiq).reshape(K.shape)
@@ -143,6 +155,69 @@ def test_one_d_tables_describe_the_same_operators(variant):
         assert_close(Gy, ops.Gy.numpy(), 1e-15, "Gy")
 
 
+@pytest.mark.parametrize("bottom", ["flat", "nonflat"])
+@pytest.mark.parametrize("botfr", [0, 1, 2])
+def test_sum_factorised_stage_matches_plain(botfr, bottom):
+    """The arithmetic of the CUDA kernel — two 1-D passes per interpolation,
+    scatter and gradient, folded weights, inverse mass — written out in numpy
+    from the 1-D tables alone, against btp_volume_uni_plain with its Kronecker
+    matrices: 1e-12 of each output's max in f64."""
+    from test_torch_common import sumfact_interp, sumfact_scatter
+
+    own, _, operands, acc0, kw, _ = _case("float64", botfr, bottom)
+    ops = own["grad"]
+    out = _run(ops, operands, acc0, kw, "float64", True)
+    psiq, dpsiq, dpsi = ops.psiq.numpy(), ops.dpsiq.numpy(), ops.dpsi.numpy()
+    ngl = psiq.shape[0]
+    qb, qpln = operands["qb"].numpy(), operands["qpln"].numpy()
+    dp, dpp, udp, vdp = sumfact_interp(psiq, qb)
+    ppq, up, vp = sumfact_interp(psiq, qpln)
+    ptab = ops.ptab.numpy()
+    cor, tau_u, tau_v, opbp, pref, Href = ptab[:6]
+    ub, vb = udp / dp, vdp / dp
+    g_ = kw["grav"]
+    if botfr == 1:
+        spd = (kw["cd"] / g_) * (pref + ppq)
+        tb_u, tb_v = spd * (up + ub), spd * (vp + vb)
+    elif botfr == 2:
+        spd = (kw["cd"] / kw["alpha_bot"]) * np.hypot(up + ub, vp + vb)
+        tb_u, tb_v = spd * (up + ub), spd * (vp + vb)
+    else:
+        tb_u = tb_v = np.zeros_like(dp)
+    sc_x = cor * vdp + g_ * (tau_u - tb_u)
+    sc_y = -cor * udp + g_ * (tau_v - tb_v)
+    if bottom == "nonflat":
+        sc_x, sc_y = sc_x - g_ * dpp * ptab[6], sc_y - g_ * dpp * ptab[7]
+    Quu, Quv, Qvv, dHbcl = operands["coup"].numpy()
+    mu = dpp * opbp
+    mu2 = mu * (2.0 + mu)
+    dHq = dHbcl + mu2 * (Href + dHbcl)
+    qu, quv, qv = ub * udp + (1 + mu) * Quu, ub * vdp + (1 + mu) * Quv, vb * vdp + (1 + mu) * Qvv
+    wkx, wey, w = ops.wq3.numpy()
+    minv = ops.minv.numpy()
+
+    def scatter(Fx, Fy, Fs):
+        return minv * sumfact_scatter(psiq, dpsiq, wkx * Fx, wey * Fy,
+                                      None if Fs is None else w * Fs)
+
+    rhs = np.stack([scatter(udp, vdp, None), scatter(dHq + qu, quv, sc_x),
+                    scatter(quv, dHq + qv, sc_y)])
+    inc = np.stack([dHq, qu, qv, quv, mu, mu2, ub, vb, udp, vdp, tb_u, tb_v])
+    t_df = qb[1] * ops.pbp_df.numpy()
+    u, v = qb[2] / qb[0], qb[3] / qb[0]
+    ninc = np.stack([t_df * (2.0 + t_df), u, v])
+
+    def grad(f):    # (E, npts) -> d/dx along i, d/dy along j
+        f = f.reshape(-1, ngl, ngl)
+        return (ops.kx_df * np.einsum("ejk,ki->eji", f, dpsi).reshape(-1, ngl * ngl),
+                ops.ey_df * np.einsum("eki,kj->eji", f, dpsi).reshape(-1, ngl * ngl))
+
+    gv = np.stack([*grad(u), *grad(v)])
+    want = (rhs, acc0["accv"] + inc, acc0["accn"] + ninc, gv, acc0["agr"] + gv)
+    for name, got, wnt in zip(OUT, out, want):
+        assert_close(got, wnt, 1e-12, name)
+
+
 def test_converter_strips_the_element_padding():
     own, ref_ops, *_ = _case("float64", 1, "nonflat")
     ref = ref_ops["grad"]
@@ -156,7 +231,8 @@ def test_converter_strips_the_element_padding():
 
 
 @pytest.mark.parametrize("breakage", ["noncontiguous", "dtype", "shape", "botfr",
-                                      "grad_without_operators", "cuda"])
+                                      "grad_without_operators", "cuda", "psiq_shape",
+                                      "tables_of_another_order"])
 def test_wrapper_contract_raises(breakage):
     """Operands the stage does not take raise; nothing is copied silently, and
     the CUDA wrapper never swaps in the plain version on CPU tensors."""
@@ -177,6 +253,11 @@ def test_wrapper_contract_raises(breakage):
         kw["botfr"] = 3
     elif breakage == "grad_without_operators":
         ops = own["bare"]
+    elif breakage == "psiq_shape":
+        ops = ops._replace(dpsiq=ops.dpsiq[:, :-1].contiguous())
+    elif breakage == "tables_of_another_order":
+        other = _own_ops(2, "grad")
+        ops = ops._replace(psiq=other.psiq, dpsiq=other.dpsiq, dpsi=other.dpsi)
     else:
         fn = tu.btp_volume_uni_cuda
     before = tu.btp_volume_uni_cuda.launches
