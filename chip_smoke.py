@@ -37,24 +37,9 @@ F32_FLOPS_PER_S = 67e12
 # Builds of the two volume kernels with one of their two halves compiled out
 # (ops/csrc/btp_volume_common.cuh, BTP_ABLATE): they compute wrong numbers on
 # purpose and are only timed, to say what limits the real kernel.
-ABLATIONS = (("memory_only", ("BTP_ABLATE=1",)),    # contractions compiled out
-             ("compute_only", ("BTP_ABLATE=2",)))   # no global reads
+ABLATIONS = (("memory_only", "BTP_ABLATE=1"),    # contractions compiled out
+             ("compute_only", "BTP_ABLATE=2"))   # no global reads
 VOLUME_SOURCES = ("btp_volume", "btp_volume_uni")
-
-# The kernels these two replaced (one element per block of 128 threads, no
-# ring; kernel 1 with the full Kronecker products), timed with the same
-# method by tools/volume_ablation.py on their sources patched with the same
-# two switches: one NVIDIA H100 80GB HBM3 at 700 W, f32, p=4, cold operands,
-# launches queued ahead of the device; ms at 64x64 and at 256x256.
-BEFORE_REDESIGN = {
-    "btp_volume": {"ms_before": 0.07705, "ms_256_before": 0.97903,
-                   "ms_before_memory_only": 0.06419, "ms_256_before_memory_only": 0.84293,
-                   "ms_before_compute_only": 0.03903, "ms_256_before_compute_only": 0.53713},
-    "btp_volume_uni": {"ms_before": 0.05795, "ms_256_before": 0.74485,
-                       "ms_before_memory_only": 0.06377, "ms_256_before_memory_only": 0.83783,
-                       "ms_before_compute_only": 0.01763,
-                       "ms_256_before_compute_only": 0.26358},
-}
 
 F64_TOL = 1e-12     # kernel vs plain, f64: same operations, other summation order
 F32_TOL = 2e-5      # kernel vs plain, f32: ~100-term sums in another order
@@ -580,23 +565,16 @@ def cold_sets(first, most=8):
                       for _ in range(k - 1)]
 
 
-def with_variant(module, defines, fn):
-    """fn() with the kernel library of `module` (ops.btp_volume or
-    ops.btp_volume_uni) swapped for its build with `defines`."""
-    real = module._library
-    module._library = lambda: real(defines)
-    try:
-        return fn()
-    finally:
-        module._library = real
-
-
-def time_ablations(module, kernel, sets, n):
+def time_ablations(kernel, sets, n):
     """{"ms_memory_only", "ms_compute_only"}: the device time of `kernel` (a
-    call of `module`'s CUDA wrapper) under each ablated build."""
-    return {"ms_" + name: with_variant(
-        module, defines, lambda: time_launches(kernel, sets, n, device_only=True))
-        for name, defines in ABLATIONS}
+    call of a volume kernel's CUDA wrapper) under each ablated build."""
+    from hnumo_tpu_torch.ops._build import variant
+
+    out = {}
+    for name, define in ABLATIONS:
+        with variant(define):
+            out["ms_" + name] = time_launches(kernel, sets, n, device_only=True)
+    return out
 
 
 def time_volume_stage(m, n=60, nsets=None):
@@ -605,7 +583,6 @@ def time_volume_stage(m, n=60, nsets=None):
     Times are taken twice: rotating over enough independent operand sets to
     exceed the 50 MB L2 ("cold": every launch reads its data from device
     memory), and on one set again and again ("hot")."""
-    from hnumo_tpu_torch.ops import btp_volume
     from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda, btp_volume_plain
 
     kw = volume_kwargs(m.static)
@@ -627,7 +604,7 @@ def time_volume_stage(m, n=60, nsets=None):
            "ms_hot": time_launches(kernel, sets[:1], n, device_only=True),
            "ms_hot_with_wrapper": time_launches(kernel, sets[:1], n),
            "plain_ms_hot": time_launches(plain, sets[:1], n),
-           **time_ablations(btp_volume, kernel, sets, n)}
+           **time_ablations(kernel, sets, n)}
     btp_volume_cuda.launches = before   # timing launches are not the path's
     return out
 
@@ -772,7 +749,7 @@ def time_fused_kernels(m, n=60):
                      "ms_with_wrapper": time_launches(kernel, osets, n),
                      "plain_ms": time_launches(plain, osets, n)}
         if name == "btp_volume_uni":
-            out[name].update(time_ablations(bu, kernel, osets, n))
+            out[name].update(time_ablations(kernel, osets, n))
         fns[0].launches = before    # timing launches are not the path's
     return out
 
@@ -967,7 +944,7 @@ def main() -> int:
 
     from hnumo_tpu_torch.model import Model
     from hnumo_tpu_torch.ops._build import (build_libraries, load_library,
-                                            resource_usage)
+                                            resource_usage, variant)
 
     if args.profile:
         open(args.profile, "w").close()
@@ -983,8 +960,9 @@ def main() -> int:
     for name in sources:
         print(f"phase 2 ptxas {name}: " + "; ".join(resource_usage(name)))
     t0 = time.perf_counter()
-    for _, defines in ABLATIONS:
-        build_libraries(VOLUME_SOURCES, defines)
+    for _, define in ABLATIONS:
+        with variant(define):
+            build_libraries(VOLUME_SOURCES)
     print(f"phase 2 build: the two ablated variants of {' and '.join(VOLUME_SOURCES)} "
           f"(timed only) in {time.perf_counter() - t0:.1f} s")
     from hnumo_tpu_torch.ops.btp_volume import btp_volume_layout
@@ -1227,25 +1205,19 @@ def main() -> int:
     for name, t64, t256 in (("btp_volume", tv64, tv256),
                             ("btp_volume_uni", tf64["btp_volume_uni"],
                              tf256["btp_volume_uni"])):
-        old = BEFORE_REDESIGN[name]
         print(f"phase 13 what limits {name}, ms at 64x64 / 256x256 (whole kernel; "
               f"contractions compiled out; no global reads): {t64['ms']:.4f} / "
               f"{t256['ms']:.4f}; {t64['ms_memory_only']:.4f} / {t256['ms_memory_only']:.4f}; "
-              f"{t64['ms_compute_only']:.4f} / {t256['ms_compute_only']:.4f}; the kernel it "
-              f"replaced: {old['ms_before']:.4f} / {old['ms_256_before']:.4f}; "
-              f"{old['ms_before_memory_only']:.4f} / {old['ms_256_before_memory_only']:.4f}; "
-              f"{old['ms_before_compute_only']:.4f} / {old['ms_256_before_compute_only']:.4f}")
+              f"{t64['ms_compute_only']:.4f} / {t256['ms_compute_only']:.4f}")
 
     # ---- phase 14: the kernels line ------------------------------------------
     replaces = {"btp_volume_uni": "hnumo_tpu/ops/pallas_btp.py:287",
                 "btp_faces": "hnumo_tpu/ops/pallas_btp_tail.py:158",
                 "btp_update": "hnumo_tpu/ops/pallas_btp_tail.py:362"}
-    def redesigned(name, t64, t256):
-        """What the two redesigned volume kernels add to their entries: the
-        kernel they replaced, both ablations of old and new, the launch's
-        layout and what ptxas said."""
-        return {**BEFORE_REDESIGN[name],
-                "ms_memory_only": t64["ms_memory_only"],
+    def volume_extras(name, t64, t256):
+        """What the two volume kernels add to their entries: both ablations,
+        the launch's layout and what ptxas said."""
+        return {"ms_memory_only": t64["ms_memory_only"],
                 "ms_compute_only": t64["ms_compute_only"],
                 "ms_256_memory_only": t256["ms_memory_only"],
                 "ms_256_compute_only": t256["ms_compute_only"],
@@ -1270,7 +1242,7 @@ def main() -> int:
         "gp_steps_per_s_256": runf256["gp_steps_per_s"],
         "step_ms_256_per_stage_path": run256["ms_per_step"],
         "peak_memory_gib_256": peak256, **extraf,
-        **(redesigned(k, tf64[k], tf256[k]) if k in BEFORE_REDESIGN else {}),
+        **(volume_extras(k, tf64[k], tf256[k]) if k in layouts else {}),
     } for k in names]
     kernels = [{
         "name": "btp_volume", "route": "cuda",
@@ -1285,7 +1257,7 @@ def main() -> int:
         "checked_against_plain": True, "ms_hot": tv64["ms_hot"],
         "ms_hot_with_wrapper": tv64["ms_hot_with_wrapper"],
         "plain_ms_hot": tv64["plain_ms_hot"],
-        **redesigned("btp_volume", tv64, tv256),
+        **volume_extras("btp_volume", tv64, tv256),
         "launches_per_step": run64["launches_per_step"],
         "step_ms": run64["ms_per_step"], "gp_steps_per_s": run64["gp_steps_per_s"],
         **big, **extra,

@@ -5,14 +5,15 @@ compiled by `nvcc` for sm_90a into `hnumo_tpu_torch/_build/` and loaded
 with ctypes. The library file carries a hash of its source, of the headers
 of `csrc/` that the source includes, and of the flags, so an unchanged source
 is compiled once per build directory and a changed header is never left with
-a stale library. `defines` (`NAME=VALUE` strings) build a variant of a source
-beside the default one; the measurement tools use it. Nothing here
-runs at import: `load_library` is called by a kernel's wrapper the first
+a stale library. Inside `with variant("NAME=VALUE", ...)` every source is
+built with those `-D` switches into a library of its own beside the default
+one, and loaded from there: a measurement's hook. Nothing here runs at import: `load_library` is called by a kernel's wrapper the first
 time it launches; `build_libraries` compiles several sources side by side
 ahead of that. A missing compiler or a failed build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +31,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[tuple, ctypes.CDLL] = {}
+_defines: tuple[str, ...] = ()      # the `-D` switches of the variant in force
+
+
+@contextlib.contextmanager
+def variant(*defines: str):
+    """Within the block, sources are built with `-D<define>` for each of
+    `defines` (`NAME=VALUE` strings), and the kernels' wrappers load those
+    builds instead of the default ones."""
+    global _defines
+    before, _defines = _defines, tuple(defines)
+    try:
+        yield
+    finally:
+        _defines = before
 
 
 def find_nvcc() -> str:
@@ -65,32 +80,32 @@ def source_files(name: str) -> list[Path]:
     return files
 
 
-def library_path(name: str, defines=()) -> Path:
+def library_path(name: str) -> Path:
     """Where the library of `csrc/<name>.cu` is (or will be) built."""
     h = hashlib.sha256()
     for f in source_files(name):
         h.update(f.read_bytes())
-    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
+    h.update(" ".join((*NVCC_FLAGS, *_defines)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def compile_command(name: str, out: Path, defines=()) -> list[str]:
-    return [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(out),
+def compile_command(name: str, out: Path) -> list[str]:
+    return [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in _defines), "-o", str(out),
             str(CSRC_DIR / f"{name}.cu")]
 
 
-def build_libraries(names, defines=()) -> None:
+def build_libraries(names) -> None:
     """Compile every `csrc/<name>.cu` whose library is not built yet: one
     nvcc process per source, all started together, then waited for."""
     started = []
     try:
         for name in names:
-            lib_path = library_path(name, defines)
-            if (name, tuple(defines)) in _loaded or lib_path.is_file():
+            lib_path = library_path(name)
+            if (name, _defines) in _loaded or lib_path.is_file():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-            proc = subprocess.Popen(compile_command(name, tmp, defines),
+            proc = subprocess.Popen(compile_command(name, tmp),
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
             started.append((name, proc, tmp, lib_path))
@@ -110,13 +125,13 @@ def build_libraries(names, defines=()) -> None:
                 proc.wait()
 
 
-def resource_usage(name: str, defines=()) -> list[str]:
+def resource_usage(name: str) -> list[str]:
     """What `ptxas -v` said of each kernel instantiation in the build of
     `csrc/<name>.cu`, in the order compiled: "R registers, S B spill stores,
     L B spill loads", led by the instantiation's template arguments where the
     entry's name shows them ("f<5,9>: ..."); empty when the library was not
     built by this module."""
-    log = library_path(name, defines).with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     if not log.is_file():
         return []
     text = log.read_text()
@@ -134,12 +149,12 @@ def resource_usage(name: str, defines=()) -> list[str]:
             for t, r, (s, l) in zip(tags, regs, spills)]
 
 
-def load_library(name: str, defines=()) -> ctypes.CDLL:
+def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if its library is not built yet, and load it."""
-    key = (name, tuple(defines))
+    key = (name, _defines)
     if key in _loaded:
         return _loaded[key]
-    build_libraries([name], defines)
-    lib = ctypes.CDLL(str(library_path(name, defines)))
+    build_libraries([name])
+    lib = ctypes.CDLL(str(library_path(name)))
     _loaded[key] = lib
     return lib

@@ -37,9 +37,6 @@ from torch import Tensor
 
 from ._build import load_library
 
-# shared memory a block may use on sm_90 (bytes), opt-in dynamic maximum
-SMEM_LIMIT_BYTES = 232448
-
 
 class BtpVolOperators(NamedTuple):
     """Static flattened tensor-product operator matrices + element tables.
@@ -192,10 +189,9 @@ def btp_volume_plain(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
     return rhs, accv, accn
 
 
-def _library(defines=()) -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (`defines`:
-    a variant build, for the measurement tools)."""
-    lib = load_library("btp_volume", defines)
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = load_library("btp_volume")
     if not getattr(lib, "_hnumo_declared", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.btp_volume_launch.argtypes = [i, i] + [p] * 11 + [i, i, i, d, d, d, p]
@@ -206,6 +202,8 @@ def _library(defines=()) -> ctypes.CDLL:
         lib.btp_volume_describe.restype = ctypes.c_int
         lib.btp_volume_smem_bytes.argtypes = [i, i, i]
         lib.btp_volume_smem_bytes.restype = ctypes.c_longlong
+        lib.btp_volume_smem_limit.argtypes = []
+        lib.btp_volume_smem_limit.restype = ctypes.c_longlong
         lib.btp_volume_error_string.argtypes = [i]
         lib.btp_volume_error_string.restype = ctypes.c_char_p
         lib._hnumo_declared = True
@@ -233,11 +231,11 @@ def btp_volume_cuda(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
     is_double = int(qb_n.dtype == torch.float64)
     lib = _library()
     smem = lib.btp_volume_smem_bytes(is_double, ngl, nq)
-    if smem > SMEM_LIMIT_BYTES:
+    if smem > lib.btp_volume_smem_limit():
         raise ValueError(
             f"btp_volume_cuda stages two elements' inputs in shared memory: "
             f"ngl={ngl}, nq={nq}, {qb_n.dtype} needs {smem} bytes, the "
-            f"card allows {SMEM_LIMIT_BYTES}")
+            f"card allows {lib.btp_volume_smem_limit()}")
     rhs = torch.empty((3, E, ngl * ngl), dtype=qb_n.dtype, device=qb_n.device)
     with torch.cuda.device(qb_n.device):
         stream = torch.cuda.current_stream().cuda_stream

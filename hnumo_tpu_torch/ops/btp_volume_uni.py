@@ -38,7 +38,7 @@ import torch
 from torch import Tensor
 
 from ._build import load_library
-from .btp_volume import SMEM_LIMIT_BYTES, eflat, launch_layout
+from .btp_volume import eflat, launch_layout
 
 
 class BtpVolOpsUni(NamedTuple):
@@ -233,10 +233,9 @@ def btp_volume_uni_plain(ops: BtpVolOpsUni, qb_n: Tensor, qpln: Tensor,
 btp_volume_uni_plain.calls = 0
 
 
-def _library(defines=()) -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (`defines`:
-    a variant build, for the measurement tools)."""
-    lib = load_library("btp_volume_uni", defines)
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = load_library("btp_volume_uni")
     if not getattr(lib, "_hnumo_declared", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.btp_volume_uni_launch.argtypes = [i] * 7 + [p] * 15 + [d] * 5 + [p]
@@ -247,6 +246,8 @@ def _library(defines=()) -> ctypes.CDLL:
         lib.btp_volume_uni_describe.restype = ctypes.c_int
         lib.btp_volume_uni_smem_bytes.argtypes = [i, i, i]
         lib.btp_volume_uni_smem_bytes.restype = ctypes.c_longlong
+        lib.btp_volume_uni_smem_limit.argtypes = []
+        lib.btp_volume_uni_smem_limit.restype = ctypes.c_longlong
         lib.btp_volume_uni_error_string.argtypes = [i]
         lib.btp_volume_uni_error_string.restype = ctypes.c_char_p
         lib._hnumo_declared = True
@@ -277,10 +278,11 @@ def btp_volume_uni_cuda(ops: BtpVolOpsUni, qb_n: Tensor, qpln: Tensor,
     is_double = int(qb_n.dtype == torch.float64)
     lib = _library()
     smem = lib.btp_volume_uni_smem_bytes(is_double, ngl, nq)
-    if smem > SMEM_LIMIT_BYTES:
+    if smem > lib.btp_volume_uni_smem_limit():
         raise ValueError(
             f"btp_volume_uni_cuda needs {smem} bytes of shared memory per block "
-            f"at ngl={ngl}, nq={nq}, {qb_n.dtype}; the card allows {SMEM_LIMIT_BYTES}")
+            f"at ngl={ngl}, nq={nq}, {qb_n.dtype}; the card allows "
+            f"{lib.btp_volume_uni_smem_limit()}")
     opts = dict(dtype=qb_n.dtype, device=qb_n.device)
     rhs = torch.empty((3, E, ngl * ngl), **opts)
     gv = torch.empty((4, E, ngl * ngl), **opts) if agr is not None else None

@@ -307,7 +307,7 @@ cudaError_t launch(Args<T>& a, cudaStream_t stream, LaunchPlan* describe) {
   if (a.G < 1) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(a.ngl, a.nq, a.G);
   auto kernel = btp_volume_kernel<T, NGL, NQ>;
-  static LaunchPlan plan;
+  LaunchPlan plan;
   cudaError_t err = plan_launch(kernel, smem, plan);
   if (err != cudaSuccess) return err;
   if (describe) {
@@ -357,8 +357,11 @@ cudaError_t run(int botfr, const void* qb, const void* qpl, const void* met,
 
 extern "C" {
 
+// The card's limit of shared memory for one block, in bytes.
+long long btp_volume_smem_limit() { return (long long)kSmemLimit; }
+
 // Shared memory one block needs at least (a tile of one element), in bytes:
-// the caller checks it against the card's limit before launching.
+// the caller checks it against the limit before launching.
 long long btp_volume_smem_bytes(int is_double, int ngl, int nq) {
   return (long long)(is_double ? smem_bytes<double>(ngl, nq, 1)
                                : smem_bytes<float>(ngl, nq, 1));

@@ -28,7 +28,7 @@
 // is read from shared memory in the loop.
 //
 // BTP_ABLATE builds a variant that is only timed (chip_smoke.py,
-// tools/volume_ablation.py): 1 compiles the contractions out (memory-only
+// hnumo_tpu_torch/tools/volume_ablation.py): 1 compiles the contractions out (memory-only
 // time), 2 replaces every global read by a value computed from the index,
 // written into the stages once per block (compute-only time). Both compute
 // wrong numbers on purpose; the package's wrappers never build them.
@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 #ifndef BTP_ABLATE
 #define BTP_ABLATE 0
@@ -254,10 +256,17 @@ inline int pick_tile(BytesOf bytes_of, size_t limit) {
   return 0;
 }
 
-// What a launch needs to know of its kernel on this device, asked once per
-// shared-memory size and then reused (the solver launches 2*N_btp*kstages
-// times per step with one size).
+// the card's limit of dynamic shared memory for one block (sm_90)
+constexpr size_t kSmemLimit = 232448;
+
+// What a launch needs to know of its kernel: asked once for each kernel
+// instantiation, device and shared-memory size (together they decide the
+// occupancy) and then reused, since the solver launches 2*N_btp*kstages
+// times per step with one size. The list is kept under a lock: host threads
+// may launch side by side.
 struct LaunchPlan {
+  const void* kernel = nullptr;
+  int device = -1;
   size_t smem = 0;
   int blocks_per_sm = 0;
   long long resident_blocks = 0;
@@ -265,28 +274,38 @@ struct LaunchPlan {
 
 template <typename Kernel>
 cudaError_t plan_launch(Kernel kernel, size_t smem, LaunchPlan& plan) {
-  if (plan.smem == smem && plan.resident_blocks > 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  static std::mutex lock;
+  static std::vector<LaunchPlan> known;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> hold(lock);
+  for (const LaunchPlan& p : known)
+    if (p.kernel == key && p.device == dev && p.smem == smem) {
+      plan = p;
+      return cudaSuccess;
+    }
+  // the limit, not `smem`: a later, smaller size must not lower what an
+  // earlier plan of this kernel relies on
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(kSmemLimit));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              int(cudaSharedmemCarveoutMaxShared));
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  plan.kernel = key;
+  plan.device = dev;
   plan.smem = smem;
   plan.blocks_per_sm = per_sm;
   plan.resident_blocks = (long long)sms * per_sm;
+  known.push_back(plan);
   return cudaSuccess;
 }
-
-// the card's limit of dynamic shared memory for one block (sm_90)
-constexpr size_t kSmemLimit = 232448;
 
 }  // namespace btpvol

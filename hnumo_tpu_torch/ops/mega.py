@@ -43,8 +43,11 @@ from torch import Tensor
 
 from ..core.faces import _mirror_signs, face_n2q, wall_projection_masks
 from ._build import load_library
-from .btp_volume import SMEM_LIMIT_BYTES, eflat
+from .btp_volume import eflat
 from .dg import interp_n2q
+
+# shared memory a block may use on sm_90 (bytes), opt-in dynamic maximum
+SMEM_LIMIT_BYTES = 232448
 
 # side order of every (.., E, 4, m) table
 EAST, WEST, NORTH, SOUTH = range(4)

@@ -1,6 +1,6 @@
 """What limits the two barotropic volume kernels of hnumo_tpu_torch on a GPU.
 
-    python3 tools/volume_ablation.py [--grids 64 256] [--out FILE]
+    python3 hnumo_tpu_torch/tools/volume_ablation.py [--grids 64 256] [--out FILE]
 
 Needs one CUDA device and nvcc. Builds `ops/csrc/btp_volume.cu` and
 `btp_volume_uni.cu` three times each — as they are, with `BTP_ABLATE=1` (the
@@ -12,7 +12,10 @@ and times all of them in one process on the double-gyre configuration of
 queued ahead of the device, rotating over operand sets larger than the L2
 ("cold"). The ablated builds compute wrong numbers on purpose; only the
 unablated build is held against the plain version (by `chip_smoke.py`).
-Order per grid: full, memory-only, compute-only, full again.
+Order per grid: full, memory-only, compute-only, full again. `chip_smoke.py`
+takes the same three readings among its phases; this script takes them alone
+and back to back, and so also serves to time two checkouts in turns on one
+card (run it from each).
 
 Prints one JSON line per kernel and grid, then the card's name and power
 limit; `--out` also writes the lines to a file.
@@ -27,21 +30,21 @@ import sys
 
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 
 import chip_smoke as cs  # noqa: E402
 
-VARIANTS = (("full", ()),) + cs.ABLATIONS
+VARIANTS = (("full", ()),) + tuple((name, (define,)) for name, define in cs.ABLATIONS)
 
 
-def time_variants(module, launch, sets, n, variants):
-    """{variant: device ms per launch}, the first variant once more at the end."""
+def time_variants(launch, sets, n):
+    """{variant: device ms per launch}, the unablated build once more at the end."""
+    from hnumo_tpu_torch.ops._build import variant
+
     out = {}
-    for rnd in ("", "_again"):
-        for name, defines in variants if not rnd else variants[:1]:
-            out[name + rnd] = cs.with_variant(
-                module, defines,
-                lambda: cs.time_launches(launch, sets, n, device_only=True))
+    for name, defines in VARIANTS + (("full_again", ()),):
+        with variant(*defines):
+            out[name] = cs.time_launches(launch, sets, n, device_only=True)
     return out
 
 
@@ -49,11 +52,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grids", type=int, nargs="+", default=[64, 256])
     ap.add_argument("--out", default=None)
-    ap.add_argument("--variant", action="append", default=[], metavar="NAME=DEFINE[,DEFINE]",
-                    help="one more build to time beside the three, e.g. wide=FOO=2")
     args = ap.parse_args()
-    variants = VARIANTS + tuple(
-        (v.split("=", 1)[0], tuple(v.split("=", 1)[1].split(","))) for v in args.variant)
     if not torch.cuda.is_available():
         print("volume_ablation: no CUDA device", file=sys.stderr)
         return 2
@@ -63,8 +62,9 @@ def main() -> int:
     from hnumo_tpu_torch.ops import btp_volume as bv
     from hnumo_tpu_torch.ops import btp_volume_uni as bu
 
-    for _, defines in variants:     # both sources of a variant side by side
-        _build.build_libraries(["btp_volume", "btp_volume_uni"], defines)
+    for _, defines in VARIANTS:     # both sources of a variant side by side
+        with _build.variant(*defines):
+            _build.build_libraries(cs.VOLUME_SOURCES)
 
     lines = []
     for nel in args.grids:
@@ -74,8 +74,7 @@ def main() -> int:
         sets = cs.cold_sets(cs.volume_operands(m, seed=11), most=6 if nel <= 64 else 2)
         vol_ops = m.vol_ops
         before = bv.btp_volume_cuda.launches
-        t = time_variants(bv, lambda *o: bv.btp_volume_cuda(vol_ops, *o, **kw), sets, n,
-                          variants)
+        t = time_variants(lambda *o: bv.btp_volume_cuda(vol_ops, *o, **kw), sets, n)
         bv.btp_volume_cuda.launches = before
         lines.append({"kernel": "btp_volume", "grid": nel, "bound_ms":
                       cs.volume_bound(m)["bound_ms"], **t})
@@ -88,8 +87,7 @@ def main() -> int:
                           op["agr"]))
         uni_ops = m.tail_ops.vol
         before = bu.btp_volume_uni_cuda.launches
-        t = time_variants(bu, lambda *o: bu.btp_volume_uni_cuda(uni_ops, *o, **kw), sets, n,
-                          variants)
+        t = time_variants(lambda *o: bu.btp_volume_uni_cuda(uni_ops, *o, **kw), sets, n)
         bu.btp_volume_uni_cuda.launches = before
         lines.append({"kernel": "btp_volume_uni", "grid": nel, "bound_ms":
                       cs.fused_bounds(m)["btp_volume_uni"]["bound_ms"], **t})
@@ -100,10 +98,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     text = "\n".join(json.dumps(line) for line in lines) + "\n" + smi + "\n"
-    for name in ("btp_volume", "btp_volume_uni"):
-        for vname, defines in variants:
-            text += (f"ptxas {name} {vname}: "
-                     + "; ".join(_build.resource_usage(name, defines)) + "\n")
+    for name in cs.VOLUME_SOURCES:
+        for vname, defines in VARIANTS:
+            with _build.variant(*defines):
+                text += f"ptxas {name} {vname}: " + "; ".join(_build.resource_usage(name)) + "\n"
     print(text, end="")
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -344,14 +344,22 @@ def test_library_follows_the_headers_its_source_includes(fake_toolchain):
 
 
 def test_defines_build_a_variant_beside_the_default(fake_toolchain):
+    """Inside `variant(...)` a source is built with the switches into a library
+    of its own; outside, the default build is untouched."""
     b = fake_toolchain
-    plain, variant = b.library_path("one"), b.library_path("one", ("FLAG=1",))
-    assert plain != variant
-    b.build_libraries(["one"], ("FLAG=1",))
-    assert variant.exists() and not plain.exists()
-    assert "-DFLAG=1" in b.compile_command("one", variant, ("FLAG=1",))
+    plain = b.library_path("one")
+    with b.variant("FLAG=1"):
+        variant = b.library_path("one")
+        assert plain != variant
+        b.build_libraries(["one"])
+        assert variant.exists() and not plain.exists()
+        assert "-DFLAG=1" in b.compile_command("one", variant)
+        assert b.resource_usage("one")
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            b.build_libraries(["broken"])
+    assert b.library_path("one") == plain
     assert not any(a.startswith("-D") for a in b.compile_command("one", plain))
-    assert b.resource_usage("one", ("FLAG=1",)) and b.resource_usage("one") == []
+    assert b.resource_usage("one") == []
 
 
 def test_the_volume_sources_share_one_header():
