@@ -34,6 +34,8 @@
 
 #include <cuda_runtime.h>
 
+#include "btp_volume_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -192,26 +194,12 @@ cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   const int fpb = kThreads / a.nq;
   const size_t smem = sizeof(T) * smem_values(a.ngl, a.nq, fpb);
   auto kernel = btp_faces_kernel<T>;
-  // asked once per shared-memory size, then reused (see btp_volume.cu)
-  static size_t cached_smem = 0;
-  static long long cached_blocks = 0;
-  if (cached_smem != smem || cached_blocks == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-    cached_blocks = (long long)sms * per_sm;
-    cached_smem = smem;
-  }
+  // kept per (kernel, device, shared-memory size) under a lock
+  btpvol::LaunchPlan plan;
+  const cudaError_t err = btpvol::plan_launch(kernel, kThreads, smem, plan);
+  if (err != cudaSuccess) return err;
   long long blocks = (a.F + fpb - 1) / fpb;
-  if (blocks > cached_blocks) blocks = cached_blocks;
+  if (blocks > plan.resident_blocks) blocks = plan.resident_blocks;
   kernel<<<dim3((unsigned)blocks), dim3(kThreads), smem, stream>>>(a);
   return cudaGetLastError();
 }

@@ -260,10 +260,11 @@ inline int pick_tile(BytesOf bytes_of, size_t limit) {
 constexpr size_t kSmemLimit = 232448;
 
 // What a launch needs to know of its kernel: asked once for each kernel
-// instantiation, device and shared-memory size (together they decide the
-// occupancy) and then reused, since the solver launches 2*N_btp*kstages
-// times per step with one size. The list is kept under a lock: host threads
-// may launch side by side.
+// instantiation, device and shared-memory size (together with the block size,
+// which is the kernel's own, they decide the occupancy) and then reused, since
+// the solver launches 2*N_btp*kstages times per step with one size. The list
+// is kept under a lock: host threads may launch side by side. `threads` is
+// the block size the kernel is launched with: each kernel passes its own.
 struct LaunchPlan {
   const void* kernel = nullptr;
   int device = -1;
@@ -273,7 +274,7 @@ struct LaunchPlan {
 };
 
 template <typename Kernel>
-cudaError_t plan_launch(Kernel kernel, size_t smem, LaunchPlan& plan) {
+cudaError_t plan_launch(Kernel kernel, int threads, size_t smem, LaunchPlan& plan) {
   static std::mutex lock;
   static std::vector<LaunchPlan> known;
   int dev = 0, sms = 0, per_sm = 0;
@@ -296,7 +297,7 @@ cudaError_t plan_launch(Kernel kernel, size_t smem, LaunchPlan& plan) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
   plan.kernel = key;

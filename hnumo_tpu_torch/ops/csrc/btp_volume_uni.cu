@@ -347,7 +347,7 @@ cudaError_t launch(Args<T>& a, cudaStream_t stream, LaunchPlan* describe) {
   const size_t smem = smem_bytes<T>(a.ngl, a.nq, a.G);
   auto kernel = btp_volume_uni_kernel<T, NGL, NQ>;
   LaunchPlan plan;
-  cudaError_t err = plan_launch(kernel, smem, plan);
+  cudaError_t err = plan_launch(kernel, kThreads, smem, plan);
   if (err != cudaSuccess) return err;
   if (describe) {
     *describe = plan;

@@ -365,11 +365,10 @@ def test_defines_build_a_variant_beside_the_default(fake_toolchain):
 def test_the_volume_sources_share_one_header():
     from hnumo_tpu_torch.ops import _build
 
-    for name in ("btp_volume", "btp_volume_uni"):
+    for name in ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update"):
         assert [f.name for f in _build.source_files(name)] == [f"{name}.cu",
                                                                "btp_volume_common.cuh"]
-    for name in ("btp_mega", "btp_faces", "btp_update"):
-        assert [f.name for f in _build.source_files(name)] == [f"{name}.cu"]
+    assert [f.name for f in _build.source_files("btp_mega")] == ["btp_mega.cu"]
 
 
 def test_resource_usage_names_the_instantiations(fake_toolchain):
