@@ -4,7 +4,8 @@
     python3 chip_smoke.py --profile FILE  # also a torch.profiler table of one step
 
 Builds the five CUDA kernels from the sources in this checkout (and, to be
-timed only, two ablated variants of the two volume kernels), holds each
+timed only, two ablated variants of each of the four streaming kernels: the
+two volume kernels, the face kernel and the update kernel), holds each
 against its plain PyTorch version on the card, and drives the port's main
 paths through `Model.run` on the double-gyre configuration (f32, p=4,
 2 layers, SSP(5,3), N_btp=20): 32x32 elements through the whole-solve
@@ -34,12 +35,13 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-# Builds of the two volume kernels with one of their two halves compiled out
-# (ops/csrc/btp_volume_common.cuh, BTP_ABLATE): they compute wrong numbers on
-# purpose and are only timed, to say what limits the real kernel.
+# Builds of the four streaming kernels with one of their two halves compiled
+# out (BTP_ABLATE in ops/csrc/btp_volume_common.cuh and btp_tail_common.cuh):
+# they compute wrong numbers on purpose and are only timed, to say what
+# limits the real kernel.
 ABLATIONS = (("memory_only", "BTP_ABLATE=1"),    # contractions compiled out
              ("compute_only", "BTP_ABLATE=2"))   # no global reads
-VOLUME_SOURCES = ("btp_volume", "btp_volume_uni")
+ABLATED_SOURCES = ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update")
 
 F64_TOL = 1e-12     # kernel vs plain, f64: same operations, other summation order
 F32_TOL = 2e-5      # kernel vs plain, f32: ~100-term sums in another order
@@ -394,7 +396,13 @@ def fused_stage(m, op, impl: str, w):
 
     def run_faces(fn, trL, trR):
         af, ag = clone(op["af"]), clone(op["ag"])
+        inputs = [trL, trR, *(t for t in op["tabs"][:4] if t is not None)]
+        keep = [t.clone() for t in inputs]
         S, Sv, af2, ag2 = fn(op["tabs"], trL, trR, af, ag, use_visc=visc)
+        torch.cuda.synchronize()
+        for a, b in zip(keep, inputs):
+            if not torch.equal(a, b):
+                raise AssertionError("the face stage changed its traces or its tables")
         if af2 is not af or ag2 is not ag:
             raise AssertionError("the face stage must return the accumulators it was given")
         res = {"S": S, "af": af}
@@ -567,7 +575,8 @@ def cold_sets(first, most=8):
 
 def time_ablations(kernel, sets, n):
     """{"ms_memory_only", "ms_compute_only"}: the device time of `kernel` (a
-    call of a volume kernel's CUDA wrapper) under each ablated build."""
+    call of the CUDA wrapper of one of ABLATED_SOURCES) under each ablated
+    build."""
     from hnumo_tpu_torch.ops._build import variant
 
     out = {}
@@ -704,10 +713,12 @@ def mega_bound(m):
             "bytes": nbytes, "flops": flops, "barriers": nsub}
 
 
-def time_fused_kernels(m, n=60):
-    """Kernels A, F and U and their plain versions at this model's shapes,
-    each alone, rotating over enough independent operand sets to exceed the
-    50 MB L2 ("cold": every launch reads its data from device memory)."""
+def fused_kernel_calls(m):
+    """{kernel name: (kernel call, plain call, operand sets)} for kernels A, F
+    and U at this model's shapes: each call takes one operand set, and the
+    sets are enough independent copies to exceed the 50 MB L2 ("cold": every
+    launch reads its data from device memory). F and U are fed what the plain
+    stages before them produce."""
     from hnumo_tpu_torch.core.btp import fused_edge_pack, fused_traces
     from hnumo_tpu_torch.ops import btp_tail as bt
     from hnumo_tpu_torch.ops import btp_volume_uni as bu
@@ -723,34 +734,45 @@ def time_fused_kernels(m, n=60):
     trL, trR = fused_traces(m.bc, ney, nex, ngl, op["qb"], pa.get("gv"))
     edges = fused_edge_pack(m.bc, ney, nex, pf["S"])
     vedges = fused_edge_pack(m.bc, ney, nex, pf["Sv"], negate=True) if visc else None
+    tabs = op["tabs"]
 
-    a_sets = cold_sets((op["qb"], op["qpln"], op["accv"], op["accn"], op["coup"], op["agr"]))
-    f_sets = cold_sets((trL, trR, op["af"], op["ag"]))
-    u_sets = cold_sets((pa["rhs"], edges, vedges, op["qb0"], op["qb"], op["qb2"],
-                   pa.get("gv"), op["pbpv"], op["bdg"]))
+    def volume(fn):
+        return lambda *o: fn(fo.vol, *o, **kw)
+
+    def faces(fn):
+        return lambda *o: fn(tabs, *o, use_visc=visc)
+
+    def update(fn):
+        return lambda *o: fn(fo.upd, w, *o, fo.mask, use_visc=visc)
+
+    return {
+        "btp_volume_uni": (volume(bu.btp_volume_uni_cuda), volume(bu.btp_volume_uni_plain),
+                           cold_sets((op["qb"], op["qpln"], op["accv"], op["accn"],
+                                      op["coup"], op["agr"]))),
+        "btp_faces": (faces(bt.btp_faces_cuda), faces(bt.btp_faces_plain),
+                      cold_sets((trL, trR, op["af"], op["ag"]))),
+        "btp_update": (update(bt.btp_update_cuda), update(bt.btp_update_plain),
+                       cold_sets((pa["rhs"], edges, vedges, op["qb0"], op["qb"], op["qb2"],
+                                  pa.get("gv"), op["pbpv"], op["bdg"]))),
+    }
+
+
+def time_fused_kernels(m, n=60):
+    """Kernels A, F and U and their plain versions at this model's shapes,
+    each alone, on cold operands (`fused_kernel_calls`), each kernel also
+    under its two ablated builds."""
+    wrappers = kernel_wrappers()
     out = {}
-    for name, fns, osets in (
-            ("btp_volume_uni", (bu.btp_volume_uni_cuda, bu.btp_volume_uni_plain), a_sets),
-            ("btp_faces", (bt.btp_faces_cuda, bt.btp_faces_plain), f_sets),
-            ("btp_update", (bt.btp_update_cuda, bt.btp_update_plain), u_sets)):
-        def bind(fn):
-            if name == "btp_volume_uni":
-                return lambda *o: fn(fo.vol, *o, **kw)
-            if name == "btp_faces":
-                return lambda *o: fn(op["tabs"], *o, use_visc=visc)
-            return lambda *o: fn(fo.upd, w, *o, fo.mask, use_visc=visc)
-
-        before = fns[0].launches
-        kernel, plain = bind(fns[0]), bind(fns[1])
+    for name, (kernel, plain, osets) in fused_kernel_calls(m).items():
+        before = wrappers[name].launches
         # the kernel twice: as the host launches it, and with the launches queued
         # ahead of the device (at 64x64 the wrapper's host time exceeds the
         # kernel's device time)
         out[name] = {"ms": time_launches(kernel, osets, n, device_only=True),
                      "ms_with_wrapper": time_launches(kernel, osets, n),
-                     "plain_ms": time_launches(plain, osets, n)}
-        if name == "btp_volume_uni":
-            out[name].update(time_ablations(kernel, osets, n))
-        fns[0].launches = before    # timing launches are not the path's
+                     "plain_ms": time_launches(plain, osets, n),
+                     **time_ablations(kernel, osets, n)}
+        wrappers[name].launches = before    # timing launches are not the path's
     return out
 
 
@@ -962,15 +984,20 @@ def main() -> int:
     t0 = time.perf_counter()
     for _, define in ABLATIONS:
         with variant(define):
-            build_libraries(VOLUME_SOURCES)
-    print(f"phase 2 build: the two ablated variants of {' and '.join(VOLUME_SOURCES)} "
+            build_libraries(ABLATED_SOURCES)
+    print(f"phase 2 build: the two ablated variants of {', '.join(ABLATED_SOURCES)} "
           f"(timed only) in {time.perf_counter() - t0:.1f} s")
+    from hnumo_tpu_torch.ops.btp_tail import btp_faces_layout, btp_update_layout
     from hnumo_tpu_torch.ops.btp_volume import btp_volume_layout
     from hnumo_tpu_torch.ops.btp_volume_uni import btp_volume_uni_layout
 
-    layouts = {"btp_volume": btp_volume_layout, "btp_volume_uni": btp_volume_uni_layout}
+    # (dtype, ngl, nq) -> faces or elements per tile, shared memory per block,
+    # resident blocks per SM
+    layouts = {"btp_volume": btp_volume_layout, "btp_volume_uni": btp_volume_uni_layout,
+               "btp_faces": btp_faces_layout,
+               "btp_update": lambda dtype, ngl, nq: btp_update_layout(dtype, ngl)}
     for name, layout in layouts.items():
-        print(f"phase 2 layout {name} (elements per tile, shared memory per block, "
+        print(f"phase 2 layout {name} (units per tile, shared memory per block, "
               f"resident blocks per SM): " + "; ".join(
                   f"{dt} p={ngl - 1} {json.dumps(layout(getattr(torch, dt), ngl, nq))}"
                   for dt in ("float32", "float64") for ngl, nq in ((5, 9), (9, 17))))
@@ -1124,7 +1151,9 @@ def main() -> int:
     names = ("btp_volume_uni", "btp_faces", "btp_update")
     worst3 = {"float64": dict.fromkeys(names, 0.0), "float32": dict.fromkeys(names, 0.0)}
     main_err3 = None
-    worst_a = {"float64": 0.0, "float32": 0.0}   # kernel A at the ragged counts and at p=8
+    # the three kernels at the ragged counts (E = 35, 20, 9, 2; F = 82, 49, 24,
+    # 7: 2, 1, 0 and 3 modulo 4, besides 6x5's F = 71) and at p=8
+    worst_r = {"float64": dict.fromkeys(names, 0.0), "float32": dict.fromkeys(names, 0.0)}
     for dtype in ("float64", "float32"):
         for botfr, visc, case in ((0, True, "double_gyre"), (1, True, "double_gyre"),
                                   (2, True, "double_gyre"), (1, False, "double_gyre"),
@@ -1135,17 +1164,20 @@ def main() -> int:
                     worst3[dtype][k] = max(worst3[dtype][k], w[k][0])
                 if (dtype, botfr, visc, case, nelx) == ("float32", 1, True, "double_gyre", 64):
                     main_err3 = w       # the main path's shapes
-            for nelx, nely, nop in ((7, 5, 4), (3, 3, 4), (1, 2, 4), (3, 3, 8), (4, 4, 8)):
+            for nelx, nely, nop in ((7, 5, 4), (5, 4, 4), (3, 3, 4), (1, 2, 4), (3, 3, 8),
+                                    (4, 4, 8)):
                 w = check_fused_kernels(nelx, nely, dtype, botfr, visc=visc, test_case=case,
                                         nop=nop)
-                worst_a[dtype] = max(worst_a[dtype], w["btp_volume_uni"][0])
+                for k in names:
+                    worst_r[dtype][k] = max(worst_r[dtype][k], w[k][0])
     print("phase 10 kernels A, F, U vs plain, one stage (viscous botfr 0/1/2, inviscid, "
-          "non-flat bottom; E=30/F=71 and E=4096/F=8320; every output on its own scale), "
-          "max err/scale: " + "; ".join(
+          "non-flat bottom; E=30/F=71 and E=4096/F=8320; every output on its own scale; "
+          "inputs unchanged), max err/scale: " + "; ".join(
               f"{k} f64 {worst3['float64'][k]:.3e} f32 {worst3['float32'][k]:.3e}"
-              for k in names) + f"; kernel A at E=35, 9, 2 (p=4) and E=9, 16 (p=8): f64 "
-          f"{worst_a['float64']:.3e} f32 {worst_a['float32']:.3e}"
-          f" (tol f64 {F64_TOL:g}, f32 {F32_TOL:g})")
+              for k in names) + "; at E=35/F=82, E=20/F=49, E=9/F=24, E=2/F=7 (p=4) and "
+          "E=9/F=24, E=16/F=40 (p=8): " + "; ".join(
+              f"{k} f64 {worst_r['float64'][k]:.3e} f32 {worst_r['float32'][k]:.3e}"
+              for k in names) + f" (tol f64 {F64_TOL:g}, f32 {F32_TOL:g})")
 
     # ---- phase 11: fused solve vs plain versions and vs the per-stage path ----
     wsolve, nfields = check_fused_solve()
@@ -1203,8 +1235,7 @@ def main() -> int:
     del f256m
     torch.cuda.empty_cache()
     for name, t64, t256 in (("btp_volume", tv64, tv256),
-                            ("btp_volume_uni", tf64["btp_volume_uni"],
-                             tf256["btp_volume_uni"])):
+                            *((k, tf64[k], tf256[k]) for k in names)):
         print(f"phase 13 what limits {name}, ms at 64x64 / 256x256 (whole kernel; "
               f"contractions compiled out; no global reads): {t64['ms']:.4f} / "
               f"{t256['ms']:.4f}; {t64['ms_memory_only']:.4f} / {t256['ms_memory_only']:.4f}; "
@@ -1214,9 +1245,9 @@ def main() -> int:
     replaces = {"btp_volume_uni": "hnumo_tpu/ops/pallas_btp.py:287",
                 "btp_faces": "hnumo_tpu/ops/pallas_btp_tail.py:158",
                 "btp_update": "hnumo_tpu/ops/pallas_btp_tail.py:362"}
-    def volume_extras(name, t64, t256):
-        """What the two volume kernels add to their entries: both ablations,
-        the launch's layout and what ptxas said."""
+    def ablated_extras(name, t64, t256):
+        """What the four streaming kernels add to their entries: both
+        ablations, the launch's layout and what ptxas said."""
         return {"ms_memory_only": t64["ms_memory_only"],
                 "ms_compute_only": t64["ms_compute_only"],
                 "ms_256_memory_only": t256["ms_memory_only"],
@@ -1242,7 +1273,7 @@ def main() -> int:
         "gp_steps_per_s_256": runf256["gp_steps_per_s"],
         "step_ms_256_per_stage_path": run256["ms_per_step"],
         "peak_memory_gib_256": peak256, **extraf,
-        **(volume_extras(k, tf64[k], tf256[k]) if k in layouts else {}),
+        **ablated_extras(k, tf64[k], tf256[k]),
     } for k in names]
     kernels = [{
         "name": "btp_volume", "route": "cuda",
@@ -1257,7 +1288,7 @@ def main() -> int:
         "checked_against_plain": True, "ms_hot": tv64["ms_hot"],
         "ms_hot_with_wrapper": tv64["ms_hot_with_wrapper"],
         "plain_ms_hot": tv64["plain_ms_hot"],
-        **volume_extras("btp_volume", tv64, tv256),
+        **ablated_extras("btp_volume", tv64, tv256),
         "launches_per_step": run64["launches_per_step"],
         "step_ms": run64["ms_per_step"], "gp_steps_per_s": run64["gp_steps_per_s"],
         **big, **extra,

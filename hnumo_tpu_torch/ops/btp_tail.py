@@ -41,7 +41,7 @@ import torch
 from torch import Tensor
 
 from ._build import load_library
-from .btp_volume import eflat
+from .btp_volume import eflat, launch_layout
 
 _FTAB_STATIC = ("nx", "ny", "jac", "coeff_pbpert_L", "coeff_pbpert_R",
                 "coeff_pbub_LR", "one_over_pbprime_edge", "coeff_mass_pbub_L",
@@ -209,14 +209,43 @@ def btp_faces_plain(tabs: FaceTailTables, trL: Tensor, trR: Tensor, af: Tensor,
 btp_faces_plain.calls = 0
 
 
-def _declare(lib, name: str, argtypes) -> None:
-    """Declare `<name>_launch` and `<name>_error_string` of a kernel library."""
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# the C signatures of `<name>_launch` and `<name>_describe` (its sizes) per kernel
+_LAUNCH_ARGS = {"btp_faces": [_I] * 5 + [_P] * 10 + [_P],
+                "btp_update": [_I] * 4 + [_P] * 16 + [_D] * 5 + [_P]}
+_SIZE_ARGS = {"btp_faces": [_I, _I], "btp_update": [_I]}
+
+
+def _library(name: str) -> ctypes.CDLL:
+    """The built library of kernel `name` with its C signatures declared."""
+    lib = load_library(name)
     if not getattr(lib, "_hnumo_declared", False):
-        getattr(lib, f"{name}_launch").argtypes = argtypes
+        sizes = _SIZE_ARGS[name]
+        getattr(lib, f"{name}_launch").argtypes = _LAUNCH_ARGS[name]
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
-        getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+        getattr(lib, f"{name}_describe").argtypes = [_I, *sizes, ctypes.POINTER(_I),
+                                                     ctypes.POINTER(ctypes.c_longlong),
+                                                     ctypes.POINTER(_I)]
+        getattr(lib, f"{name}_describe").restype = ctypes.c_int
+        getattr(lib, f"{name}_smem_bytes").argtypes = [_I, *sizes]
+        getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_longlong
+        getattr(lib, f"{name}_smem_limit").argtypes = []
+        getattr(lib, f"{name}_smem_limit").restype = ctypes.c_longlong
+        getattr(lib, f"{name}_error_string").argtypes = [_I]
         getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
         lib._hnumo_declared = True
+    return lib
+
+
+def _check_smem(lib, name: str, unit: str, dtype: torch.dtype, *sizes: int) -> None:
+    """Raise unless one `unit` (face, element) fits the two stages of one
+    block's shared memory on the card: the kernel never falls back."""
+    need = getattr(lib, f"{name}_smem_bytes")(int(dtype == torch.float64), *sizes)
+    limit = getattr(lib, f"{name}_smem_limit")()
+    if need > limit:
+        raise ValueError(
+            f"{name}_cuda stages the inputs of one {unit} twice in shared memory: "
+            f"sizes {sizes}, {dtype} need {need} bytes per block, the card allows {limit}")
 
 
 def _require_cuda(name: str, t: Tensor) -> int:
@@ -245,9 +274,8 @@ def btp_faces_cuda(tabs: FaceTailTables, trL: Tensor, trR: Tensor, af: Tensor,
     launches made."""
     F, ngl, nq = _check_faces(tabs, trL, trR, af, ag, use_visc)
     is_double = _require_cuda("btp_faces", trL)
-    lib = load_library("btp_faces")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    _declare(lib, "btp_faces", [i] * 5 + [p] * 10 + [p])
+    lib = _library("btp_faces")
+    _check_smem(lib, "btp_faces", "face", trL.dtype, ngl, nq)
     opts = dict(dtype=trL.dtype, device=trL.device)
     S = torch.empty((3, F, ngl), **opts)
     Sv = torch.empty((2, F, ngl), **opts) if use_visc else None
@@ -268,6 +296,12 @@ def btp_faces_cuda(tabs: FaceTailTables, trL: Tensor, trR: Tensor, af: Tensor,
 
 
 btp_faces_cuda.launches = 0
+
+
+def btp_faces_layout(dtype: torch.dtype, ngl: int, nq: int) -> dict:
+    """`launch_layout` of the face kernel: faces per tile, shared memory per
+    block, resident blocks per SM (builds it at the first call)."""
+    return launch_layout(_library("btp_faces"), "btp_faces", dtype, ngl, nq, unit="faces")
 
 
 # ---------------------------------------------------------------------------
@@ -412,9 +446,8 @@ def btp_update_cuda(ops: UpdateOps, w, rhs: Tensor, edges: Tensor,
     E, ngl = _check_update(ops, w, rhs, edges, vedges, qb0, qb1, qb2, gv, pbpv,
                            bdg, mask, use_visc)
     is_double = _require_cuda("btp_update", rhs)
-    lib = load_library("btp_update")
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    _declare(lib, "btp_update", [i] * 4 + [p] * 16 + [d] * 5 + [p])
+    lib = _library("btp_update")
+    _check_smem(lib, "btp_update", "element", rhs.dtype, ngl)
     out = torch.empty((4, E, ngl * ngl), dtype=rhs.dtype, device=rhs.device)
     visc_only = (lambda t: _ptr(t)) if use_visc else (lambda t: None)
     with torch.cuda.device(rhs.device):
@@ -436,3 +469,9 @@ def btp_update_cuda(ops: UpdateOps, w, rhs: Tensor, edges: Tensor,
 
 
 btp_update_cuda.launches = 0
+
+
+def btp_update_layout(dtype: torch.dtype, ngl: int) -> dict:
+    """`launch_layout` of the update kernel: elements per tile, shared memory
+    per block, resident blocks per SM (builds it at the first call)."""
+    return launch_layout(_library("btp_update"), "btp_update", dtype, ngl)

@@ -257,20 +257,22 @@ def btp_volume_cuda(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
 btp_volume_cuda.launches = 0
 
 
-def launch_layout(lib, prefix: str, dtype: torch.dtype, ngl: int, nq: int) -> dict:
+def launch_layout(lib, prefix: str, dtype: torch.dtype, *sizes: int,
+                  unit: str = "elements") -> dict:
     """How the kernel `prefix` of the built library `lib` lays a launch out
-    on the current CUDA device at these sizes: elements per tile, bytes of
-    shared memory per block, resident blocks per SM."""
+    on the current CUDA device at these sizes (`ngl, nq`, or what the
+    kernel's `<prefix>_describe` takes): `unit`s (elements or faces) per
+    tile, bytes of shared memory per block, resident blocks per SM."""
     tile, blocks = ctypes.c_int(), ctypes.c_int()
     smem = ctypes.c_longlong()
     err = getattr(lib, f"{prefix}_describe")(
-        int(dtype == torch.float64), ngl, nq, ctypes.byref(tile), ctypes.byref(smem),
+        int(dtype == torch.float64), *sizes, ctypes.byref(tile), ctypes.byref(smem),
         ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(
-            f"{prefix}: no launch layout at ngl={ngl}, nq={nq}, {dtype}: CUDA error "
+            f"{prefix}: no launch layout at sizes {sizes}, {dtype}: CUDA error "
             f"{err} ({getattr(lib, f'{prefix}_error_string')(err).decode()})")
-    return {"tile_elements": tile.value, "smem_bytes": smem.value,
+    return {f"tile_{unit}": tile.value, "smem_bytes": smem.value,
             "blocks_per_sm": blocks.value}
 
 

@@ -1,6 +1,8 @@
 // Device code shared by the two barotropic volume kernels (btp_volume.cu,
 // btp_volume_uni.cu), CUDA C++ for sm_90a (NVIDIA Hopper): the tile and its
 // ring of input stages in shared memory, and the sum-factorised 1-D passes.
+// The face and update kernels take its cp.async primitives, slot rounding
+// and launch plan through btp_tail_common.cuh.
 //
 // The tile. A block works `G` consecutive elements at a time (G = 4 where the
 // shared memory allows, else 2 or 1). In the flat element-major layout
@@ -28,7 +30,7 @@
 // is read from shared memory in the loop.
 //
 // BTP_ABLATE builds a variant that is only timed (chip_smoke.py,
-// hnumo_tpu_torch/tools/volume_ablation.py): 1 compiles the contractions out (memory-only
+// hnumo_tpu_torch/tools/kernel_ablation.py): 1 compiles the contractions out (memory-only
 // time), 2 replaces every global read by a value computed from the index,
 // written into the stages once per block (compute-only time). Both compute
 // wrong numbers on purpose; the package's wrappers never build them.

@@ -365,10 +365,36 @@ def test_defines_build_a_variant_beside_the_default(fake_toolchain):
 def test_the_volume_sources_share_one_header():
     from hnumo_tpu_torch.ops import _build
 
-    for name in ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update"):
+    for name in ("btp_volume", "btp_volume_uni"):
         assert [f.name for f in _build.source_files(name)] == [f"{name}.cu",
                                                                "btp_volume_common.cuh"]
+    for name in ("btp_faces", "btp_update"):
+        assert [f.name for f in _build.source_files(name)] == [
+            f"{name}.cu", "btp_tail_common.cuh", "btp_volume_common.cuh"]
     assert [f.name for f in _build.source_files("btp_mega")] == ["btp_mega.cu"]
+
+
+def test_the_tail_header_enters_the_face_and_update_libraries(tmp_path, monkeypatch):
+    """A change of btp_tail_common.cuh builds F and U anew and leaves the
+    volume kernels' libraries as they were; a change of the volume kernels'
+    header builds all four anew."""
+    import shutil
+
+    from hnumo_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    names = ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update", "btp_mega")
+    first = {n: _build.library_path(n) for n in names}
+    tail = csrc / "btp_tail_common.cuh"
+    tail.write_text(tail.read_text() + "// changed\n")
+    second = {n: _build.library_path(n) for n in names}
+    assert [second[n] != first[n] for n in names] == [False, False, True, True, False]
+    vol = csrc / "btp_volume_common.cuh"
+    vol.write_text(vol.read_text() + "// changed\n")
+    third = {n: _build.library_path(n) for n in names}
+    assert [third[n] != second[n] for n in names] == [True, True, True, True, False]
 
 
 def test_resource_usage_names_the_instantiations(fake_toolchain):
