@@ -5,11 +5,12 @@
 
 Builds the five CUDA kernels from the sources in this checkout (and, to be
 timed only, two ablated variants of each of the four streaming kernels: the
-two volume kernels, the face kernel and the update kernel), holds each
-against its plain PyTorch version on the card, and drives the port's main
+two volume kernels, the face kernel and the update kernel, and three of the
+megakernel), holds each against its plain PyTorch version on the card (the
+megakernel on both of its routes), and drives the port's main
 paths through `Model.run` on the double-gyre configuration (f32, p=4,
 2 layers, SSP(5,3), N_btp=20): 32x32 elements through the whole-solve
-megakernel (two launches per step), 64x64 and a short run at 256x256
+megakernel (two launches per step, its resident route), 64x64 and a short run at 256x256
 through the per-stage path with the volume kernel, and the same two grids
 through the fused path (`mega="off", fused_tail="on"`: the uniform-geometry
 volume kernel, the all-faces kernel and the update kernel, 200 launches of
@@ -42,6 +43,10 @@ F32_FLOPS_PER_S = 67e12
 ABLATIONS = (("memory_only", "BTP_ABLATE=1"),    # contractions compiled out
              ("compute_only", "BTP_ABLATE=2"))   # no global reads
 ABLATED_SOURCES = ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update")
+# the megakernel's (ops/csrc/btp_mega.cu), and a third: its nsub stages left
+# empty but for their grid barriers, the floor of any design with one grid
+# barrier per stage
+MEGA_ABLATIONS = ABLATIONS + (("barrier_only", "BTP_ABLATE=3"),)
 
 F64_TOL = 1e-12     # kernel vs plain, f64: same operations, other summation order
 F32_TOL = 2e-5      # kernel vs plain, f32: ~100-term sums in another order
@@ -259,30 +264,58 @@ def check_solve_kernel_vs_plain():
     return worst, n
 
 
-def check_mega_vs_plain(cfg, tol, seed=3):
+def mega_routes():
+    """{route: launches so far} of the megakernel's wrapper."""
+    from hnumo_tpu_torch.ops.mega import ROUTES, barotropic_solve_mega_cuda
+
+    return {r: getattr(barotropic_solve_mega_cuda, f"launches_{r}") for r in ROUTES}
+
+
+def check_mega_vs_plain(cfg, tol, seed=3, route=None):
     """One barotropic solve through the megakernel and through its plain
-    version on the same inputs on the card."""
+    version on the same inputs on the card. route=None: through the solver's
+    dispatch, on the route the size chooses; else through `mega_launch` on
+    the route named. Returns (max error/scale, max abs error, number of
+    fields, the route the launch took)."""
     import dataclasses
 
     from hnumo_tpu_torch.core.btp import barotropic_solve
     from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.ops import mega
 
     m = Model(cfg)
     if not (m.static.mega and m.static.mega_impl == "kernel" and m.mega_ops is not None):
         raise AssertionError("this configuration must take the megakernel")
     _, qb, qp, coup = perturbed_inputs(m, seed=seed)
     qb_keep = qb.clone()
-    out = {}
-    for impl in ("kernel", "plain"):
-        st = dataclasses.replace(m.static, mega_impl=impl)
-        out[impl] = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp,
-                                     vol_ops=m.vol_ops, mega_ops=m.mega_ops)
-        torch.cuda.synchronize()
+    before = mega_routes()
+    if route is None:
+        st = dataclasses.replace(m.static, mega_impl="kernel")
+        got = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
+                               mega_ops=m.mega_ops)
+    else:
+        E, (ngl, nq) = cfg.nelx * cfg.nely, m.g.psiq.shape
+        opts = dict(dtype=qb.dtype, device=qb.device)
+        op = mega.solve_operands(m.static, m.g, coup, qb, qp, m.mega_ops)
+        acc = mega.new_accumulators(E, ngl, nq, **opts)
+        qb_new = mega.mega_launch(m.static, m.mega_ops, op, acc,
+                                  *mega.new_state_buffers(E, ngl, **opts), route=route)
+        got = (qb_new.view(4, cfg.nely, cfg.nelx, ngl, ngl),
+               mega.averages_from_accumulators(m.static, m.mega_ops, *acc))
+    torch.cuda.synchronize()
+    taken = [r for r, n in mega_routes().items() if n != before[r]]
+    if len(taken) != 1 or sum(mega_routes().values()) - sum(before.values()) != 1:
+        raise AssertionError(f"one solve must be one megakernel launch, got {taken}")
+    st = dataclasses.replace(m.static, mega_impl="plain")
+    want = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
+                            mega_ops=m.mega_ops)
+    torch.cuda.synchronize()
     if not torch.equal(qb, qb_keep):
         raise AssertionError("the megakernel changed its caller's qb_df")
     E = cfg.nelx * cfg.nely
-    return compare_solves(out["kernel"], out["plain"], tol,
-                          f"megakernel != plain ({cfg.dtype}, E={E})")
+    return (*compare_solves(got, want, tol,
+                            f"megakernel ({taken[0]} route) != plain ({cfg.dtype}, E={E})"),
+            taken[0])
 
 
 def check_mega_vs_per_stage():
@@ -637,11 +670,14 @@ def volume_bound(m):
             "bytes": nbytes, "flops": flops}
 
 
-def time_mega(m, n=20):
-    """One solve at this model's shapes: the wrapper (operand build,
-    allocations, launch, averages), the launch alone, and the plain version.
-    The working set is a few MB and one launch reads it 100 times over, so
-    there is no cold-operand variant to take."""
+def time_mega(m, n=20, ablations=True):
+    """One solve at this model's shapes: the launch alone with the launches
+    queued ahead of the device (`ms`), the wrapper as the host calls it
+    (operand build, allocations, launch, averages), the plain version, and
+    with `ablations` the launch under each of MEGA_ABLATIONS. The working set
+    is a few MB (in the L2 at these sizes) and one launch reads it 100 times
+    over, so there is no cold-operand variant to take."""
+    from hnumo_tpu_torch.ops._build import variant
     from hnumo_tpu_torch.ops.mega import (barotropic_solve_mega_cuda,
                                           barotropic_solve_mega_plain, mega_launch,
                                           new_accumulators, new_state_buffers,
@@ -665,11 +701,14 @@ def time_mega(m, n=20):
     def plain():
         barotropic_solve_mega_plain(*args)
 
-    before = barotropic_solve_mega_cuda.launches
-    out = {"ms": time_launches(launch, [()], n),
+    before = dict(vars(barotropic_solve_mega_cuda))
+    out = {"ms": time_launches(launch, [()], n, device_only=True),
            "ms_with_wrapper": time_launches(wrapper, [()], n),
            "plain_ms": time_launches(plain, [()], 2)}
-    barotropic_solve_mega_cuda.launches = before   # timing launches are not the path's
+    for name, define in MEGA_ABLATIONS if ablations else ():
+        with variant(define):
+            out["ms_" + name] = time_launches(launch, [()], n, device_only=True)
+    vars(barotropic_solve_mega_cuda).update(before)   # timing launches are not the path's
     return out
 
 
@@ -840,6 +879,8 @@ def drive(m, warm: int, steps: int):
     volume kernel, the face kernel and the update kernel; on the per-stage
     path 2*N_btp*kstages volume kernel launches (of the uniform-geometry one
     under uni_volume). Every other kernel: none."""
+    from hnumo_tpu_torch.ops.mega import ROUTES
+
     wrappers = kernel_wrappers()
     s = m.state0
     mass0 = total_mass(m, s)
@@ -847,6 +888,8 @@ def drive(m, warm: int, steps: int):
     torch.cuda.synchronize()
     for fn in wrappers.values():
         fn.launches = 0
+    for r in ROUTES:
+        setattr(wrappers["btp_mega"], f"launches_{r}", 0)
     t0 = time.perf_counter()
     s = m.run(s, steps)
     torch.cuda.synchronize()
@@ -878,7 +921,8 @@ def drive(m, warm: int, steps: int):
     first = next(iter(per_step))
     return {"ms_per_step": wall / steps * 1e3, "gp_steps_per_s": gp * steps / wall,
             "launches": counts[first], "launches_per_step": per_step[first],
-            "counts": counts, "mass_drift": drift, "t": float(s.t)}, s
+            "counts": counts, "mega_routes": mega_routes(), "mass_drift": drift,
+            "t": float(s.t)}, s
 
 
 def _device_rows(prof):
@@ -965,7 +1009,7 @@ def main() -> int:
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     from hnumo_tpu_torch.model import Model
-    from hnumo_tpu_torch.ops._build import (build_libraries, load_library,
+    from hnumo_tpu_torch.ops._build import (build_libraries, build_variants, load_library,
                                             resource_usage, variant)
 
     if args.profile:
@@ -981,15 +1025,33 @@ def main() -> int:
           f"side and loaded in {time.perf_counter() - t0:.1f} s")
     for name in sources:
         print(f"phase 2 ptxas {name}: " + "; ".join(resource_usage(name)))
+    # the megakernel's routes (<..., 1> resident, <..., 0> streamed) spill
+    # nothing in the order the model runs at
+    mega_main = [u for u in resource_usage("btp_mega") if u.startswith("f<5,9,")]
+    if len(mega_main) != 2 or not all(u.endswith(" 0 B spill stores, 0 B spill loads")
+                                      for u in mega_main):
+        raise AssertionError(f"btp_mega at f<5,9> must build both routes without a "
+                             f"spill: {mega_main}")
     t0 = time.perf_counter()
-    for _, define in ABLATIONS:
+    build_variants(ABLATED_SOURCES + ("btp_mega",), [(d,) for _, d in ABLATIONS])
+    build_variants(["btp_mega"], [(MEGA_ABLATIONS[-1][1],)])
+    print(f"phase 2 build: the two ablated variants of {', '.join(ABLATED_SOURCES)} and "
+          f"the three of btp_mega (timed only) in {time.perf_counter() - t0:.1f} s")
+    for name, define in MEGA_ABLATIONS:
         with variant(define):
-            build_libraries(ABLATED_SOURCES)
-    print(f"phase 2 build: the two ablated variants of {', '.join(ABLATED_SOURCES)} "
-          f"(timed only) in {time.perf_counter() - t0:.1f} s")
+            print(f"phase 2 ptxas btp_mega {name} ({define}): "
+                  + "; ".join(resource_usage("btp_mega")))
     from hnumo_tpu_torch.ops.btp_tail import btp_faces_layout, btp_update_layout
     from hnumo_tpu_torch.ops.btp_volume import btp_volume_layout
     from hnumo_tpu_torch.ops.btp_volume_uni import btp_volume_uni_layout
+    from hnumo_tpu_torch.ops.mega import btp_mega_layout
+
+    print("phase 2 layout btp_mega (route, elements per block, threads, shared memory "
+          "per block, resident blocks per SM, grid): " + "; ".join(
+              f"{dt} p={ngl - 1} E={E} "
+              + json.dumps(btp_mega_layout(getattr(torch, dt), E, ngl, nq))
+              for dt in ("float32", "float64") for ngl, nq in ((5, 9), (7, 13))
+              for E in (30, 625, 1024, 4096)))
 
     # (dtype, ngl, nq) -> faces or elements per tile, shared memory per block,
     # resident blocks per SM
@@ -1083,27 +1145,46 @@ def main() -> int:
     del m256
     torch.cuda.empty_cache()
 
-    # ---- phase 7: megakernel vs its plain version ----------------------------
-    w64m, nfields = 0.0, 0
+    # ---- phase 7: megakernel vs its plain version, both routes ---------------
+    # the 6x5 matrix on the route the size chooses (resident) and on the
+    # streamed one; 25x25 and 32x32 in f32 (resident, and streamed by name)
+    # and f64 (streamed: 528 resident blocks); 64x64 with mega="on" (more
+    # elements than resident blocks: each block walks several between two
+    # grid barriers)
+    w6 = {"resident": 0.0, "streamed": 0.0}
+    nfields = 0
     for visc, botfr, kstages, nop, walls in (
             (False, 1, 5, 4, FREE_SLIP), (True, 1, 5, 4, FREE_SLIP),
             (True, 2, 5, 4, FREE_SLIP), (False, 0, 3, 4, FREE_SLIP),
             (True, 1, 5, 6, FREE_SLIP), (True, 1, 5, 4, OTHER_WALLS)):
-        w, _, nfields = check_mega_vs_plain(
-            small_config(6, 5, "float64", botfr, mega="on", visc=visc,
-                         kstages=kstages, nop=nop, walls=walls), SOLVE_TOL)
-        w64m = max(w64m, w)
-    w32d, _, _ = check_mega_vs_plain(main_path_config(32, "float64"), SOLVE_TOL)
-    # more blocks' worth of elements than can be resident at once: each block
-    # walks several elements between two grid barriers
-    w64d, _, _ = check_mega_vs_plain(main_path_config(64, "float64", mega="on"), SOLVE_TOL)
-    mega_err, mega_abs, _ = check_mega_vs_plain(main_path_config(32, "float32"),
-                                                F32_MEGA_TOL)
+        for route in (None, "streamed"):
+            w, _, nfields, taken = check_mega_vs_plain(
+                small_config(6, 5, "float64", botfr, mega="on", visc=visc,
+                             kstages=kstages, nop=nop, walls=walls), SOLVE_TOL, route=route)
+            if route is None and taken != "resident":
+                raise AssertionError("6x5 f64 must take the resident route")
+            w6[taken] = max(w6[taken], w)
+    solves = {}
+    for nel, dtype, mode, route in ((25, "float64", "auto", None), (32, "float64", "auto", None),
+                                    (64, "float64", "on", None), (25, "float32", "auto", None),
+                                    (25, "float32", "auto", "streamed"),
+                                    (32, "float32", "auto", None),
+                                    (32, "float32", "auto", "streamed"),
+                                    (64, "float32", "on", None)):
+        tol = SOLVE_TOL if dtype == "float64" else F32_MEGA_TOL
+        w, wa, _, taken = check_mega_vs_plain(main_path_config(nel, dtype, mega=mode), tol,
+                                              route=route)
+        solves[(nel, dtype, taken)] = (w, wa)
+    if (32, "float32", "resident") not in solves or (64, "float32", "streamed") not in solves:
+        raise AssertionError(f"32x32 f32 must take the resident route and 64x64 the "
+                             f"streamed one: {sorted(solves)}")
+    mega_err, mega_abs = solves[(32, "float32", "resident")]
     print(f"phase 7 megakernel vs plain, one solve, qb (4 channels) + {nfields - 4} "
-          f"averages, max err/scale: f64 6x5 matrix (visc on/off, botfr 0/1/2, "
-          f"kstages 3/5, nop 4/6, walls free-slip and copy/no-slip) {w64m:.3e}, f64 32x32 {w32d:.3e}, f64 64x64 "
-          f"mega='on' {w64d:.3e} (tol {SOLVE_TOL:g}); f32 32x32 {mega_err:.3e} "
-          f"(tol {F32_MEGA_TOL:g})")
+          f"averages, max err/scale: f64 6x5 matrix (visc on/off, botfr 0/1/2, kstages 3/5, "
+          f"nop 4/6, walls free-slip and copy/no-slip) resident {w6['resident']:.3e}, streamed "
+          f"{w6['streamed']:.3e} (tol {SOLVE_TOL:g}); " + "; ".join(
+              f"{nel}x{nel} {dt} {r} {w:.3e}" for (nel, dt, r), (w, _) in solves.items())
+          + f" (tol f64 {SOLVE_TOL:g}, f32 {F32_MEGA_TOL:g}); qb_df unchanged")
 
     # ---- phase 8: megakernel vs the per-stage path ---------------------------
     w_solve, n, w_step = check_mega_vs_per_stage()
@@ -1116,8 +1197,17 @@ def main() -> int:
     if not (m32.static.mega and m32.static.mega_impl == "kernel"):
         raise AssertionError("32x32 with default arguments must take the megakernel")
     run32, s32 = drive(m32, warm=3, steps=20)
+    if run32["mega_routes"] != {"streamed": 0, "resident": 2 * 20}:
+        raise AssertionError(f"20 steps at 32x32 f32 must be 40 launches of the resident "
+                             f"route: {run32['mega_routes']}")
     tm32 = time_mega(m32)
     b32 = mega_bound(m32)
+    # the grid of the committed f32 campaign, one element per block too
+    m25 = Model(main_path_config(25, "float32"))
+    tm25 = time_mega(m25)
+    b25 = mega_bound(m25)
+    route25 = btp_mega_layout(torch.float32, 25 * 25, 5, 9)["route"]
+    del m25
     m32off = Model(main_path_config(32, "float32", mega="off"))
     run32off, _ = drive(m32off, warm=1, steps=3)
     del m32off
@@ -1125,7 +1215,9 @@ def main() -> int:
     # the caller says so, beside phase 5's reading of the same grid
     m64on = Model(main_path_config(64, "float32", mega="on"))
     run64on, _ = drive(m64on, warm=1, steps=5)
-    tm64on = time_mega(m64on, n=5)
+    if run64on["mega_routes"] != {"streamed": 2 * 5, "resident": 0}:
+        raise AssertionError(f"64x64 must take the streamed route: {run64on['mega_routes']}")
+    tm64on = time_mega(m64on, n=5, ablations=False)
     del m64on
     print(f"phase 9 main path 32x32 p=4 L=2 f32 N_btp={m32.static.n_btp}: "
           f"{run32['ms_per_step']:.2f} ms/step, {run32['gp_steps_per_s']:.4g} gp-steps/s, "
@@ -1133,12 +1225,16 @@ def main() -> int:
           f"launches, ok, finite, mass drift {run32['mass_drift']:.2e}; with mega='off' "
           f"{run32off['ms_per_step']:.2f} ms/step, {run32off['gp_steps_per_s']:.4g} "
           f"gp-steps/s ({run32off['launches_per_step']} volume kernel launches/step); "
-          f"megakernel {tm32['ms']:.4f} ms/launch ({tm32['ms_with_wrapper']:.4f} with "
-          f"its wrapper), plain {tm32['plain_ms']:.2f}, bound {b32['bound_ms']:.4f} ms "
-          f"by {b32['bound_by']}, {b32['barriers']} grid barriers/launch; 64x64 with "
-          f"mega='on': {run64on['ms_per_step']:.2f} ms/step, "
-          f"{run64on['gp_steps_per_s']:.4g} gp-steps/s, megakernel "
-          f"{tm64on['ms']:.4f} ms/launch")
+          f"{run32['mega_routes']['resident']} of the resident route; " + "; ".join(
+              f"megakernel {g}x{g} ({r} route) {t['ms']:.4f} ms/launch on the device "
+              f"({t['ms_with_wrapper']:.4f} with its wrapper), plain {t['plain_ms']:.2f}, "
+              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {b['barriers']} grid "
+              f"barriers/launch: barrier-only floor {t['ms_barrier_only']:.4f}, memory-only "
+              f"{t['ms_memory_only']:.4f}, compute-only {t['ms_compute_only']:.4f}"
+              for g, r, t, b in ((32, "resident", tm32, b32), (25, route25, tm25, b25)))
+          + f"; 64x64 with mega='on': {run64on['ms_per_step']:.2f} ms/step, "
+          f"{run64on['gp_steps_per_s']:.4g} gp-steps/s, megakernel (streamed route) "
+          f"{tm64on['ms']:.4f} ms/launch on the device")
     extra32 = {}
     if args.profile:
         extra32 = profile_step(m32, s32, args.profile, "32x32 f32, megakernel path")
@@ -1302,7 +1398,20 @@ def main() -> int:
         "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
         "library_ms": None,
         "checked_against_plain": True, "ms_with_wrapper": tm32["ms_with_wrapper"],
-        "grid_barriers": b32["barriers"],
+        "grid_barriers": b32["barriers"], "mega_route": "resident",
+        "launches_resident": run32["mega_routes"]["resident"],
+        "ms_memory_only": tm32["ms_memory_only"], "ms_compute_only": tm32["ms_compute_only"],
+        "ms_barrier_only": tm32["ms_barrier_only"],
+        "ms_25": tm25["ms"], "ms_with_wrapper_25": tm25["ms_with_wrapper"],
+        "plain_ms_25": tm25["plain_ms"], "bound_ms_25": b25["bound_ms"],
+        "mega_route_25": route25,
+        "ms_25_memory_only": tm25["ms_memory_only"],
+        "ms_25_compute_only": tm25["ms_compute_only"],
+        "ms_25_barrier_only": tm25["ms_barrier_only"],
+        "max_err_over_scale_by_solve": {f"{g}x{g} {dt} {r}": w
+                                        for (g, dt, r), (w, _) in solves.items()},
+        "layout": btp_mega_layout(torch.float32, 32 * 32, 5, 9),
+        "ptxas": resource_usage("btp_mega"),
         "launches_per_step": run32["launches_per_step"],
         "step_ms": run32["ms_per_step"], "gp_steps_per_s": run32["gp_steps_per_s"],
         "step_ms_mega_off": run32off["ms_per_step"],

@@ -7,9 +7,11 @@ of `csrc/` that the source includes, and of the flags, so an unchanged source
 is compiled once per build directory and a changed header is never left with
 a stale library. Inside `with variant("NAME=VALUE", ...)` every source is
 built with those `-D` switches into a library of its own beside the default
-one, and loaded from there: a measurement's hook. Nothing here runs at import: `load_library` is called by a kernel's wrapper the first
-time it launches; `build_libraries` compiles several sources side by side
-ahead of that. A missing compiler or a failed build raises.
+one, and loaded from there: a measurement's hook. Nothing here runs at
+import: `load_library` is called by a kernel's wrapper the first time it
+launches; `build_libraries` compiles several sources side by side ahead of
+that, and `build_variants` several variants of them. A missing compiler or a
+failed build raises.
 """
 from __future__ import annotations
 
@@ -97,18 +99,30 @@ def compile_command(name: str, out: Path) -> list[str]:
 def build_libraries(names) -> None:
     """Compile every `csrc/<name>.cu` whose library is not built yet: one
     nvcc process per source, all started together, then waited for."""
+    build_variants(names, [_defines])
+
+
+def build_variants(names, variants) -> None:
+    """`build_libraries(names)` within `variant(*defines)` for each tuple of
+    `defines` in `variants`, all nvcc processes started together."""
+    global _defines
     started = []
     try:
-        for name in names:
-            lib_path = library_path(name)
-            if (name, _defines) in _loaded or lib_path.is_file():
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-            proc = subprocess.Popen(compile_command(name, tmp),
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-            started.append((name, proc, tmp, lib_path))
+        for defines in variants:
+            before, _defines = _defines, tuple(defines)
+            try:
+                for name in names:
+                    lib_path = library_path(name)
+                    if (name, _defines) in _loaded or lib_path.is_file():
+                        continue
+                    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                    tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
+                    proc = subprocess.Popen(compile_command(name, tmp),
+                                            stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)
+                    started.append((name, proc, tmp, lib_path))
+            finally:
+                _defines = before
         for name, proc, tmp, lib_path in started:
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:

@@ -20,36 +20,69 @@
 //     SSP(5,3) snapshot of the stage-2 state.
 //
 // Design. Stage s+1 of an element needs the stage-s state of its four
-// neighbours, and a block's shared memory holds one element, not the grid.
-// So this is one persistent cooperative kernel: blocks walk the elements
-// grid-stride, the state lives in global memory (a few MB, resident in L2)
-// and one grid-wide barrier separates the stages. The SSPRK registers
-// qb0/qb1/qb2 and the stage's output are four rotating buffers whose roles
-// every block derives from the stage index alone: "qb0 <- qb1" and
-// "qb2 <- new" are index assignments, never copies. Within a stage every
-// block reads buffer i1 (its own element and its neighbours') and i0, i2 (its
-// own element) and writes only its own elements of a buffer that nobody
-// reads in that stage, so one barrier per stage is enough. The caller's
-// state (buffer index 4) is only ever read.
+// neighbours, so this is one persistent cooperative kernel (all blocks
+// resident), with the stages of neighbouring elements ordered by flags
+// (resident route) or by one grid barrier per stage (streamed route).
 // Neighbour values are recomputed, not exchanged: a block loads its
-// neighbours' nodal state and evaluates their edge gradients itself with the
-// same device functions the owner uses, so both elements of an interior face
-// get the same left/right values. Each element computes its own four sides
-// and accumulates their averages per side: every output location has one
-// writer, there are no atomics. The tensor-product operators are applied
-// sum-factorised from the 1-D tables (psiq, dpsiq, dpsi) held in shared
-// memory; nothing is padded.
+// neighbours' state and evaluates their edge values and gradients with the
+// same arithmetic the owner uses, so both elements of an interior face get
+// the same left/right values. Each element computes its own four sides: every
+// output location has one writer, there are no atomics on data. The
+// tensor-product operators are applied sum-factorised from the 1-D tables.
 //
-// What bounds it on this card: by the count of bytes moved once and of
-// flops, operations (about 33 kflop per element and stage at p=4); in fact
-// neither. The accumulators and the per-element tables are re-read from
-// global memory (L2 at <= 1024 elements) in every stage, and the time is the
-// latency of nsub dependent stages: six block-wide phases, each waiting on
-// its own global loads, plus one grid barrier. What the design does about
-// it: one block per element when the grid fits the card at once (1024
-// elements do, at 8 blocks of 128 threads per SM), compile-time sizes for
-// the order the model is run at (p=4), the loops of one phase spread over
-// different warps, and the neighbours' indices read once per block.
+// What bounds it on this card: neither bytes nor flops (about 33 kflop per
+// element and stage at p=4, 0.05 ms for a 32x32 solve at the f32 peak) but
+// the latency of nsub dependent stages, each a chain of block-wide phases and
+// a synchronisation with the neighbours. The kernel before this design
+// re-read every per-element table and did every running-average update
+// through global memory in every stage (30-40 dependent L2 round trips a
+// stage: the channel strides are run-time values, so no update could start
+// before the previous store), spilled at 64 registers, and took 19
+// microseconds a stage at 32x32, 2.4 of them in the grid barrier.
+//
+// What this design does about it. Two routes, one compute path:
+//   - RESIDENT (one block per element fits the card at once; 32x32 and below
+//     at f32 p=4). Everything an element touches lives in its block's shared
+//     memory for all nsub stages: the per-element tables (read from global
+//     memory once), the five running averages (read once, each value added to
+//     by one fixed thread in every stage, in stage order, stored once at the
+//     end) and the element's own three SSPRK registers. Only the stage output
+//     goes to global memory, because the neighbours read it: two exchange
+//     buffers suffice, since a block keeps its own registers. They hold each
+//     channel padded to 16 bytes, so a block copies its neighbours' state with
+//     16-byte cp.async (around the L1) at the top of a stage, in flight
+//     during phase A. A stage waits only for its four neighbours' "done"
+//     counters (a release/acquire pair of fences), not for the grid: 100 grid
+//     barriers take 0.23 ms alone, and a 32x32 solve with them in place of
+//     the counters 0.97 ms against 0.80.
+//   - STREAMED (more elements than resident blocks: mega="on" above 1024
+//     elements, f64 above 528): blocks walk the elements grid-stride and a
+//     grid barrier ends each stage; per element and stage the tables are
+//     copied into the same shared-memory slots with cp.async (all in flight
+//     at once), the element's registers come from four rotating global
+//     buffers whose roles follow from the stage index alone, and the running
+//     averages stay in global memory, updated four channels at a time (four
+//     loads in flight, then four stores).
+// Both routes run the same five block-wide phases per stage (four block
+// barriers), items spread over a block's threads without branches on their
+// side or channel (a warp's items lie on different ones). The layout is one
+// array per block: operators, tables, accumulators, own registers, then the
+// stage's scratch, aliased by liveness (see `layout`).
+// At f32 p=4 it is 27,624 bytes, so 8 blocks share an SM (1,056 resident
+// blocks on 132 SMs). Threads per block (kThreads): 128 on the resident
+// route, whose register bound for 8 blocks is then 64, enough once the
+// index arithmetic is kept out of the stage loop (thread_index); 64 on the
+// streamed one (128 registers). A spill costs more here than usual: with
+// shared memory taking all but ~29 KB of an SM, spill reloads miss the L1.
+//
+// BTP_ABLATE builds a variant that is only timed (chip_smoke.py,
+// hnumo_tpu_torch/tools/kernel_ablation.py): 1 compiles the contractions out
+// (memory-only time), 2 makes no global read after the first (the neighbours'
+// state is not loaded, and computed on with what shared memory holds, so a
+// division may take its slow path; compute-only time), 3 leaves the nsub
+// stages empty but for their grid barriers (the floor of any design with one
+// grid barrier per stage). All three compute wrong numbers on purpose; the
+// package's wrappers never build them.
 //
 // Plain C interface (loaded with ctypes; no PyTorch headers): the launcher
 // takes three arrays (pointers, ints, doubles) indexed by the enums below and
@@ -57,6 +90,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "btp_volume_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -80,17 +115,35 @@ enum RealIdx {
 
 namespace {
 
-constexpr int kThreads = 128;     // a power of two (rot)
-constexpr int kBlocksPerSm = 8;   // register cap: 65536 / (8 * 128) = 64
+using btpvol::cp_async_16;
+using btpvol::cp_async_commit;
+using btpvol::cp_async_value;
+using btpvol::cp_async_wait;
+using btpvol::kSmemLimit;
+using btpvol::LaunchPlan;
+using btpvol::plan_launch;
+using btpvol::slot_values;
+using btpvol::t_sqrt;
 
-template <typename T> __device__ __forceinline__ T t_sqrt(T x);
-template <> __device__ __forceinline__ float t_sqrt<float>(float x) { return sqrtf(x); }
-template <> __device__ __forceinline__ double t_sqrt<double>(double x) { return sqrt(x); }
+constexpr int kStreamed = 0, kResident = 1;
+// Threads of a block (a power of two, rot), per route: 128 on the resident
+// route (62 registers at f<5,9>); 64 on the streamed one, whose element loads
+// and accumulator updates in global memory take 96 registers (at 128 threads
+// its 64-register bound spilled 92 B).
+template <int ROUTE> constexpr int kThreads = ROUTE == kResident ? 128 : 64;
+constexpr int kMaxNgl = 8;         // nop <= 7, the megakernel's envelope
+
+// Blocks per SM the register bound is set for: 8 in f32 (the layout at p=4
+// lets 8 share an SM: 64 registers a thread on the resident route, 128 on the
+// streamed one), 4 in f64 (its layout lets 4).
+template <typename T> constexpr int kMinBlocks = sizeof(T) == 4 ? 8 : 4;
 
 template <typename T>
 struct Args {
   const T* qb_in;   // (4, E, npts)  state at t, read only
-  T* ws;            // (4, 4, E, npts) rotating state buffers, zeroed
+  T* ws;            // (4, 4, E, npts), zeroed: streamed route, four rotating
+                    // state buffers; resident route, two exchange buffers
+                    // and the "done" counters
   T* qb_out;        // (4, E, npts)  state at t+dt
   const T* qplq;    // (3, E, nqq)   bottom-layer primes at quad points
   const T* coup;    // (4, E, nqq)   Quu, Quv, Qvv, dH_bcl
@@ -127,74 +180,127 @@ struct Args {
   T b[kMaxStages];
 };
 
-// One block's shared memory, carved from one dynamic array.
-template <typename T>
-struct Smem {
-  T *psiq, *dpsiq, *dpsi, *wq3, *wn2;   // operators
-  T *q;      // (4, npts)      own pre-stage state
-  T *nb;     // (4 sides, 4, npts) neighbours' pre-stage state
-  T *uv;     // (2, npts)      own u, v
-  T *nbuv;   // (4 sides, 2, npts) neighbours' u, v
-  T *tmp;    // (4, ngl, nq)   interpolation, first pass
-  T *f;      // (8, nqq)       weighted flux rows
-  T *t1, *t2;  // (3, nq, ngl) scatter, first pass
-  T *rhs;    // (3, npts)
-  T *l, *r;  // (4, 4 sides, ngl) nodal traces left / right of each side
-  T *lq, *rq;  // (4, 4 sides, nq) the same at the face quad points
-  T *sq;     // (3, 4 sides, nq) integrand of the face scatter
-  T *se;     // (3, 4 sides, ngl) signed edge values of the face scatter
-  T *g;      // (4, npts)      grad(u, v)
-  T *sv;     // (2, 4 sides, ngl) signed edge values of the viscous flux
-  T *qq;     // (4, npts)      weighted viscous volume flux
-  T *lap;    // (2, npts)
+// Rows of the per-element tables in shared memory, channel-major: row r of a
+// table with `len` values per row starts at r * len.
+enum QuadRow { Q_COR, Q_TAU_U, Q_TAU_V, Q_GZX, Q_GZY, Q_OPBP, Q_PPREF, Q_HREF,
+               Q_PPQ, Q_UP, Q_VP, Q_QUU, Q_QUV, Q_QVV, Q_DHBCL, Q_ROWS };     // x nqq
+enum SideQuadRow { F_FTAB = 0, F_QE = 13, F_ROWS = 17 };                      // x 4 nq
+enum SideNodeRow { N_NTAB = 0, N_BGF = 3, N_ROWS = 13 };                      // x 4 ngl
+enum NodeRow { D_REF3 = 0, D_MASSINV = 3, D_PBP, D_OPBP, D_MASKU, D_MASKV, D_PVISC,
+               D_BDG, D_ROWS = D_BDG + 4 };                                   // x npts
+
+// One block's shared memory: offsets in values of T from the start of one
+// array, then the element's four neighbour indices (ints). The stage's
+// scratch is aliased by liveness (phases A-E of element_stage; a buffer
+// written in phase X and last read in phase Y is live in [X, Y]):
+//   slab 1: nb, uv, tmp [A, B]     then t1, t2, sq, qq [C, D] and sv [C, E]
+//   slab 2: f, lq, rq, nbuv, g [B, C]   then rhs, se, lap [D, E]
+// No two buffers of one slab are live in one phase, and every phase boundary
+// is a block barrier, so each slab's last reader is behind a barrier before
+// its next writer starts (phase E of one stage and phase A of the next too:
+// the block barrier before the "done" release, or the grid barrier).
+struct Lay {
+  int psiq, dpsiq, dpsi, wq3, wn2, mirq, mirg;   // operators
+  int tq, tf, tn, td;                            // per-element tables
+  int accv, aff, agt, accn, agr;                 // running averages
+  int q1, q0, q2;                                // own SSPRK registers
+  int nb, uv, tmp, t1, t2, sq, qq, sv;           // slab 1
+  int f, lq, rq, nbuv, g, rhs, se, lap;          // slab 2
+  int total;                                     // values of T
 };
 
+__host__ __device__ constexpr int max2(int x, int y) { return x > y ? x : y; }
+
+// Values of one channel of an element in the resident route's exchange
+// buffers and in `nb`: npts rounded up to 16 bytes, so that a block copies
+// its neighbours' state 16 bytes at a time.
 template <typename T>
-__host__ __device__ size_t carve(Smem<T>& s, T* base, int n, int m) {
-  const int npts = n * n, nqq = m * m;
-  size_t o = 0;
-  auto take = [&](size_t count) { T* p = base + o; o += count; return p; };
-  s.psiq = take(n * m);   s.dpsiq = take(n * m);   s.dpsi = take(n * n);
-  s.wq3 = take(3 * nqq);  s.wn2 = take(2 * npts);
-  s.q = take(4 * npts);   s.nb = take(16 * npts);
-  s.uv = take(2 * npts);  s.nbuv = take(8 * npts);
-  s.tmp = take(4 * n * m);
-  s.f = take(8 * nqq);
-  s.t1 = take(3 * m * n); s.t2 = take(3 * m * n);
-  s.rhs = take(3 * npts);
-  s.l = take(16 * n);     s.r = take(16 * n);
-  s.lq = take(16 * m);    s.rq = take(16 * m);
-  s.sq = take(12 * m);    s.se = take(12 * n);
-  s.g = take(4 * npts);   s.sv = take(8 * n);
-  s.qq = take(4 * npts);  s.lap = take(2 * npts);
-  return o;
+__host__ __device__ constexpr int padded(int npts) { return slot_values<T>(npts); }
+
+template <typename T>
+__host__ __device__ constexpr Lay layout(int n, int m) {
+  const int npts = n * n, nqq = m * m, pn = padded<T>(npts);
+  Lay L{};
+  int o = 0;
+  L.psiq = o;  o += n * m;
+  L.dpsiq = o; o += n * m;
+  L.dpsi = o;  o += n * n;
+  L.wq3 = o;   o += 3 * nqq;
+  L.wn2 = o;   o += 2 * npts;
+  L.mirq = o;  o += 16;
+  L.mirg = o;  o += 16;
+  L.tq = o;    o += Q_ROWS * nqq;
+  L.tf = o;    o += F_ROWS * 4 * m;
+  L.tn = o;    o += N_ROWS * 4 * n;
+  L.td = o;    o += D_ROWS * npts;
+  L.accv = o;  o += 12 * nqq;
+  L.aff = o;   o += 16 * 4 * m;
+  L.agt = o;   o += 8 * 4 * n;
+  L.accn = o;  o += 3 * npts;
+  L.agr = o;   o += 4 * npts;
+  L.q1 = o;    o += 4 * npts;
+  L.q0 = o;    o += 3 * npts;
+  L.q2 = o;    o += 3 * npts;
+  // slab 1, 16-byte aligned for nb
+  const int s1 = padded<T>(o);
+  L.nb = s1;                       // (4 sides, 4, padded npts)
+  L.uv = L.nb + 16 * pn;           // (2, npts)
+  L.tmp = L.uv + 2 * npts;         // (4, ngl, nq)
+  const int end1a = L.tmp + 4 * n * m;
+  L.t1 = s1;                       // (3, nq, ngl)
+  L.t2 = L.t1 + 3 * m * n;         // (3, nq, ngl)
+  L.sq = L.t2 + 3 * m * n;         // (3, 4 sides, nq)
+  L.qq = L.sq + 12 * m;            // (4, npts)
+  L.sv = L.qq + 4 * npts;          // (2, 4 sides, ngl)
+  const int end1b = L.sv + 8 * n;
+  // slab 2
+  const int s2 = max2(end1a, end1b);
+  L.f = s2;                        // (8, nqq)
+  L.lq = L.f + 8 * nqq;            // (4, 4 sides, nq)
+  L.rq = L.lq + 16 * m;            // (4, 4 sides, nq)
+  L.nbuv = L.rq + 16 * m;          // (4 sides, 2, npts)
+  L.g = L.nbuv + 8 * npts;         // (4, npts)
+  const int end2a = L.g + 4 * npts;
+  L.rhs = s2;                      // (3, npts)
+  L.se = L.rhs + 3 * npts;         // (3, 4 sides, ngl)
+  L.lap = L.se + 12 * n;           // (2, npts)
+  const int end2b = L.lap + 2 * npts;
+  L.total = max2(end2a, end2b);
+  return L;
 }
 
-// k-th node along side s (east, west, north, south) of an n x n element,
-// nodes numbered j*n + i
-__device__ __forceinline__ int edge_node(int s, int k, int n) {
-  switch (s) {
-    case 0: return k * n + (n - 1);
-    case 1: return k * n;
-    case 2: return (n - 1) * n + k;
-    default: return k;
-  }
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes(int n, int m) {
+  return sizeof(T) * size_t(layout<T>(n, m).total) + 4 * sizeof(int);
 }
+
+// Node k of side s (east, west, north, south) of an n x n element, nodes
+// numbered j*n + i, is edge_base(s, n) + k * edge_step(s, n): selects, not
+// branches, since the items of one warp lie on different sides.
+__device__ __forceinline__ int edge_base(int s, int n) {
+  return s == 0 ? n - 1 : (s == 2 ? (n - 1) * n : 0);
+}
+__device__ __forceinline__ int edge_step(int s, int n) { return s < 2 ? n : 1; }
 
 // Component c of grad(u, v) = (du/dx, du/dy, dv/dx, dv/dy) at node (j, i) of
 // the element whose nodal (u, v) are uv[0..npts), uv[npts..2 npts). Owner and
 // neighbour evaluate a trace with this one function: same values, same order.
+// d/dx runs along row j, d/dy along column i; both are one loop with the
+// strides selected, not two branches (a warp's items hold both kinds).
 template <typename T>
 __device__ __forceinline__ T grad_uv(const T* uv, const T* dpsi, int n, int c,
                                      int j, int i, T kx, T ey) {
-  const T* f = uv + (c >> 1) * n * n;
+  const bool dy = (c & 1) != 0;
+  const T* f = uv + (c >> 1) * n * n + (dy ? i : j * n);
+  const int fs = dy ? n : 1;
+  const T* d = dpsi + (dy ? j : i);
   T a = T(0);
-  if ((c & 1) == 0) {
-    for (int k = 0; k < n; ++k) a += f[j * n + k] * dpsi[k * n + i];
-    return kx * a;
-  }
-  for (int k = 0; k < n; ++k) a += f[k * n + i] * dpsi[k * n + j];
-  return ey * a;
+#if BTP_ABLATE == 1
+  a = f[(dy ? j : i) * fs];
+#else
+  for (int k = 0; k < n; ++k) a += f[k * fs] * d[k * n];
+#endif
+  return (dy ? ey : kx) * a;
 }
 
 // Sum over the sides node (j, i) lies on of the per-side edge values
@@ -211,114 +317,225 @@ __device__ __forceinline__ T edge_sum(const T* e, int n, int j, int i) {
 
 // Thread id rotated by `off`: loops of one phase that start at different
 // offsets hand their items to different warps instead of all to the first.
+// The offsets are constants, so every item (and every accumulator value) has
+// the same thread in every stage.
+__device__ __forceinline__ int thread_index();
+template <int NT>
 __device__ __forceinline__ int rot(int off) {
-  return (int(threadIdx.x) + kThreads - off) & (kThreads - 1);
+  return (thread_index() - off) & (NT - 1);
 }
 
-// One stage of element e: reads q0, q1, q2 (global), writes dst (global).
-// NGL, NQ > 0 fix the 1-D sizes at compile time (index arithmetic by
-// constants, inner loops unrolled); 0 takes them from the arguments.
-template <typename T, int NGL, int NQ>
-__device__ void element_stage(const Args<T>& a, const Smem<T>& s, int e, int ik,
-                              const T* q0, const T* q1, const T* q2, T* dst) {
-  const int tid = threadIdx.x;
-  const int n = NGL > 0 ? NGL : a.ngl, m = NQ > 0 ? NQ : a.nq;
-  const int npts = n * n, nqq = m * m;
-  const long long E = a.E;
-  const long long sn = E * npts;   // channel stride, nodal arrays
-  const long long sq = E * nqq;    // channel stride, quad arrays
-  const long long en = (long long)e * npts;
-  const long long eq = (long long)e * nqq;
-  const bool visc = a.use_visc != 0;
-  // the element's four neighbours (-1 = wall), shared by the block: no phase
-  // after the last barrier of an element reads them, so they may be replaced
-  // before the first barrier of the next
-  __shared__ int nbe[4];
-  if (tid < 4) nbe[tid] = a.nbr[e * 4 + tid];
+// threadIdx.x, read anew at each use: index arithmetic that depends on it is
+// then not hoisted out of the stage (and element) loop, where it held some
+// 30 more registers for all nsub stages and spilled (resident route at
+// f<5,9>: 204 B at 64 registers, and the solve took 1.12 ms against 0.80).
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
 
-  // ---- phase 0: own and neighbours' pre-stage state -> shared memory ------
-  __syncthreads();   // the previous element's readers are done
-  for (int t = tid; t < 4 * npts; t += kThreads) {
-    const int c = t / npts, nn = t - c * npts;
-    s.q[t] = __ldcg(q1 + c * sn + en + nn);
+// acc[c * stride] += inc[c] for c < 4: the four loads first, then the four
+// stores, so that four read-modify-writes are in flight at once wherever the
+// accumulators live. The compute-only build of the streamed route stores
+// without reading.
+template <int ROUTE, typename T>
+__device__ __forceinline__ void add4(T* acc, long long stride, T i0, T i1, T i2, T i3) {
+#if BTP_ABLATE == 2
+  if (ROUTE == kStreamed) {
+    acc[0] = i0; acc[stride] = i1; acc[2 * stride] = i2; acc[3 * stride] = i3;
+    return;
   }
-  for (int t = tid; t < 16 * npts; t += kThreads) {
-    const int sd = t / (4 * npts), r = t - sd * 4 * npts;
-    const int c = r / npts, nn = r - c * npts;
-    if (nbe[sd] >= 0) s.nb[t] = __ldcg(q1 + c * sn + (long long)nbe[sd] * npts + nn);
-  }
-  __syncthreads();
+#endif
+  const T o0 = acc[0], o1 = acc[stride], o2 = acc[2 * stride], o3 = acc[3 * stride];
+  acc[0] = o0 + i0;
+  acc[stride] = o1 + i1;
+  acc[2 * stride] = o2 + i2;
+  acc[3 * stride] = o3 + i3;
+}
 
-  // ---- phase 1: nodal averages, u and v, interpolation pass 1, traces ------
-  for (int nn = tid; nn < npts; nn += kThreads) {
-    // nodal averages from the PRE-stage state
-    const T inv_pb = T(1) / s.q[nn];
-    const T t_df = s.q[npts + nn] * a.opbp[en + nn];
-    const T u = s.q[2 * npts + nn] * inv_pb;
-    const T v = s.q[3 * npts + nn] * inv_pb;
-    a.accn[en + nn] += t_df * (T(2) + t_df);
-    a.accn[sn + en + nn] += u;
-    a.accn[2 * sn + en + nn] += v;
-    s.uv[nn] = u;
-    s.uv[npts + nn] = v;
-  }
-  if (visc) {
-    for (int t = rot(32); t < 4 * npts; t += kThreads) {
-      const int sd = t / npts, nn = t - sd * npts;
-      if (nbe[sd] >= 0) {
-        const T* qn = s.nb + sd * 4 * npts;
-        const T inv_pb = T(1) / qn[nn];
-        s.nbuv[sd * 2 * npts + nn] = qn[2 * npts + nn] * inv_pb;
-        s.nbuv[sd * 2 * npts + npts + nn] = qn[3 * npts + nn] * inv_pb;
+// dst[c * count + i] = src[c * stride + i] for c < nchan, i < count, loads
+// four to a thread in flight before their stores. `CG`: read around the L1
+// (data another block may have written since this SM last read it).
+template <int NT, bool CG, typename T>
+__device__ void gather(T* dst, const T* src, long long stride, int count, int nchan) {
+  constexpr int kBatch = 4;
+  const int total = nchan * count;
+  for (int t0 = thread_index(); t0 < total; t0 += kBatch * NT) {
+    T v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int t = t0 + u * NT;
+      if (t < total) {
+        const int c = t / count;
+        const T* p = src + c * stride + (t - c * count);
+        v[u] = CG ? __ldcg(p) : *p;
       }
     }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int t = t0 + u * NT;
+      if (t < total) dst[t] = v[u];
+    }
   }
-  for (int t = tid; t < 4 * n * m; t += kThreads) {
+}
+
+// src -> dst for data no kernel writes: value by value with cp.async, all in
+// flight; the caller commits and waits.
+template <int NT, typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, long long stride, int count,
+                                           int nchan) {
+  const int total = nchan * count;
+  for (int t = thread_index(); t < total; t += NT) {
+    const int c = t / count;
+    cp_async_value<int(sizeof(T))>(dst + t, src + c * stride + (t - c * count));
+  }
+}
+
+// The per-element tables of element e into their shared-memory rows (streamed
+// route: by cp.async, committed, not waited for; resident route: loaded).
+template <int NT, bool ASYNC, typename T>
+__device__ void load_tables(const Args<T>& a, T* S, const Lay& L, long long e, int n, int m) {
+  const int npts = n * n, nqq = m * m;
+  const long long E = a.E;
+  auto put = [&](int row0, int len, const T* src, int nchan) {
+    if (ASYNC) copy_async<NT>(S + row0, src + e * len, E * len, len, nchan);
+    else gather<NT, false>(S + row0, src + e * len, E * len, len, nchan);
+  };
+  put(L.tq + Q_COR * nqq, nqq, a.ptab, 8);
+  put(L.tq + Q_PPQ * nqq, nqq, a.qplq, 3);
+  put(L.tq + Q_QUU * nqq, nqq, a.coup, 4);
+  put(L.tf + F_FTAB * 4 * m, 4 * m, a.ftab, 13);
+  put(L.tf + F_QE * 4 * m, 4 * m, a.qe, 4);
+  put(L.td + D_REF3 * npts, npts, a.ref3, 3);
+  put(L.td + D_MASSINV * npts, npts, a.massinv, 1);
+  put(L.td + D_PBP * npts, npts, a.pbp, 1);
+  put(L.td + D_OPBP * npts, npts, a.opbp, 1);
+  put(L.td + D_MASKU * npts, npts, a.masku, 1);
+  put(L.td + D_MASKV * npts, npts, a.maskv, 1);
+  if (a.use_visc) {
+    put(L.tn + N_NTAB * 4 * n, 4 * n, a.ntab, 3);
+    put(L.tn + N_BGF * 4 * n, 4 * n, a.bgf, 10);
+    put(L.td + D_PVISC * npts, npts, a.pvisc, 1);
+    put(L.td + D_BDG * npts, npts, a.bdg, 4);
+  }
+  if (ASYNC) cp_async_commit();
+}
+
+// Where the five running averages of one element live: in shared memory
+// (resident route) or in the global arrays (streamed route). Channel c of
+// item i is at ptr[c * stride + i].
+template <typename T>
+struct Acc {
+  T *v, *f, *g, *n, *r;         // accv, aff, agt, accn, agr
+  long long sv, sf, sg, sn;     // channel strides: quad, side-quad, side-nodal, nodal
+};
+
+template <int ROUTE, typename T>
+__device__ __forceinline__ Acc<T> acc_views(const Args<T>& a, T* S, const Lay& L, long long e,
+                                            int n, int m) {
+  const int npts = n * n, nqq = m * m;
+  if (ROUTE == kResident)
+    return {S + L.accv, S + L.aff, S + L.agt, S + L.accn, S + L.agr, nqq, 4 * m, 4 * n, npts};
+  const long long E = a.E;
+  return {a.accv + e * nqq, a.aff + e * 4 * m, a.agt + e * 4 * n, a.accn + e * npts,
+          a.agr + e * npts, E * nqq, E * 4 * m, E * 4 * n, E * npts};
+}
+
+// Where a stage's output goes: channel c of node nn at p[c * cstride + nn].
+template <typename T>
+struct Out {
+  T* p;
+  long long cstride;
+};
+
+// One stage of element e. Its tables and own registers q1 (4 channels), q0
+// and q2 (rows 1..3) are in shared memory, and its neighbours' pre-stage
+// state is on its way into `nb` (cp.async, resident route; waited for at
+// the end of phase A) or there already (streamed route). The stage output
+// goes to `dst` (global) and, on the resident route, to q1 (and to q2 at the
+// SSP(5,3) snapshot). NGL, NQ > 0 fix the 1-D sizes at compile time (index
+// arithmetic by constants, inner loops unrolled); 0 takes them from the
+// arguments.
+template <typename T, int NGL, int NQ, int ROUTE>
+__device__ __forceinline__ void element_stage(const Args<T>& a, T* S, const int* nbe,
+                                              long long e, int ik, Out<T> dst) {
+  constexpr int NT = kThreads<ROUTE>;
+  const int tid = thread_index();
+  const int n = NGL > 0 ? NGL : a.ngl, m = NQ > 0 ? NQ : a.nq;
+  const int npts = n * n, nqq = m * m, pn = padded<T>(npts);
+  const Lay L = layout<T>(n, m);
+  const bool visc = a.use_visc != 0;
+  const T* psiq = S + L.psiq;
+  const T* dpsiq = S + L.dpsiq;
+  const T* dpsi = S + L.dpsi;
+  const T* q1 = S + L.q1;
+  const Acc<T> acc = acc_views<ROUTE>(a, S, L, e, n, m);
+
+  // ---- phase A: nodal averages, u and v, interpolation pass 1 (the
+  //      neighbours' state arrives meanwhile) ---------------------------------
+  if (ROUTE == kResident && ik == 0) {
+    // register 0 of this sub-step is the pre-stage state
+    for (int t = rot<NT>(13); t < 3 * npts; t += NT) S[L.q0 + t] = q1[npts + t];
+  }
+  for (int nn = rot<NT>(52); nn < npts; nn += NT) {
+    // nodal averages from the PRE-stage state
+    const T inv_pb = T(1) / q1[nn];
+    const T t_df = q1[npts + nn] * S[L.td + D_OPBP * npts + nn];
+    const T u = q1[2 * npts + nn] * inv_pb;
+    const T v = q1[3 * npts + nn] * inv_pb;
+    T* an = acc.n + nn;
+    const T o0 = an[0], o1 = an[acc.sn], o2 = an[2 * acc.sn];
+    an[0] = o0 + t_df * (T(2) + t_df);
+    an[acc.sn] = o1 + u;
+    an[2 * acc.sn] = o2 + v;
+    S[L.uv + nn] = u;
+    S[L.uv + npts + nn] = v;
+  }
+  for (int t = tid; t < 4 * n * m; t += NT) {
     // tmp[c][j][I] = sum_i q[c][j][i] psiq[i][I]
     const int c = t / (n * m), r = t - c * n * m;
     const int j = r / m, I = r - j * m;
-    const T* row = s.q + c * npts + j * n;
-    T acc = T(0);
-    for (int i = 0; i < n; ++i) acc += row[i] * s.psiq[i * m + I];
-    s.tmp[t] = acc;
+    const T* row = q1 + c * npts + j * n;
+    T s = T(0);
+#if BTP_ABLATE == 1
+    s = row[I % n];
+#else
+    for (int i = 0; i < n; ++i) s += row[i] * psiq[i * m + I];
+#endif
+    S[L.tmp + t] = s;
   }
-  for (int t = rot(64); t < 16 * n; t += kThreads) {
-    // left/right nodal traces of qb at side sd: the element is the left side
-    // of its east/north faces and of a boundary face, else the right side
-    const int c = t / (4 * n), r = t - c * 4 * n;
-    const int sd = r / n, k = r - sd * n;
-    const T own = s.q[c * npts + edge_node(sd, k, n)];
-    T left = own, right;
-    if (nbe[sd] < 0) {
-      right = a.mirq[sd * 4 + c] * own;
-    } else {
-      const T other = s.nb[sd * 4 * npts + c * npts + edge_node(sd ^ 1, k, n)];
-      if ((sd & 1) == 0) { right = other; } else { left = other; right = own; }
-    }
-    s.l[t] = left;
-    s.r[t] = right;
-  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  // ---- phase 2: quad-point physics, face interpolation, grad(u, v) ---------
-  for (int q = tid; q < nqq; q += kThreads) {
+  // ---- phase B: quad-point physics, face traces at the quad points, the
+  //      neighbours' u and v, grad(u, v) ----------------------------------------
+  for (int q = tid; q < nqq; q += NT) {
     const int J = q / m, I = q - J * m;
+    const T* tmp = S + L.tmp;
     T dp = T(0), dpp = T(0), udp = T(0), vdp = T(0);
+#if BTP_ABLATE == 1
+    dp = tmp[(0 * n + J % n) * m + I];
+    dpp = tmp[(1 * n + J % n) * m + I];
+    udp = tmp[(2 * n + J % n) * m + I];
+    vdp = tmp[(3 * n + J % n) * m + I];
+#else
     for (int j = 0; j < n; ++j) {
-      const T p = s.psiq[j * m + J];
-      dp += s.tmp[(0 * n + j) * m + I] * p;
-      dpp += s.tmp[(1 * n + j) * m + I] * p;
-      udp += s.tmp[(2 * n + j) * m + I] * p;
-      vdp += s.tmp[(3 * n + j) * m + I] * p;
+      const T p = psiq[j * m + J];
+      dp += tmp[(0 * n + j) * m + I] * p;
+      dpp += tmp[(1 * n + j) * m + I] * p;
+      udp += tmp[(2 * n + j) * m + I] * p;
+      vdp += tmp[(3 * n + j) * m + I] * p;
     }
-    const long long iq = eq + q;
-    const T ppq = a.qplq[iq], up = a.qplq[sq + iq], vp = a.qplq[2 * sq + iq];
-    const T cor = a.ptab[iq];
-    const T tau_u = a.ptab[sq + iq], tau_v = a.ptab[2 * sq + iq];
-    const T gzx = a.ptab[3 * sq + iq], gzy = a.ptab[4 * sq + iq];
-    const T opbp = a.ptab[5 * sq + iq];
-    const T pp = a.ptab[6 * sq + iq] + ppq;   // full bottom-layer dp'
-    const T Href = a.ptab[7 * sq + iq];
+#endif
+    const T* tq = S + L.tq + q;
+    const T ppq = tq[Q_PPQ * nqq], up = tq[Q_UP * nqq], vp = tq[Q_VP * nqq];
+    const T cor = tq[Q_COR * nqq];
+    const T tau_u = tq[Q_TAU_U * nqq], tau_v = tq[Q_TAU_V * nqq];
+    const T gzx = tq[Q_GZX * nqq], gzy = tq[Q_GZY * nqq];
+    const T opbp = tq[Q_OPBP * nqq];
+    const T pp = tq[Q_PPREF * nqq] + ppq;   // full bottom-layer dp'
+    const T Href = tq[Q_HREF * nqq];
 
     const T inv_dp = T(1) / dp;
     const T ub = udp * inv_dp;
@@ -339,8 +556,8 @@ __device__ void element_stage(const Args<T>& a, const Smem<T>& s, int e, int ik,
     const T sc_x = cor * vdp + a.grav * (tau_u - tb_u) - a.grav * dpp * gzx;
     const T sc_y = -cor * udp + a.grav * (tau_v - tb_v) - a.grav * dpp * gzy;
 
-    const T Quu = a.coup[iq], Quv = a.coup[sq + iq];
-    const T Qvv = a.coup[2 * sq + iq], dHbcl = a.coup[3 * sq + iq];
+    const T Quu = tq[Q_QUU * nqq], Quv = tq[Q_QUV * nqq];
+    const T Qvv = tq[Q_QVV * nqq], dHbcl = tq[Q_DHBCL * nqq];
     const T mu = dpp * opbp;
     const T mu2 = mu * (T(2) + mu);
     const T ope = T(1) + mu;
@@ -350,79 +567,115 @@ __device__ void element_stage(const Args<T>& a, const Smem<T>& s, int e, int ik,
     const T qv = vb * vdp + ope * Qvv;
 
     // 12 running averages, order of core/btp._VOL_ORDER
-    const T inc[12] = {dHq, qu, qv, quv, mu, mu2, ub, vb, udp, vdp, tb_u, tb_v};
-#pragma unroll
-    for (int c = 0; c < 12; ++c) a.accv[c * sq + iq] += inc[c];
+    T* av = acc.v + q;
+    add4<ROUTE>(av, acc.sv, dHq, qu, qv, quv);
+    add4<ROUTE>(av + 4 * acc.sv, acc.sv, mu, mu2, ub, vb);
+    add4<ROUTE>(av + 8 * acc.sv, acc.sv, udp, vdp, tb_u, tb_v);
 
     // weighted flux rows: (x, y) of the 3 channels, then the 2 sources
-    const T wkx = s.wq3[q], wey = s.wq3[nqq + q], w = s.wq3[2 * nqq + q];
-    s.f[0 * nqq + q] = wkx * udp;
-    s.f[1 * nqq + q] = wey * vdp;
-    s.f[2 * nqq + q] = wkx * (dHq + qu);
-    s.f[3 * nqq + q] = wey * quv;
-    s.f[4 * nqq + q] = wkx * quv;
-    s.f[5 * nqq + q] = wey * (dHq + qv);
-    s.f[6 * nqq + q] = w * sc_x;
-    s.f[7 * nqq + q] = w * sc_y;
+    const T* wq3 = S + L.wq3;
+    const T wkx = wq3[q], wey = wq3[nqq + q], w = wq3[2 * nqq + q];
+    T* f = S + L.f;
+    f[0 * nqq + q] = wkx * udp;
+    f[1 * nqq + q] = wey * vdp;
+    f[2 * nqq + q] = wkx * (dHq + qu);
+    f[3 * nqq + q] = wey * quv;
+    f[4 * nqq + q] = wkx * quv;
+    f[5 * nqq + q] = wey * (dHq + qv);
+    f[6 * nqq + q] = w * sc_x;
+    f[7 * nqq + q] = w * sc_y;
   }
-  for (int t = rot(96); t < 16 * m; t += kThreads) {
-    // (c, side, face quad point): interpolate both traces
+  for (int t = rot<NT>(17); t < 16 * m; t += NT) {
+    // (channel, side, face quad point): left/right nodal traces of qb at the
+    // side, interpolated. The element is the left side of its east/north
+    // faces and of a boundary face (the wall mirror on the right), else the
+    // right side: left = own or the neighbour's facing edge, right = the
+    // other one, or the mirror times own at a wall.
     const int cs = t / m, qq = t - cs * m;
+    const int c = cs >> 2, sd = cs & 3;
+    const bool wall = nbe[sd] < 0, second = (sd & 1) != 0 && !wall;
+    const T* own = q1 + c * npts + edge_base(sd, n);
+    const T* other = S + L.nb + sd * 4 * pn + c * pn + edge_base(sd ^ 1, n);
+    const int step = edge_step(sd, n);     // the same along both sides of a face
+    const T* lp = second ? other : own;
+    const T* rp = wall || second ? own : other;
+    const T rs = wall ? S[L.mirq + sd * 4 + c] : T(1);
     T al = T(0), ar = T(0);
+#if BTP_ABLATE == 1
+    for (int k = qq % n; k <= qq % n; ++k) {
+#else
     for (int k = 0; k < n; ++k) {
-      const T p = s.psiq[k * m + qq];
-      al += s.l[cs * n + k] * p;
-      ar += s.r[cs * n + k] * p;
+#endif
+      const T p = psiq[k * m + qq];
+      al += lp[k * step] * p;
+      ar += (rs * rp[k * step]) * p;
     }
-    s.lq[t] = al;
-    s.rq[t] = ar;
+    S[L.lq + t] = al;
+    S[L.rq + t] = ar;
   }
   if (visc) {
-    for (int t = rot(96); t < 4 * npts; t += kThreads) {
+    for (int t = rot<NT>(33); t < 4 * npts; t += NT) {
+      const int sd = t / npts, nn = t - sd * npts;
+      if (nbe[sd] >= 0) {
+        const T* qn = S + L.nb + sd * 4 * pn;
+        const T inv_pb = T(1) / qn[nn];
+        S[L.nbuv + sd * 2 * npts + nn] = qn[2 * pn + nn] * inv_pb;
+        S[L.nbuv + sd * 2 * npts + npts + nn] = qn[3 * pn + nn] * inv_pb;
+      }
+    }
+    for (int t = rot<NT>(5); t < 4 * npts; t += NT) {
       const int c = t / npts, nn = t - c * npts;
       const int j = nn / n, i = nn - j * n;
-      const T gv = grad_uv(s.uv, s.dpsi, n, c, j, i, a.kx_df, a.ey_df);
-      s.g[t] = gv;
-      a.agr[c * sn + en + nn] += gv;
+      const T gv = grad_uv(S + L.uv, dpsi, n, c, j, i, a.kx_df, a.ey_df);
+      S[L.g + t] = gv;
+      acc.r[c * acc.sn + nn] += gv;
     }
   }
   __syncthreads();
 
-  // ---- phase 3: scatter pass 1, face flux, viscous traces and fluxes -------
-  for (int t = tid; t < 3 * m * n; t += kThreads) {
+  // ---- phase C: scatter pass 1, face flux, viscous traces and fluxes -------
+  for (int t = rot<NT>(56); t < 3 * m * n; t += NT) {
     // t1[c][J][i] = sum_I Fx[c][J][I] dpsiq[i][I] (+ Fs[c][J][I] psiq[i][I])
     // t2[c][J][i] = sum_I Fy[c][J][I] psiq[i][I]
     const int c = t / (m * n), r = t - c * m * n;
     const int J = r / n, i = r - J * n;
-    const T* fx = s.f + (2 * c) * nqq + J * m;
+    const T* fx = S + L.f + (2 * c) * nqq + J * m;
     const T* fy = fx + nqq;
     T a1 = T(0), a2 = T(0);
+#if BTP_ABLATE == 1
+    a1 = fx[i];
+    a2 = fy[i];
+    if (c > 0) a1 += S[L.f + (5 + c) * nqq + J * m + i];
+#else
     for (int I = 0; I < m; ++I) {
-      a1 += fx[I] * s.dpsiq[i * m + I];
-      a2 += fy[I] * s.psiq[i * m + I];
+      a1 += fx[I] * dpsiq[i * m + I];
+      a2 += fy[I] * psiq[i * m + I];
     }
     if (c > 0) {
-      const T* fs = s.f + (5 + c) * nqq + J * m;
+      const T* fs = S + L.f + (5 + c) * nqq + J * m;
       T a3 = T(0);
-      for (int I = 0; I < m; ++I) a3 += fs[I] * s.psiq[i * m + I];
+      for (int I = 0; I < m; ++I) a3 += fs[I] * psiq[i * m + I];
       a1 += a3;
     }
-    s.t1[t] = a1;
-    s.t2[t] = a2;
+#endif
+    S[L.t1 + t] = a1;
+    S[L.t2 + t] = a2;
   }
-  for (int t = rot(96); t < 4 * m; t += kThreads) {
+  for (int t = tid; t < 4 * m; t += NT) {
     // face flux at (side, quad point): reference creat_btp_fluxes_qdf
-    const long long ifq = (long long)e * 4 * m + t;   // (e, side, q) of a (.., E, 4, nq) table
-    const long long sf = E * 4 * m;                   // its channel stride
-    const T nx = a.ftab[ifq], ny = a.ftab[sf + ifq], jacf = a.ftab[2 * sf + ifq];
-    const T cpL = a.ftab[3 * sf + ifq], cpR = a.ftab[4 * sf + ifq];
-    const T cpub = a.ftab[5 * sf + ifq];
-    const T cmL = a.ftab[6 * sf + ifq], cmR = a.ftab[7 * sf + ifq];
-    const T cmLR = a.ftab[8 * sf + ifq];
-    const T opbe = a.ftab[9 * sf + ifq], Hedge = a.ftab[10 * sf + ifq];
-    const T pbl = a.ftab[11 * sf + ifq], pbr = a.ftab[12 * sf + ifq];
-    const T l0 = s.lq[t], l1 = s.lq[4 * m + t], l2 = s.lq[8 * m + t], l3 = s.lq[12 * m + t];
-    const T r0 = s.rq[t], r1 = s.rq[4 * m + t], r2 = s.rq[8 * m + t], r3 = s.rq[12 * m + t];
+    const T* ft = S + L.tf + t;
+    const int sf = 4 * m;
+    const T nx = ft[0 * sf], ny = ft[1 * sf], jacf = ft[2 * sf];
+    const T cpL = ft[3 * sf], cpR = ft[4 * sf];
+    const T cpub = ft[5 * sf];
+    const T cmL = ft[6 * sf], cmR = ft[7 * sf];
+    const T cmLR = ft[8 * sf];
+    const T opbe = ft[9 * sf], Hedge = ft[10 * sf];
+    const T pbl = ft[11 * sf], pbr = ft[12 * sf];
+    const T* lq = S + L.lq + t;
+    const T* rq = S + L.rq + t;
+    const T l0 = lq[0], l1 = lq[4 * m], l2 = lq[8 * m], l3 = lq[12 * m];
+    const T r0 = rq[0], r1 = rq[4 * m], r2 = rq[8 * m], r3 = rq[12 * m];
 
     const T pU_L = nx * l2 + ny * l3;
     const T pU_R = -(nx * r2 + ny * r3);
@@ -433,8 +686,8 @@ __device__ void element_stage(const Args<T>& a, const Smem<T>& s, int e, int ik,
     const T flux_ey = cmL * l3 + cmR * r3 + cmLR * ny * (l1 - r1);
     const T ul = l2 / l0, ur = r2 / r0;
     const T vl = l3 / l0, vr = r3 / r0;
-    const T Qe_uu = a.qe[ifq], Qe_uv = a.qe[sf + ifq];
-    const T Qe_vv = a.qe[2 * sf + ifq], dHe = a.qe[3 * sf + ifq];
+    const T Qe_uu = ft[(F_QE + 0) * sf], Qe_uv = ft[(F_QE + 1) * sf];
+    const T Qe_vv = ft[(F_QE + 2) * sf], dHe = ft[(F_QE + 3) * sf];
     const T quu = T(0.5) * (ul * l2 + ur * r2) + ope_e * Qe_uu;
     const T quv = T(0.5) * (vl * l2 + vr * r2) + ope_e * Qe_uv;
     const T qvu = T(0.5) * (ul * l3 + ur * r3) + ope_e * Qe_uv;
@@ -446,198 +699,388 @@ __device__ void element_stage(const Args<T>& a, const Smem<T>& s, int e, int ik,
     const T muL = l1 / pbl;
     const T muR = r1 / pbr;
     // 16 face averages, order of core/btp._FACE_ORDER
-    const T inc[16] = {dH_f, quu, quv, qvu, qvv, muL, muR, muL * (T(2) + muL),
-                       muR * (T(2) + muR), flux_ex, flux_ey, mue2, ul, ur, vl, vr};
-#pragma unroll
-    for (int c = 0; c < 16; ++c) a.aff[c * sf + ifq] += inc[c];
-    s.sq[t] = jacf * fl_m;
-    s.sq[4 * m + t] = jacf * (nx * dH_f + fl_x);
-    s.sq[8 * m + t] = jacf * (ny * dH_f + fl_y);
+    T* af = acc.f + t;
+    add4<ROUTE>(af, acc.sf, dH_f, quu, quv, qvu);
+    add4<ROUTE>(af + 4 * acc.sf, acc.sf, qvv, muL, muR, muL * (T(2) + muL));
+    add4<ROUTE>(af + 8 * acc.sf, acc.sf, muR * (T(2) + muR), flux_ex, flux_ey, mue2);
+    add4<ROUTE>(af + 12 * acc.sf, acc.sf, ul, ur, vl, vr);
+    S[L.sq + t] = jacf * fl_m;
+    S[L.sq + 4 * m + t] = jacf * (nx * dH_f + fl_x);
+    S[L.sq + 8 * m + t] = jacf * (ny * dH_f + fl_y);
   }
   if (visc) {
-    for (int t = rot(64); t < 4 * n; t += kThreads) {
+    for (int t = rot<NT>(36); t < 4 * n; t += NT) {
       // flip-flop LDG flux at (side, edge node): reference
       // create_rhs_laplacian_flux (src/mod_laplacian_quad.F90:427-519)
       const int sd = t / n, k = t - sd * n;
-      const long long ifn = (long long)e * 4 * n + t;   // (e, side, k) of a (.., E, 4, ngl) table
-      const long long sg = E * 4 * n;
-      const int own_node = edge_node(sd, k, n);
-      const int nb_node = edge_node(sd ^ 1, k, n);
-      const T bmulL = a.bgf[4 * sg + ifn], bmulR = a.bgf[9 * sg + ifn];
-      T fl[4], fr[4];
+      const T* tn = S + L.tn + t;
+      const int sg = 4 * n;
+      const int own_node = edge_base(sd, n) + k * edge_step(sd, n);
+      const int nb_node = edge_base(sd ^ 1, n) + k * edge_step(sd, n);
+      const T* g = S + L.g;
+      const T bmulL = tn[(N_BGF + 4) * sg], bmulR = tn[(N_BGF + 9) * sg];
+      T lft[4], rgt[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const T own = s.g[c * npts + own_node];
+        const T own = g[c * npts + own_node];
         T left = own, right;
         if (nbe[sd] < 0) {
-          right = a.mirg[sd * 4 + c] * own;
+          right = S[L.mirg + sd * 4 + c] * own;
         } else {
-          const T other = grad_uv(s.nbuv + sd * 2 * npts, s.dpsi, n, c,
+          const T other = grad_uv(S + L.nbuv + sd * 2 * npts, dpsi, n, c,
                                   nb_node / n, nb_node % n, a.kx_df, a.ey_df);
           if ((sd & 1) == 0) { right = other; } else { left = other; right = own; }
         }
-        a.agt[c * sg + ifn] += left;
-        a.agt[(4 + c) * sg + ifn] += right;
-        fl[c] = bmulL * left + a.bgf[c * sg + ifn];
-        fr[c] = bmulR * right + a.bgf[(5 + c) * sg + ifn];
+        lft[c] = left;
+        rgt[c] = right;
       }
-      const T nxdf = a.ntab[ifn], nydf = a.ntab[sg + ifn], jacdf = a.ntab[2 * sg + ifn];
+      T* ag = acc.g + t;
+      add4<ROUTE>(ag, acc.sg, lft[0], lft[1], lft[2], lft[3]);
+      add4<ROUTE>(ag + 4 * acc.sg, acc.sg, rgt[0], rgt[1], rgt[2], rgt[3]);
+      T fl[4], fr[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        fl[c] = bmulL * lft[c] + tn[(N_BGF + c) * sg];
+        fr[c] = bmulR * rgt[c] + tn[(N_BGF + 5 + c) * sg];
+      }
+      const T nxdf = tn[(N_NTAB + 0) * sg], nydf = tn[(N_NTAB + 1) * sg];
+      const T jacdf = tn[(N_NTAB + 2) * sg];
       const T flux_qu = (T(0.5) * (fl[0] + fr[0]) - fl[0] * nxdf)
                         + (T(0.5) * (fl[1] + fr[1]) - fl[1] * nydf);
       const T flux_qv = (T(0.5) * (fl[2] + fr[2]) - fl[2] * nxdf)
                         + (T(0.5) * (fl[3] + fr[3]) - fl[3] * nydf);
       // the Laplacian receives MINUS the flux with the face scatter's sign
       const T sign = (nbe[sd] < 0 || (sd & 1) == 0) ? T(1) : T(-1);
-      s.sv[t] = sign * (jacdf * flux_qu);
-      s.sv[4 * n + t] = sign * (jacdf * flux_qv);
+      S[L.sv + t] = sign * (jacdf * flux_qu);
+      S[L.sv + 4 * n + t] = sign * (jacdf * flux_qv);
     }
-    for (int t = rot(32); t < 4 * npts; t += kThreads) {
+    for (int t = rot<NT>(63); t < 4 * npts; t += NT) {
       // qq = pbprime_visc * graduv + btp_dpp_graduv, weighted for the nodal
       // quadrature: x-derivative channels (0, 2) by w*ksi_x, (1, 3) by w*eta_y
       const int c = t / npts, nn = t - c * npts;
-      s.qq[t] = s.wn2[(c & 1) * npts + nn]
-                * (a.pvisc[en + nn] * s.g[t] + a.bdg[c * sn + en + nn]);
+      S[L.qq + t] = S[L.wn2 + (c & 1) * npts + nn]
+                    * (S[L.td + D_PVISC * npts + nn] * S[L.g + t]
+                       + S[L.td + (D_BDG + c) * npts + nn]);
     }
   }
   __syncthreads();
 
-  // ---- phase 4: scatter pass 2, face scatter, volume Laplacian -------------
-  for (int t = tid; t < 3 * npts; t += kThreads) {
+  // ---- phase D: scatter pass 2, face scatter, volume Laplacian -------------
+  for (int t = tid; t < 3 * npts; t += NT) {
     // rhs[c][j][i] = sum_J t1[c][J][i] psiq[j][J] + t2[c][J][i] dpsiq[j][J]
     const int c = t / npts, nn = t - c * npts;
     const int j = nn / n, i = nn - j * n;
-    T acc = T(0);
+    const T* t1 = S + L.t1 + c * m * n + i;
+    const T* t2 = S + L.t2 + c * m * n + i;
+    T s = T(0);
+#if BTP_ABLATE == 1
+    s = t1[j * n] + t2[j * n];
+#else
     for (int J = 0; J < m; ++J) {
-      acc += s.t1[(c * m + J) * n + i] * s.psiq[j * m + J];
-      acc += s.t2[(c * m + J) * n + i] * s.dpsiq[j * m + J];
+      s += t1[J * n] * psiq[j * m + J];
+      s += t2[J * n] * dpsiq[j * m + J];
     }
-    s.rhs[t] = acc;
+#endif
+    S[L.rhs + t] = s;
   }
-  for (int t = rot(80); t < 12 * n; t += kThreads) {
-    // (c, side, edge node): integrate the face flux against the edge basis;
-    // the left element of a face receives it with a minus sign
+  for (int t = rot<NT>(11); t < 12 * n; t += NT) {
+    // (channel, side, edge node): integrate the face flux against the edge
+    // basis; the left element of a face receives it with a minus sign
     const int cs = t / n, k = t - cs * n;
     const int sd = cs & 3;
-    T acc = T(0);
-    for (int qq = 0; qq < m; ++qq) acc += s.sq[cs * m + qq] * s.psiq[k * m + qq];
+    const T* sq = S + L.sq + cs * m;
+    T s = T(0);
+#if BTP_ABLATE == 1
+    s = sq[k];
+#else
+    for (int qq = 0; qq < m; ++qq) s += sq[qq] * psiq[k * m + qq];
+#endif
     const T sign = (nbe[sd] < 0 || (sd & 1) == 0) ? T(-1) : T(1);
-    s.se[t] = sign * acc;
+    S[L.se + t] = sign * s;
   }
   if (visc) {
-    for (int t = rot(16); t < 2 * npts; t += kThreads) {
+    for (int t = rot<NT>(7); t < 2 * npts; t += NT) {
       const int cc = t / npts, nn = t - cc * npts;
       const int j = nn / n, i = nn - j * n;
-      const T* X = s.qq + (2 * cc) * npts;
+      const T* X = S + L.qq + (2 * cc) * npts;
       const T* Y = X + npts;
-      T acc = T(0);
+      T s = T(0);
+#if BTP_ABLATE == 1
+      s = X[nn] + Y[nn];
+#else
       for (int k = 0; k < n; ++k) {
-        acc += X[j * n + k] * s.dpsi[i * n + k];
-        acc += Y[k * n + i] * s.dpsi[j * n + k];
+        s += X[j * n + k] * dpsi[i * n + k];
+        s += Y[k * n + i] * dpsi[j * n + k];
       }
-      s.lap[t] = -acc;
+#endif
+      S[L.lap + t] = -s;
     }
   }
   __syncthreads();
 
-  // ---- phase 5: massinv, SSPRK combine, wall projection --------------------
+  // ---- phase E: massinv, SSPRK combine, wall projection --------------------
   const T a0 = a.a[ik][0], a1 = a.a[ik][1], a2 = a.a[ik][2];
   const T dtb = a.dt * a.b[ik];
-  for (int t = tid; t < 3 * npts; t += kThreads) {
+  const bool snapshot = ROUTE == kResident && a.kstages == 5 && ik == 1;
+  const T* td = S + L.td;
+  for (int t = tid; t < 3 * npts; t += NT) {
     const int c = t / npts, nn = t - c * npts;
     const int j = nn / n, i = nn - j * n;
-    T r = s.rhs[t] + edge_sum(s.se + c * 4 * n, n, j, i);
+    T r = S[L.rhs + t] + edge_sum(S + L.se + c * 4 * n, n, j, i);
     if (visc && c > 0) {
-      const T lap = s.lap[(c - 1) * npts + nn] + edge_sum(s.sv + (c - 1) * 4 * n, n, j, i);
+      const T lap = S[L.lap + (c - 1) * npts + nn] + edge_sum(S + L.sv + (c - 1) * 4 * n, n, j, i);
       r += a.visc * lap;
     }
-    r = a.massinv[en + nn] * (r + a.ref3[c * sn + en + nn]);
-    const long long ig = (c + 1) * sn + en + nn;
-    const T v = a0 * __ldcg(q0 + ig) + a1 * s.q[(c + 1) * npts + nn]
-                + a2 * __ldcg(q2 + ig) + dtb * r;
+    r = td[D_MASSINV * npts + nn] * (r + td[(D_REF3 + c) * npts + nn]);
+    const T v = a0 * S[L.q0 + t] + a1 * q1[(c + 1) * npts + nn] + a2 * S[L.q2 + t] + dtb * r;
+    T out = v;
     if (c == 0) {
-      dst[en + nn] = v + a.pbp[en + nn];   // pb = pb' + pbprime
-      dst[ig] = v;
-    } else if (c == 1) {
-      dst[ig] = a.masku[en + nn] * v;
+      const T pb = v + td[D_PBP * npts + nn];   // pb = pb' + pbprime
+      dst.p[nn] = pb;
+      if (ROUTE == kResident) S[L.q1 + nn] = pb;
     } else {
-      dst[ig] = a.maskv[en + nn] * v;
+      out = td[(c == 1 ? D_MASKU : D_MASKV) * npts + nn] * v;
+    }
+    dst.p[(c + 1) * dst.cstride + nn] = out;
+    if (ROUTE == kResident) {
+      S[L.q1 + (c + 1) * npts + nn] = out;
+      // SSP(5,3) snapshots the stage-2 state into the third register
+      if (snapshot) S[L.q2 + t] = out;
     }
   }
 }
 
-template <typename T, int NGL, int NQ>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+template <typename T, int NGL, int NQ, int ROUTE>
+__global__ void __launch_bounds__(kThreads<ROUTE>, kMinBlocks<T>)
 btp_mega_kernel(const Args<T> a) {
+  constexpr int NT = kThreads<ROUTE>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = NGL > 0 ? NGL : a.ngl, m = NQ > 0 ? NQ : a.nq;
-  Smem<T> s;
-  carve(s, reinterpret_cast<T*>(smem_raw), n, m);
+  const int npts = n * n, pn = padded<T>(npts);
+  const Lay L = layout<T>(n, m);
+  T* S = reinterpret_cast<T*>(smem_raw);
+  int* nbe = reinterpret_cast<int*>(S + L.total);
   cg::grid_group grid = cg::this_grid();
+  const long long E = a.E;
+  const long long buf = 4 * E * npts;    // one state buffer
 
-  const int tid = threadIdx.x;
-  for (int t = tid; t < n * m; t += kThreads) {
-    s.psiq[t] = a.psiq[t];
-    s.dpsiq[t] = a.dpsiq[t];
-  }
-  for (int t = tid; t < n * n; t += kThreads) s.dpsi[t] = a.dpsi[t];
-  for (int t = tid; t < 3 * m * m; t += kThreads) s.wq3[t] = a.wq3[t];
-  for (int t = tid; t < 2 * n * n; t += kThreads) s.wn2[t] = a.wn2[t];
+#if BTP_ABLATE == 3
+  for (int st = 0; st < a.nsub; ++st) grid.sync();
+  return;
+#endif
 
-  // state buffers 0..3 are a.ws, 4 is the caller's state (read only). The
-  // roles follow from the stage index alone, the same in every block.
-  const long long buf = 4LL * a.E * n * n;
-  auto buffer = [&](int idx) -> const T* { return idx == 4 ? a.qb_in : a.ws + idx * buf; };
-  int i0 = 4, i1 = 4, i2 = 0;   // buffer 0 starts as the zero third register
-  for (int st = 0; st < a.nsub; ++st) {
-    const int ik = st % a.kstages;
-    if (ik == 0) i0 = i1;       // register 0 of this sub-step
-    int io = 0;
-    while (io == i0 || io == i1 || io == i2) ++io;
-    T* dst = (st == a.nsub - 1) ? a.qb_out : a.ws + io * buf;
-    for (int e = blockIdx.x; e < a.E; e += gridDim.x)
-      element_stage<T, NGL, NQ>(a, s, e, ik, buffer(i0), buffer(i1), buffer(i2), dst);
+  gather<NT, false>(S + L.psiq, a.psiq, 0, n * m, 1);
+  gather<NT, false>(S + L.dpsiq, a.dpsiq, 0, n * m, 1);
+  gather<NT, false>(S + L.dpsi, a.dpsi, 0, n * n, 1);
+  gather<NT, false>(S + L.wq3, a.wq3, 0, 3 * m * m, 1);
+  gather<NT, false>(S + L.wn2, a.wn2, 0, 2 * npts, 1);
+  gather<NT, false>(S + L.mirq, a.mirq, 0, 16, 1);
+  gather<NT, false>(S + L.mirg, a.mirg, 0, 16, 1);
+
+  if constexpr (ROUTE == kResident) {
+    // one block per element (the grid is E blocks, all resident)
+    const long long e = blockIdx.x;
+    const int nqq = m * m;
+    load_tables<NT, false>(a, S, L, e, n, m);
+    gather<NT, false>(S + L.accv, a.accv + e * nqq, E * nqq, nqq, 12);
+    gather<NT, false>(S + L.aff, a.aff + e * 4 * m, E * 4 * m, 4 * m, 16);
+    gather<NT, false>(S + L.accn, a.accn + e * npts, E * npts, npts, 3);
+    if (a.use_visc) {
+      gather<NT, false>(S + L.agt, a.agt + e * 4 * n, E * 4 * n, 4 * n, 8);
+      gather<NT, false>(S + L.agr, a.agr + e * npts, E * npts, npts, 4);
+    }
+    gather<NT, false>(S + L.q1, a.qb_in + e * npts, E * npts, npts, 4);
+    for (int t = threadIdx.x; t < 3 * npts; t += NT) S[L.q2 + t] = T(0);
+    if (threadIdx.x < 4) nbe[threadIdx.x] = a.nbr[e * 4 + threadIdx.x];
+    __syncthreads();
+    // Two exchange buffers in a.ws: element e's four channels at x + e*4*pn,
+    // each padded to 16 bytes. Stage st writes buffer st & 1 and its
+    // neighbours read the other; buffer 1 starts with the state at t.
+    const long long xsize = E * 4 * pn;
+    for (int t = threadIdx.x; t < 4 * npts; t += NT) {
+      const int c = t / npts;
+      a.ws[xsize + e * 4 * pn + c * pn + (t - c * npts)] = S[L.q1 + t];
+    }
+    // done[e], after the exchange buffers: the stages element e has finished.
+    // A stage waits for its four neighbours only, not for the grid: at the
+    // start of stage st they have finished stage st-1, so its outputs are
+    // there, and they have read this element's output of stage st-2 (their
+    // stage st-1 input), the buffer this stage overwrites. No neighbour can
+    // be further ahead: it would wait for this element.
+    int* done = reinterpret_cast<int*>(a.ws + 2 * xsize);
+    if (threadIdx.x == 0) done[e] = 0;
     grid.sync();
-    // SSP(5,3) snapshots the stage-2 state into the third register
-    if (a.kstages == 5 && ik == 1) i2 = io;
-    i1 = io;
+    constexpr int per = 16 / int(sizeof(T));
+    const int pieces = pn / per;           // 16-byte pieces of one channel
+    for (int st = 0; st < a.nsub; ++st) {
+      if (st > 0) {
+        if (threadIdx.x < 4 && nbe[threadIdx.x] >= 0) {
+          const volatile int* d = done + nbe[threadIdx.x];
+          while (*d < st) {
+          }
+          __threadfence();   // acquire: the neighbour's output, then the flag
+        }
+        __syncthreads();
+      }
+#if BTP_ABLATE != 2
+      // the neighbours' pre-stage state, 16 bytes a copy around the L1, in
+      // flight during phase A
+      const T* x = a.ws + ((st + 1) & 1) * xsize;
+      for (int p = thread_index(); p < 16 * pieces; p += NT) {
+        const int sd = p / (4 * pieces), r = p - sd * 4 * pieces;
+        if (nbe[sd] >= 0)
+          cp_async_16(S + L.nb + sd * 4 * pn + r * per, x + nbe[sd] * 4 * pn + r * per);
+      }
+      cp_async_commit();
+#endif
+      const Out<T> dst = st == a.nsub - 1 ? Out<T>{a.qb_out + e * npts, E * npts}
+                                          : Out<T>{a.ws + (st & 1) * xsize + e * 4 * pn, pn};
+      element_stage<T, NGL, NQ, ROUTE>(a, S, nbe, e, st % a.kstages, dst);
+      __syncthreads();   // the block's output is stored
+      if (threadIdx.x == 0) {
+        __threadfence();   // release: the output, then the flag
+        atomicExch(done + e, st + 1);
+      }
+    }
+    __syncthreads();
+    auto put = [&](T* dst, int off, int len, int nchan) {
+      for (int t = threadIdx.x; t < nchan * len; t += NT) {
+        const int c = t / len;
+        dst[c * E * len + e * len + (t - c * len)] = S[off + t];
+      }
+    };
+    put(a.accv, L.accv, nqq, 12);
+    put(a.aff, L.aff, 4 * m, 16);
+    put(a.accn, L.accn, npts, 3);
+    if (a.use_visc) {
+      put(a.agt, L.agt, 4 * n, 8);
+      put(a.agr, L.agr, npts, 4);
+    }
+  } else {
+    // state buffers 0..3 are a.ws, 4 is the caller's state (read only). The
+    // roles follow from the stage index alone, the same in every block.
+    // Within a stage every block reads buffer i1 (its own element and its
+    // neighbours') and i0, i2 (its own element) and writes only its own
+    // elements of a buffer that nobody reads in that stage.
+    auto buffer = [&](int idx) -> const T* { return idx == 4 ? a.qb_in : a.ws + idx * buf; };
+    int i0 = 4, i1 = 4, i2 = 0;   // buffer 0 starts as the zero third register
+    bool first = true;
+    for (int st = 0; st < a.nsub; ++st) {
+      const int ik = st % a.kstages;
+      if (ik == 0) i0 = i1;       // register 0 of this sub-step
+      int io = 0;
+      while (io == i0 || io == i1 || io == i2) ++io;
+      T* out = (st == a.nsub - 1) ? a.qb_out : a.ws + io * buf;
+      const T* src = buffer(i1);
+      for (long long e = blockIdx.x; e < E; e += gridDim.x) {
+        __syncthreads();   // the previous element's readers are done
+#if BTP_ABLATE == 2
+        if (first)
+#endif
+        {
+          load_tables<NT, true>(a, S, L, e, n, m);
+          gather<NT, true>(S + L.q1, src + e * npts, E * npts, npts, 4);
+          gather<NT, true>(S + L.q0, buffer(i0) + E * npts + e * npts, E * npts, npts, 3);
+          gather<NT, true>(S + L.q2, buffer(i2) + E * npts + e * npts, E * npts, npts, 3);
+          if (threadIdx.x < 4) nbe[threadIdx.x] = a.nbr[e * 4 + threadIdx.x];
+          // the neighbours' state (side, channel, node), four loads in
+          // flight before their stores
+          for (int t0 = thread_index(); t0 < 16 * npts; t0 += 4 * NT) {
+            T v[4];
+            int at[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int t = t0 + u * NT;
+              at[u] = -1;
+              if (t < 16 * npts) {
+                const int sd = t / (4 * npts), r = t - sd * 4 * npts;
+                const int c = r / npts, nn = r - c * npts;
+                const int nb = a.nbr[e * 4 + sd];
+                if (nb >= 0) {
+                  v[u] = __ldcg(src + c * E * npts + (long long)nb * npts + nn);
+                  at[u] = sd * 4 * pn + c * pn + nn;
+                }
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (at[u] >= 0) S[L.nb + at[u]] = v[u];
+          }
+          cp_async_wait<0>();
+        }
+        first = false;
+        __syncthreads();
+        element_stage<T, NGL, NQ, ROUTE>(a, S, nbe, e, ik, Out<T>{out + e * npts, E * npts});
+      }
+      if (st + 1 < a.nsub) grid.sync();
+      // SSP(5,3) snapshots the stage-2 state into the third register
+      if (a.kstages == 5 && ik == 1) i2 = io;
+      i1 = io;
+    }
+    (void)first;
   }
 }
 
-template <typename T>
-size_t smem_bytes(int ngl, int nq) {
-  Smem<T> s;
-  return sizeof(T) * carve<T>(s, nullptr, ngl, nq);
+// How a launch of this size is laid out: the route, the plan of its kernel
+// (cached per kernel, device and size by plan_launch) and the grid.
+struct MegaLayout {
+  int route = kStreamed;
+  LaunchPlan plan;
+  long long grid = 0;
+};
+
+template <typename T, int NGL, int NQ, int ROUTE>
+cudaError_t launch_route(Args<T>& a, const MegaLayout& lay, cudaStream_t stream) {
+  auto kernel = btp_mega_kernel<T, NGL, NQ, ROUTE>;
+  void* params[] = {&a};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3((unsigned)lay.grid), dim3(kThreads<ROUTE>), params,
+                                     lay.plan.smem, stream);
 }
+
+// The layout of a launch of E elements; with `a`, also the launch. `route`
+// kAuto takes the resident route exactly when one block per element fits the
+// card at once, else the streamed one; a route asked for by name is taken or
+// refused (the resident route with more elements than resident blocks).
+// Nothing falls back from one route to the other.
+constexpr int kAuto = -1;
 
 template <typename T, int NGL, int NQ>
-cudaError_t launch(Args<T>& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(a.ngl, a.nq);
-  auto kernel = btp_mega_kernel<T, NGL, NQ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+cudaError_t plan(int route, long long E, int ngl, int nq, MegaLayout& out, Args<T>* a,
+                 cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(ngl, nq);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = plan_launch(btp_mega_kernel<T, NGL, NQ, kResident>,
+                                kThreads<kResident>, smem, out.plan);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
+  if (route == kResident || (route == kAuto && E <= out.plan.resident_blocks)) {
+    if (E > out.plan.resident_blocks) return cudaErrorCooperativeLaunchTooLarge;
+    out.route = kResident;
+    out.grid = E;
+    return a ? launch_route<T, NGL, NQ, kResident>(*a, out, stream) : cudaSuccess;
+  }
+  err = plan_launch(btp_mega_kernel<T, NGL, NQ, kStreamed>, kThreads<kStreamed>, smem,
+                    out.plan);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  // all blocks of a cooperative launch must be resident at once
-  long long blocks = (long long)sms * per_sm;
-  if (blocks > a.E) blocks = a.E;
-  void* params[] = {&a};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                     dim3((unsigned)blocks), dim3(kThreads),
-                                     params, smem, stream);
+  out.route = kStreamed;
+  out.grid = E < out.plan.resident_blocks ? E : out.plan.resident_blocks;
+  return a ? launch_route<T, NGL, NQ, kStreamed>(*a, out, stream) : cudaSuccess;
 }
 
 template <typename T>
-cudaError_t run(void* const* p, const int* iv, const double* rv, cudaStream_t stream) {
+cudaError_t plan_any(int route, long long E, int ngl, int nq, MegaLayout& out, Args<T>* a,
+                     cudaStream_t stream) {
+  // p = 4 with exact integration (ngl = 5, nq = 9), the order the model is
+  // run at, has its own instantiations; every other order takes the sizes at
+  // run time
+  if (ngl == 5 && nq == 9) return plan<T, 5, 9>(route, E, ngl, nq, out, a, stream);
+  if (ngl > kMaxNgl) return cudaErrorInvalidValue;
+  return plan<T, 0, 0>(route, E, ngl, nq, out, a, stream);
+}
+
+template <typename T>
+cudaError_t run(int route, void* const* p, const int* iv, const double* rv,
+                cudaStream_t stream) {
   Args<T> a;
   a.qb_in = static_cast<const T*>(p[P_QB_IN]);
   a.ws = static_cast<T*>(p[P_WS]);
@@ -688,27 +1131,52 @@ cudaError_t run(void* const* p, const int* iv, const double* rv, cudaStream_t st
     for (int c = 0; c < 3; ++c) a.a[k][c] = T(rv[R_A + 3 * k + c]);
     a.b[k] = T(rv[R_B + k]);
   }
-  // p = 4 with exact integration (ngl = 5, nq = 9), the order the model is
-  // run at, has its own instantiation; every other order takes the sizes at
-  // run time
-  if (a.ngl == 5 && a.nq == 9) return launch<T, 5, 9>(a, stream);
-  return launch<T, 0, 0>(a, stream);
+  MegaLayout lay;
+  return plan_any<T>(route, a.E, a.ngl, a.nq, lay, &a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes (the caller checks it against the
-// card's limit before launching).
+// The card's limit of shared memory for one block, in bytes.
+long long btp_mega_smem_limit() { return (long long)kSmemLimit; }
+
+// Shared memory one block needs, in bytes, on either route (the caller checks
+// it against the limit before launching).
 long long btp_mega_smem_bytes(int is_double, int ngl, int nq) {
   return (long long)(is_double ? smem_bytes<double>(ngl, nq) : smem_bytes<float>(ngl, nq));
 }
 
-// Launch on `stream`; does not synchronise. Returns the launch's cudaError_t.
-int btp_mega_launch(void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
-                    const double* reals, int n_reals, void* stream) {
-  if (n_ptrs != P_COUNT || n_ints != I_COUNT || n_reals != R_COUNT)
+// How a launch of E elements at these sizes is laid out on the current
+// device: route (in: -1 as btp_mega_launch chooses, 0 streamed, 1 resident;
+// out: 0 or 1), elements per block (at most), threads per block, shared
+// memory per block (bytes), resident blocks per SM and the grid. Returns a
+// cudaError_t.
+int btp_mega_layout(int is_double, int E, int ngl, int nq, int* route, int* elements_per_block,
+                    int* threads, long long* smem, int* blocks_per_sm, long long* grid) {
+  if (E <= 0 || ngl <= 0 || nq <= 0 || *route < kAuto || *route > kResident)
+    return int(cudaErrorInvalidValue);
+  MegaLayout lay;
+  const cudaError_t err =
+      is_double ? plan_any<double>(*route, E, ngl, nq, lay, nullptr, nullptr)
+                : plan_any<float>(*route, E, ngl, nq, lay, nullptr, nullptr);
+  if (err != cudaSuccess) return int(err);
+  *route = lay.route;
+  *elements_per_block = int((E + lay.grid - 1) / lay.grid);
+  *threads = lay.route == kResident ? kThreads<kResident> : kThreads<kStreamed>;
+  *smem = (long long)lay.plan.smem;
+  *blocks_per_sm = lay.plan.blocks_per_sm;
+  *grid = lay.grid;
+  return 0;
+}
+
+// Launch on `stream` on the route btp_mega_layout gives; does not
+// synchronise. Returns the launch's cudaError_t.
+int btp_mega_launch_route(int route, void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
+                          const double* reals, int n_reals, void* stream) {
+  if (n_ptrs != P_COUNT || n_ints != I_COUNT || n_reals != R_COUNT || route < kAuto ||
+      route > kResident)
     return int(cudaErrorInvalidValue);
   const int E = ints[I_E], ngl = ints[I_NGL], nq = ints[I_NQ];
   const int nsub = ints[I_NSUB], kstages = ints[I_KSTAGES];
@@ -716,8 +1184,14 @@ int btp_mega_launch(void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
       kstages > kMaxStages || ints[I_BOTFR] < 0 || ints[I_BOTFR] > 2)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ints[I_IS_DOUBLE]) return int(run<double>(ptrs, ints, reals, s));
-  return int(run<float>(ptrs, ints, reals, s));
+  if (ints[I_IS_DOUBLE]) return int(run<double>(route, ptrs, ints, reals, s));
+  return int(run<float>(route, ptrs, ints, reals, s));
+}
+
+// The same on the route the layout chooses.
+int btp_mega_launch(void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
+                    const double* reals, int n_reals, void* stream) {
+  return btp_mega_launch_route(kAuto, ptrs, n_ptrs, ints, n_ints, reals, n_reals, stream);
 }
 
 const char* btp_mega_error_string(int code) {

@@ -24,7 +24,12 @@ Two implementations of one function with the contract of
 core/btp.barotropic_solve — (qb at t+dt, BtpAverages), `qb_df` not mutated:
   barotropic_solve_mega_cuda   the hand-written CUDA kernel
                                (csrc/btp_mega.cu), f32 and f64, CUDA tensors
-                               only; built at first launch
+                               only; built at first launch. Two routes of one
+                               source, chosen from the launch's layout
+                               (`btp_mega_layout`): "resident" (one block per
+                               element, tables and running averages in shared
+                               memory for the whole solve) when the grid fits
+                               the card at once, else "streamed".
   barotropic_solve_mega_plain  the same arithmetic stage by stage in torch
                                ops, any device; used by the CPU tests, by
                                `device="cpu"` models and as the kernel's
@@ -45,9 +50,6 @@ from ..core.faces import _mirror_signs, face_n2q, wall_projection_masks
 from ._build import load_library
 from .btp_volume import eflat
 from .dg import interp_n2q
-
-# shared memory a block may use on sm_90 (bytes), opt-in dynamic maximum
-SMEM_LIMIT_BYTES = 232448
 
 # side order of every (.., E, 4, m) table
 EAST, WEST, NORTH, SOUTH = range(4)
@@ -477,33 +479,86 @@ def _library() -> ctypes.CDLL:
     lib = load_library("btp_mega")
     if not getattr(lib, "_hnumo_declared", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.btp_mega_launch.argtypes = [p, i, p, i, p, i, p]
-        lib.btp_mega_launch.restype = ctypes.c_int
+        lib.btp_mega_launch_route.argtypes = [i, p, i, p, i, p, i, p]
+        lib.btp_mega_launch_route.restype = ctypes.c_int
         lib.btp_mega_smem_bytes.argtypes = [i, i, i]
         lib.btp_mega_smem_bytes.restype = ctypes.c_longlong
+        lib.btp_mega_smem_limit.argtypes = []
+        lib.btp_mega_smem_limit.restype = ctypes.c_longlong
+        lib.btp_mega_layout.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i),
+                                        ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong),
+                                        ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
+        lib.btp_mega_layout.restype = ctypes.c_int
         lib.btp_mega_error_string.argtypes = [i]
         lib.btp_mega_error_string.restype = ctypes.c_char_p
         lib._hnumo_declared = True
     return lib
 
 
+ROUTES = ("streamed", "resident")    # csrc/btp_mega.cu kStreamed, kResident
+
+
+def btp_mega_layout(dtype: torch.dtype, E: int, ngl: int, nq: int,
+                    route: str | None = None) -> dict:
+    """How a launch of E elements at these sizes is laid out on the current
+    CUDA device (builds the kernel at the first call): its route ("resident":
+    one block per element for the whole solve, taken exactly when the grid of
+    E blocks fits the card at once; else "streamed": blocks walk the
+    elements), elements per block, threads and shared memory per block,
+    resident blocks per SM and the grid. `route` names a route instead of
+    letting the size choose (the resident one raises where it does not fit).
+    The launcher keeps its plans per kernel, device and size, so this asks
+    the occupancy once for each."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route must be None, 'streamed' or 'resident', got {route!r}")
+    lib = _library()
+    is_double = int(dtype == torch.float64)
+    need, limit = lib.btp_mega_smem_bytes(is_double, ngl, nq), lib.btp_mega_smem_limit()
+    if need > limit:
+        raise ValueError(
+            f"the megakernel needs {need} bytes of shared memory per block at "
+            f"ngl={ngl}, nq={nq}, {dtype}; the card allows {limit}")
+    c = ctypes
+    chosen = c.c_int(-1 if route is None else ROUTES.index(route))
+    epb, threads, blocks = c.c_int(), c.c_int(), c.c_int()
+    smem, grid = c.c_longlong(), c.c_longlong()
+    err = lib.btp_mega_layout(is_double, E, ngl, nq, c.byref(chosen), c.byref(epb),
+                              c.byref(threads), c.byref(smem), c.byref(blocks),
+                              c.byref(grid))
+    if err != 0:
+        raise RuntimeError(
+            f"btp_mega: no launch layout for E={E}, ngl={ngl}, nq={nq}, {dtype}, "
+            f"route={route}: CUDA error {err} ({lib.btp_mega_error_string(err).decode()})")
+    return {"route": ROUTES[chosen.value], "elements_per_block": epb.value,
+            "threads": threads.value, "smem_bytes": smem.value,
+            "blocks_per_sm": blocks.value, "grid": grid.value}
+
+
 def new_state_buffers(E: int, ngl: int, **opts):
-    """(ws, qb_out) of one launch: four rotating state buffers (the roles
-    qb0/qb1/qb2/output follow from the stage index inside the kernel) —
-    zeroed, because one of them starts as the zero third register — and the
-    buffer the last stage writes."""
+    """(ws, qb_out) of one launch: the kernel's working state — on the
+    streamed route four rotating state buffers (the roles qb0/qb1/qb2/output
+    follow from the stage index inside the kernel), zeroed because one of
+    them starts as the zero third register; on the resident route two
+    exchange buffers and the per-element stage counters, in the same room —
+    and the buffer the last stage writes."""
     return (torch.zeros((4, 4, E, ngl * ngl), **opts),
             torch.empty((4, E, ngl * ngl), **opts))
 
 
 def mega_launch(static, mops: MegaStatic, op: SolveOperands, acc, ws: Tensor,
-                qb_out: Tensor) -> Tensor:
+                qb_out: Tensor, route: str | None = None) -> Tensor:
     """All N_btp*kstages stages in ONE launch of csrc/btp_mega.cu, on flat
     CUDA operands: fills `qb_out` (4, E, npts) with qb at t+dt and adds the
-    stage values to the accumulators `acc` in place. Launches on the current
-    stream, does not synchronise, raises on operands the kernel does not
-    take and on a refused launch. Counts in
-    `barotropic_solve_mega_cuda.launches`."""
+    stage values to the accumulators `acc` in place (the resident route reads
+    each accumulator once and stores it once; the streamed route adds to it
+    in global memory stage by stage). The route is the one
+    `btp_mega_layout(..., route)` gives: by default the size chooses it, and
+    the launcher takes the same decision from the same plan; `route` names
+    one (chip_smoke.py holds both against the plain version on the same
+    grids). Launches on the current stream, does not synchronise, raises
+    on operands the kernel does not take and on a refused launch. Counts in
+    `barotropic_solve_mega_cuda.launches` and, per route,
+    `.launches_resident` / `.launches_streamed`."""
     ngl, nq = mops.psiq.shape
     E = op.qb.shape[1]
     dtype, device = op.qb.dtype, op.qb.device
@@ -547,11 +602,6 @@ def mega_launch(static, mops: MegaStatic, op: SolveOperands, acc, ws: Tensor,
 
     is_double = int(dtype == torch.float64)
     lib = _library()
-    smem = lib.btp_mega_smem_bytes(is_double, ngl, nq)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"the megakernel needs {smem} bytes of shared memory per block at "
-            f"ngl={ngl}, nq={nq}, {dtype}; the card allows {SMEM_LIMIT_BYTES}")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -574,14 +624,18 @@ def mega_launch(static, mops: MegaStatic, op: SolveOperands, acc, ws: Tensor,
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_reals = (ctypes.c_double * len(reals))(*[float(v) for v in reals])
     with torch.cuda.device(device):
+        taken = btp_mega_layout(dtype, E, ngl, nq, route)["route"]
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.btp_mega_launch(c_ptrs, len(ptrs), c_ints, len(ints),
-                                  c_reals, len(reals), stream)
+        err = lib.btp_mega_launch_route(-1 if route is None else ROUTES.index(route),
+                                        c_ptrs, len(ptrs), c_ints, len(ints),
+                                        c_reals, len(reals), stream)
     if err != 0:
         raise RuntimeError(
             f"btp_mega kernel launch failed: CUDA error {err} "
             f"({lib.btp_mega_error_string(err).decode()})")
     barotropic_solve_mega_cuda.launches += 1
+    setattr(barotropic_solve_mega_cuda, f"launches_{taken}",
+            getattr(barotropic_solve_mega_cuda, f"launches_{taken}") + 1)
     return qb_out
 
 
@@ -593,7 +647,8 @@ def barotropic_solve_mega_cuda(static, P, g, bc, coup, qb_df: Tensor,
     Builds the kernel at the first call; raises on operands the kernel does
     not take and on a refused launch (a cooperative launch needs all its
     blocks resident at once). `barotropic_solve_mega_cuda.launches` counts
-    the launches made."""
+    the launches made, `.launches_resident` and `.launches_streamed` those of
+    each route."""
     E, ngl, nq = _check_static(static, mops, qb_df)
     op = solve_operands(static, g, coup, qb_df, qprime_df, mops)
     opts = dict(dtype=qb_df.dtype, device=qb_df.device)
@@ -604,3 +659,5 @@ def barotropic_solve_mega_cuda(static, P, g, bc, coup, qb_df: Tensor,
 
 
 barotropic_solve_mega_cuda.launches = 0
+barotropic_solve_mega_cuda.launches_resident = 0
+barotropic_solve_mega_cuda.launches_streamed = 0

@@ -1,8 +1,12 @@
-"""What limits the four streaming kernels of hnumo_tpu_torch on a GPU: the two
-barotropic volume kernels and the fused stage's face and update kernels.
+"""What limits the CUDA kernels of hnumo_tpu_torch on a GPU: the two
+barotropic volume kernels, the fused stage's face and update kernels and the
+whole-solve megakernel.
 
     python3 hnumo_tpu_torch/tools/kernel_ablation.py [--kernels NAME ...]
         [--grids 64 256] [--steps N] [--out FILE]
+    python3 hnumo_tpu_torch/tools/kernel_ablation.py --kernels btp_mega --grids 25 32
+    python3 hnumo_tpu_torch/tools/kernel_ablation.py --kernels btp_mega --grids 25 32 \
+        --sources DIR [DIR ...]
 
 Needs one CUDA device and nvcc. Builds `ops/csrc/btp_volume.cu`,
 `btp_volume_uni.cu`, `btp_faces.cu` and `btp_update.cu` (or those named by
@@ -16,6 +20,21 @@ queued ahead of the device, rotating over operand sets larger than the L2
 ("cold"). The ablated builds compute wrong numbers on purpose; only the
 unablated build is held against the plain version (by `chip_smoke.py`).
 Order per grid and kernel: full, memory-only, compute-only, full again.
+`btp_mega` (`ops/csrc/btp_mega.cu`, not in the default list) is one launch
+per barotropic solve, timed at each grid through `ops.mega.mega_launch` on
+the same configuration with `mega="on"` (f32, p=4, viscous, 100 stages; its
+working set stays in the L2, so it is timed hot): full, memory-only,
+compute-only (no global reads after the first), barrier-only
+(`BTP_ABLATE=3`: the 100 stages left empty but for their grid barriers) and
+full again. Only the functions that the megakernel's wrapper had before its
+redesign are called, so the script also times that older kernel when it is
+run from a checkout of it with the same switches patched in.
+`--sources DIR ...` (with `--kernels btp_mega` alone) times, in place of the
+ablations, the megakernel built from each DIR — a copy of `ops/csrc` whose
+`btp_mega.cu` was changed to try one design choice — against the checkout's
+own build, in turns (all in order, then in reverse), each held against the
+plain version first (its error is printed; a copy that computes something
+else is timed all the same).
 `--steps N` also drives N baroclinic steps of the fused path (after one
 untimed step) at each grid through `Model.run`, as `chip_smoke.py` does.
 `chip_smoke.py` takes the same readings among its phases; this script takes
@@ -41,24 +60,110 @@ import chip_smoke as cs  # noqa: E402
 
 VARIANTS = (("full", ()),) + tuple((name, (define,)) for name, define in cs.ABLATIONS)
 KERNELS = ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update")
+MEGA_VARIANTS = VARIANTS + (("barrier_only", ("BTP_ABLATE=3",)),)
 
 
-def time_variants(launch, sets, n):
+def time_variants(launch, sets, n, variants=VARIANTS):
     """{variant: device ms per launch}, the unablated build once more at the end."""
     from hnumo_tpu_torch.ops._build import variant
 
     out = {}
-    for name, defines in VARIANTS + (("full_again", ()),):
+    for name, defines in variants + (("full_again", ()),):
         with variant(*defines):
             out[name] = cs.time_launches(launch, sets, n, device_only=True)
     return out
 
 
+def mega_solve(nel):
+    """(model, (qb, qprime, coupling, operands), launch) of one megakernel
+    solve at an nel x nel grid, f32 p=4 (`mega="on"`), on fixed operands,
+    accumulating into one set of accumulators. Only functions the
+    megakernel's wrapper had before its redesign are called (see the
+    module's note)."""
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.ops import mega
+
+    m = Model(cs.main_path_config(nel, "float32", mega="on"))
+    _, qb, qp, coup = cs.perturbed_inputs(m, seed=13)
+    E, (ngl, nq) = nel * nel, m.g.psiq.shape
+    opts = dict(dtype=qb.dtype, device=qb.device)
+    op = mega.solve_operands(m.static, m.g, coup, qb, qp, m.mega_ops)
+    acc = mega.new_accumulators(E, ngl, nq, **opts)
+    bufs = mega.new_state_buffers(E, ngl, **opts)
+    return m, (qb, qp, coup, op), lambda: mega.mega_launch(m.static, m.mega_ops, op, acc, *bufs)
+
+
+def time_mega(nel, n=20):
+    """The megakernel's variants at an nel x nel grid (MEGA_VARIANTS)."""
+    from hnumo_tpu_torch.ops import mega
+
+    counters = dict(vars(mega.barotropic_solve_mega_cuda))
+    m, _, launch = mega_solve(nel)
+    t = time_variants(launch, [()], n, MEGA_VARIANTS)
+    vars(mega.barotropic_solve_mega_cuda).update(counters)   # timing launches are not the path's
+    line = {"kernel": "btp_mega", "grid": nel, "bound_ms": cs.mega_bound(m)["bound_ms"], **t}
+    layout = getattr(mega, "btp_mega_layout", None)     # absent before the redesign
+    if layout is not None:
+        ngl, nq = m.g.psiq.shape
+        line["layout"] = layout(torch.float32, nel * nel, ngl, nq)
+    return line
+
+
+def time_sources(dirs, grids, n=20):
+    """{grid: {label: [[ms, ms], err]}} of the checkout's megakernel
+    ("checkout") and of the builds of `dirs`, in turns; `err` is the error
+    against the plain version."""
+    from hnumo_tpu_torch.ops import _build, mega
+
+    key = ("btp_mega", ())
+    counters = dict(vars(mega.barotropic_solve_mega_cuda))
+    libs = {"checkout": _build.load_library("btp_mega")}
+    own = _build.CSRC_DIR
+    try:
+        for d in dirs:
+            _build.CSRC_DIR = pathlib.Path(d).resolve()
+            _build._loaded.pop(key, None)
+            libs[str(d)] = _build.load_library("btp_mega")
+    finally:
+        _build.CSRC_DIR = own
+    out = {}
+    for nel in grids:
+        m, (qb, qp, coup, op), launch = mega_solve(nel)
+        E, (ngl, nq) = nel * nel, m.g.psiq.shape
+        want = mega.barotropic_solve_mega_plain(m.static, m.P, m.g, m.bc, coup, qb, qp,
+                                                m.mega_ops)
+        rows = {}
+        for label, lib in libs.items():
+            _build._loaded[key] = lib
+            acc = mega.new_accumulators(E, ngl, nq, dtype=qb.dtype, device=qb.device)
+            qb_new = mega.mega_launch(m.static, m.mega_ops, op, acc,
+                                      *mega.new_state_buffers(E, ngl, dtype=qb.dtype,
+                                                              device=qb.device))
+            got = (qb_new.view(4, nel, nel, ngl, ngl),
+                   mega.averages_from_accumulators(m.static, m.mega_ops, *acc))
+            try:
+                err = cs.compare_solves(got, want, cs.F32_MEGA_TOL, label)[0]
+            except AssertionError as ex:
+                err = f"differs: {ex}"
+            rows[label] = [[], err]
+        for label in list(libs) + list(libs)[::-1]:
+            _build._loaded[key] = libs[label]
+            rows[label][0].append(cs.time_launches(launch, [()], n, device_only=True))
+        out[nel] = rows
+        del m
+        torch.cuda.empty_cache()
+    _build._loaded[key] = libs["checkout"]
+    vars(mega.barotropic_solve_mega_cuda).update(counters)   # timing launches are not the path's
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS + ("btp_mega",),
+                    default=list(KERNELS))
     ap.add_argument("--grids", type=int, nargs="+", default=[64, 256])
     ap.add_argument("--steps", type=int, default=0)
+    ap.add_argument("--sources", nargs="+", default=None, metavar="DIR")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -69,14 +174,31 @@ def main() -> int:
     from hnumo_tpu_torch.ops import _build
     from hnumo_tpu_torch.ops import btp_volume as bv
 
-    for _, defines in VARIANTS:     # the sources of a variant side by side
+    if args.sources:
+        if args.kernels != ["btp_mega"]:
+            ap.error("--sources takes --kernels btp_mega alone")
+        rows = time_sources(args.sources, args.grids)
+        lines = [{"kernel": "btp_mega", "grid": nel, "source": label, "ms": ms, "err": err}
+                 for nel, r in rows.items() for label, (ms, err) in r.items()]
+        own, usage = _build.CSRC_DIR, []
+        for label in ["checkout", *args.sources]:
+            _build.CSRC_DIR = own if label == "checkout" else pathlib.Path(label).resolve()
+            usage.append((f"btp_mega {label}", _build.resource_usage("btp_mega")))
+        _build.CSRC_DIR = own
+        return report(lines, usage, args.out)
+
+    for _, defines in MEGA_VARIANTS:     # the sources of a variant side by side
         with _build.variant(*defines):
-            _build.build_libraries(args.kernels)
+            _build.build_libraries([k for k in args.kernels
+                                    if k == "btp_mega" or defines != ("BTP_ABLATE=3",)])
 
     wrappers = cs.kernel_wrappers()
     lines = []
     for nel in args.grids:
         n = 60 if nel <= 64 else 20
+        if "btp_mega" in args.kernels:
+            lines.append(time_mega(nel))
+            torch.cuda.empty_cache()
         if "btp_volume" in args.kernels:
             m = Model(cs.main_path_config(nel, "float32"))
             kw = cs.volume_kwargs(m.static)
@@ -90,7 +212,7 @@ def main() -> int:
             del m, sets, vol_ops
             torch.cuda.empty_cache()
 
-        fused = [k for k in args.kernels if k != "btp_volume"]
+        fused = [k for k in args.kernels if k not in ("btp_volume", "btp_mega")]
         if fused or args.steps:
             m = Model(cs.fused_config(nel, "float32"))
             calls = cs.fused_kernel_calls(m)
@@ -112,18 +234,26 @@ def main() -> int:
             del m
             torch.cuda.empty_cache()
 
+    usage = []
+    for name in args.kernels:
+        for vname, defines in MEGA_VARIANTS if name == "btp_mega" else VARIANTS:
+            with _build.variant(*defines):
+                usage.append((f"{name} {vname}", _build.resource_usage(name)))
+    return report(lines, usage, args.out)
+
+
+def report(lines, usage, out) -> int:
+    """Print the JSON lines, the card's name and power limit and what ptxas
+    said of each build; also write them to `out` when given."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     text = "\n".join(json.dumps(line) for line in lines) + "\n" + smi + "\n"
-    for name in args.kernels:
-        for vname, defines in VARIANTS:
-            with _build.variant(*defines):
-                text += f"ptxas {name} {vname}: " + "; ".join(_build.resource_usage(name)) + "\n"
+    text += "".join(f"ptxas {label}: " + "; ".join(u) + "\n" for label, u in usage)
     print(text, end="")
-    if args.out:
-        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        pathlib.Path(args.out).write_text(text)
+    if out:
+        pathlib.Path(out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(out).write_text(text)
     return 0
 
 

@@ -371,13 +371,15 @@ def test_the_volume_sources_share_one_header():
     for name in ("btp_faces", "btp_update"):
         assert [f.name for f in _build.source_files(name)] == [
             f"{name}.cu", "btp_tail_common.cuh", "btp_volume_common.cuh"]
-    assert [f.name for f in _build.source_files("btp_mega")] == ["btp_mega.cu"]
+    # the megakernel takes the launch plan and the cp.async primitives from it
+    assert [f.name for f in _build.source_files("btp_mega")] == ["btp_mega.cu",
+                                                                "btp_volume_common.cuh"]
 
 
 def test_the_tail_header_enters_the_face_and_update_libraries(tmp_path, monkeypatch):
     """A change of btp_tail_common.cuh builds F and U anew and leaves the
     volume kernels' libraries as they were; a change of the volume kernels'
-    header builds all four anew."""
+    header builds all four anew, and the megakernel, which includes it too."""
     import shutil
 
     from hnumo_tpu_torch.ops import _build
@@ -394,7 +396,7 @@ def test_the_tail_header_enters_the_face_and_update_libraries(tmp_path, monkeypa
     vol = csrc / "btp_volume_common.cuh"
     vol.write_text(vol.read_text() + "// changed\n")
     third = {n: _build.library_path(n) for n in names}
-    assert [third[n] != second[n] for n in names] == [True, True, True, True, False]
+    assert [third[n] != second[n] for n in names] == [True, True, True, True, True]
 
 
 def test_resource_usage_names_the_instantiations(fake_toolchain):
