@@ -5,7 +5,7 @@
 
 Builds the five CUDA kernels from the sources in this checkout (and, to be
 timed only, two ablated variants of each of the four streaming kernels: the
-two volume kernels, the face kernel and the update kernel, and three of the
+two volume kernels, the face kernel and the update kernel, and four of the
 megakernel), holds each against its plain PyTorch version on the card (the
 megakernel on both of its routes), and drives the port's main
 paths through `Model.run` on the double-gyre configuration (f32, p=4,
@@ -43,10 +43,13 @@ F32_FLOPS_PER_S = 67e12
 ABLATIONS = (("memory_only", "BTP_ABLATE=1"),    # contractions compiled out
              ("compute_only", "BTP_ABLATE=2"))   # no global reads
 ABLATED_SOURCES = ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update")
-# the megakernel's (ops/csrc/btp_mega.cu), and a third: its nsub stages left
+# the megakernel's (ops/csrc/btp_mega.cu), a third: its nsub stages left
 # empty but for their grid barriers, the floor of any design with one grid
-# barrier per stage
-MEGA_ABLATIONS = ABLATIONS + (("barrier_only", "BTP_ABLATE=3"),)
+# barrier per stage, and a fourth that computes the right numbers: the
+# resident route with one grid barrier per stage in place of its neighbour
+# counters
+MEGA_ABLATIONS = ABLATIONS + (("barrier_only", "BTP_ABLATE=3"),
+                              ("grid_barrier", "BTP_ABLATE=4"))
 
 F64_TOL = 1e-12     # kernel vs plain, f64: same operations, other summation order
 F32_TOL = 2e-5      # kernel vs plain, f32: ~100-term sums in another order
@@ -59,6 +62,14 @@ SOLVE_TOL = 1e-11   # f64 barotropic solve, kernel vs plain, over N_btp*kstages 
 F32_MEGA_TOL = 1e-4
 STEP_TOL = 1e-10    # f64, two full steps, megakernel vs per-stage path
 MASS_TOL = 1e-6     # relative total-mass change over the f32 run
+# the viscosity of the sheared-state check (phase 7): the neighbours' viscous
+# gradient enters a solve with small weights; at the model's 100 m^2/s a
+# fault there moves qb by no more than rounding, so no tolerance could see
+# it. With u, v ~ 1 m/s and this viscosity, the same fault moves qb by more
+# than 1e-8 of its scale, three orders above SOLVE_TOL
+# (tests/test_torch_mega_layout.py shows it on a model of the kernel); the
+# solve stays stable and finite.
+SHEAR_VISC = 1e12
 
 
 def main_path_config(nel: int, dtype: str, nop: int = 4, mega: str = "auto", **over):
@@ -125,6 +136,16 @@ def perturbed_inputs(m, seed: int):
                      device=qp.device)
     coup = btp_bcl_coeffs(m.static, m.P, m.g, m.bc, qp, qpf, qp[0], zq)
     return rng, qb, qp, coup
+
+
+def sheared_inputs(m, seed: int):
+    """`perturbed_inputs` with independent random velocities u, v ~ 1 m/s at
+    every node (qb's pb*u and pb*v channels), so the velocity gradients are
+    O(1) per node spacing and the viscous terms that take them matter."""
+    rng, qb, qp, coup = perturbed_inputs(m, seed)
+    uv = torch.as_tensor(rng.normal(size=(2,) + tuple(qb.shape[1:])), dtype=qb.dtype,
+                         device=qb.device)
+    return rng, torch.cat([qb[:2], qb[:1] * uv]), qp, coup
 
 
 def volume_operands(m, seed: int):
@@ -271,11 +292,11 @@ def mega_routes():
     return {r: getattr(barotropic_solve_mega_cuda, f"launches_{r}") for r in ROUTES}
 
 
-def check_mega_vs_plain(cfg, tol, seed=3, route=None):
+def check_mega_vs_plain(cfg, tol, seed=3, route=None, inputs=perturbed_inputs):
     """One barotropic solve through the megakernel and through its plain
-    version on the same inputs on the card. route=None: through the solver's
-    dispatch, on the route the size chooses; else through `mega_launch` on
-    the route named. Returns (max error/scale, max abs error, number of
+    version on the same inputs (`inputs(model, seed)`) on the card.
+    route=None: through the solver's dispatch, on the route the size
+    chooses; else through `mega_launch` on the route named. Returns (max error/scale, max abs error, number of
     fields, the route the launch took)."""
     import dataclasses
 
@@ -286,7 +307,7 @@ def check_mega_vs_plain(cfg, tol, seed=3, route=None):
     m = Model(cfg)
     if not (m.static.mega and m.static.mega_impl == "kernel" and m.mega_ops is not None):
         raise AssertionError("this configuration must take the megakernel")
-    _, qb, qp, coup = perturbed_inputs(m, seed=seed)
+    _, qb, qp, coup = inputs(m, seed=seed)
     qb_keep = qb.clone()
     before = mega_routes()
     if route is None:
@@ -1034,9 +1055,9 @@ def main() -> int:
                              f"spill: {mega_main}")
     t0 = time.perf_counter()
     build_variants(ABLATED_SOURCES + ("btp_mega",), [(d,) for _, d in ABLATIONS])
-    build_variants(["btp_mega"], [(MEGA_ABLATIONS[-1][1],)])
+    build_variants(["btp_mega"], [(d,) for _, d in MEGA_ABLATIONS[len(ABLATIONS):]])
     print(f"phase 2 build: the two ablated variants of {', '.join(ABLATED_SOURCES)} and "
-          f"the three of btp_mega (timed only) in {time.perf_counter() - t0:.1f} s")
+          f"the four of btp_mega (timed only) in {time.perf_counter() - t0:.1f} s")
     for name, define in MEGA_ABLATIONS:
         with variant(define):
             print(f"phase 2 ptxas btp_mega {name} ({define}): "
@@ -1164,6 +1185,16 @@ def main() -> int:
             if route is None and taken != "resident":
                 raise AssertionError("6x5 f64 must take the resident route")
             w6[taken] = max(w6[taken], w)
+    # O(1) velocity shear and a large viscosity: the neighbours' viscous
+    # gradient (recomputed by each block from its neighbours' state) matters
+    w_shear = {}
+    for route in (None, "streamed"):
+        w, _, _, taken = check_mega_vs_plain(
+            small_config(6, 5, "float64", 1, mega="on", visc_mlswe=SHEAR_VISC), SOLVE_TOL,
+            route=route, inputs=sheared_inputs)
+        w_shear[taken] = w
+    if sorted(w_shear) != ["resident", "streamed"]:
+        raise AssertionError(f"the sheared state must run on both routes: {sorted(w_shear)}")
     solves = {}
     for nel, dtype, mode, route in ((25, "float64", "auto", None), (32, "float64", "auto", None),
                                     (64, "float64", "on", None), (25, "float32", "auto", None),
@@ -1182,7 +1213,9 @@ def main() -> int:
     print(f"phase 7 megakernel vs plain, one solve, qb (4 channels) + {nfields - 4} "
           f"averages, max err/scale: f64 6x5 matrix (visc on/off, botfr 0/1/2, kstages 3/5, "
           f"nop 4/6, walls free-slip and copy/no-slip) resident {w6['resident']:.3e}, streamed "
-          f"{w6['streamed']:.3e} (tol {SOLVE_TOL:g}); " + "; ".join(
+          f"{w6['streamed']:.3e}; sheared state (u, v ~ 1 m/s, visc {SHEAR_VISC:g}) "
+          f"resident {w_shear['resident']:.3e}, streamed {w_shear['streamed']:.3e} "
+          f"(tol {SOLVE_TOL:g}); " + "; ".join(
               f"{nel}x{nel} {dt} {r} {w:.3e}" for (nel, dt, r), (w, _) in solves.items())
           + f" (tol f64 {SOLVE_TOL:g}, f32 {F32_MEGA_TOL:g}); qb_df unchanged")
 
@@ -1230,7 +1263,8 @@ def main() -> int:
               f"({t['ms_with_wrapper']:.4f} with its wrapper), plain {t['plain_ms']:.2f}, "
               f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {b['barriers']} grid "
               f"barriers/launch: barrier-only floor {t['ms_barrier_only']:.4f}, memory-only "
-              f"{t['ms_memory_only']:.4f}, compute-only {t['ms_compute_only']:.4f}"
+              f"{t['ms_memory_only']:.4f}, compute-only {t['ms_compute_only']:.4f}, "
+              f"grid barriers in place of the neighbour counters {t['ms_grid_barrier']:.4f}"
               for g, r, t, b in ((32, "resident", tm32, b32), (25, route25, tm25, b25)))
           + f"; 64x64 with mega='on': {run64on['ms_per_step']:.2f} ms/step, "
           f"{run64on['gp_steps_per_s']:.4g} gp-steps/s, megakernel (streamed route) "
@@ -1401,13 +1435,14 @@ def main() -> int:
         "grid_barriers": b32["barriers"], "mega_route": "resident",
         "launches_resident": run32["mega_routes"]["resident"],
         "ms_memory_only": tm32["ms_memory_only"], "ms_compute_only": tm32["ms_compute_only"],
-        "ms_barrier_only": tm32["ms_barrier_only"],
+        "ms_barrier_only": tm32["ms_barrier_only"], "ms_grid_barrier": tm32["ms_grid_barrier"],
         "ms_25": tm25["ms"], "ms_with_wrapper_25": tm25["ms_with_wrapper"],
         "plain_ms_25": tm25["plain_ms"], "bound_ms_25": b25["bound_ms"],
         "mega_route_25": route25,
         "ms_25_memory_only": tm25["ms_memory_only"],
         "ms_25_compute_only": tm25["ms_compute_only"],
         "ms_25_barrier_only": tm25["ms_barrier_only"],
+        "ms_25_grid_barrier": tm25["ms_grid_barrier"],
         "max_err_over_scale_by_solve": {f"{g}x{g} {dt} {r}": w
                                         for (g, dt, r), (w, _) in solves.items()},
         "layout": btp_mega_layout(torch.float32, 32 * 32, 5, 9),

@@ -54,7 +54,7 @@
 //     during phase A. A stage waits only for its four neighbours' "done"
 //     counters (a release/acquire pair of fences), not for the grid: 100 grid
 //     barriers take 0.23 ms alone, and a 32x32 solve with them in place of
-//     the counters 0.97 ms against 0.80.
+//     the counters (BTP_ABLATE=4) 0.97 ms against 0.80.
 //   - STREAMED (more elements than resident blocks: mega="on" above 1024
 //     elements, f64 above 528): blocks walk the elements grid-stride and a
 //     grid barrier ends each stage; per element and stage the tables are
@@ -81,7 +81,9 @@
 // state is not loaded, and computed on with what shared memory holds, so a
 // division may take its slow path; compute-only time), 3 leaves the nsub
 // stages empty but for their grid barriers (the floor of any design with one
-// grid barrier per stage). All three compute wrong numbers on purpose; the
+// grid barrier per stage). All three compute wrong numbers on purpose. 4
+// orders the resident route's stages by one grid barrier each instead of the
+// neighbours' counters (right numbers; the design the counters replace). The
 // package's wrappers never build them.
 //
 // Plain C interface (loaded with ctypes; no PyTorch headers): the launcher
@@ -914,6 +916,9 @@ btp_mega_kernel(const Args<T> a) {
     const int pieces = pn / per;           // 16-byte pieces of one channel
     for (int st = 0; st < a.nsub; ++st) {
       if (st > 0) {
+#if BTP_ABLATE == 4
+        grid.sync();
+#else
         if (threadIdx.x < 4 && nbe[threadIdx.x] >= 0) {
           const volatile int* d = done + nbe[threadIdx.x];
           while (*d < st) {
@@ -921,6 +926,7 @@ btp_mega_kernel(const Args<T> a) {
           __threadfence();   // acquire: the neighbour's output, then the flag
         }
         __syncthreads();
+#endif
       }
 #if BTP_ABLATE != 2
       // the neighbours' pre-stage state, 16 bytes a copy around the L1, in
@@ -937,10 +943,12 @@ btp_mega_kernel(const Args<T> a) {
                                           : Out<T>{a.ws + (st & 1) * xsize + e * 4 * pn, pn};
       element_stage<T, NGL, NQ, ROUTE>(a, S, nbe, e, st % a.kstages, dst);
       __syncthreads();   // the block's output is stored
+#if BTP_ABLATE != 4
       if (threadIdx.x == 0) {
         __threadfence();   // release: the output, then the flag
         atomicExch(done + e, st + 1);
       }
+#endif
     }
     __syncthreads();
     auto put = [&](T* dst, int off, int len, int nchan) {
@@ -1080,7 +1088,7 @@ cudaError_t plan_any(int route, long long E, int ngl, int nq, MegaLayout& out, A
 
 template <typename T>
 cudaError_t run(int route, void* const* p, const int* iv, const double* rv,
-                cudaStream_t stream) {
+                cudaStream_t stream, int* taken) {
   Args<T> a;
   a.qb_in = static_cast<const T*>(p[P_QB_IN]);
   a.ws = static_cast<T*>(p[P_WS]);
@@ -1132,7 +1140,9 @@ cudaError_t run(int route, void* const* p, const int* iv, const double* rv,
     a.b[k] = T(rv[R_B + k]);
   }
   MegaLayout lay;
-  return plan_any<T>(route, a.E, a.ngl, a.nq, lay, &a, stream);
+  const cudaError_t err = plan_any<T>(route, a.E, a.ngl, a.nq, lay, &a, stream);
+  *taken = lay.route;
+  return err;
 }
 
 }  // namespace
@@ -1171,10 +1181,11 @@ int btp_mega_layout(int is_double, int E, int ngl, int nq, int* route, int* elem
   return 0;
 }
 
-// Launch on `stream` on the route btp_mega_layout gives; does not
-// synchronise. Returns the launch's cudaError_t.
+// Launch on `stream` on the route btp_mega_layout gives (in `route`, as
+// there); does not synchronise. Sets `taken` to the route launched (0
+// streamed, 1 resident). Returns the launch's cudaError_t.
 int btp_mega_launch_route(int route, void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
-                          const double* reals, int n_reals, void* stream) {
+                          const double* reals, int n_reals, void* stream, int* taken) {
   if (n_ptrs != P_COUNT || n_ints != I_COUNT || n_reals != R_COUNT || route < kAuto ||
       route > kResident)
     return int(cudaErrorInvalidValue);
@@ -1184,14 +1195,16 @@ int btp_mega_launch_route(int route, void* const* ptrs, int n_ptrs, const int* i
       kstages > kMaxStages || ints[I_BOTFR] < 0 || ints[I_BOTFR] > 2)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ints[I_IS_DOUBLE]) return int(run<double>(route, ptrs, ints, reals, s));
-  return int(run<float>(route, ptrs, ints, reals, s));
+  if (ints[I_IS_DOUBLE]) return int(run<double>(route, ptrs, ints, reals, s, taken));
+  return int(run<float>(route, ptrs, ints, reals, s, taken));
 }
 
 // The same on the route the layout chooses.
 int btp_mega_launch(void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
                     const double* reals, int n_reals, void* stream) {
-  return btp_mega_launch_route(kAuto, ptrs, n_ptrs, ints, n_ints, reals, n_reals, stream);
+  int taken;
+  return btp_mega_launch_route(kAuto, ptrs, n_ptrs, ints, n_ints, reals, n_reals, stream,
+                               &taken);
 }
 
 const char* btp_mega_error_string(int code) {

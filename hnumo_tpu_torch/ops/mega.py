@@ -479,7 +479,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("btp_mega")
     if not getattr(lib, "_hnumo_declared", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.btp_mega_launch_route.argtypes = [i, p, i, p, i, p, i, p]
+        lib.btp_mega_launch_route.argtypes = [i, p, i, p, i, p, i, p, ctypes.POINTER(i)]
         lib.btp_mega_launch_route.restype = ctypes.c_int
         lib.btp_mega_smem_bytes.argtypes = [i, i, i]
         lib.btp_mega_smem_bytes.restype = ctypes.c_longlong
@@ -498,6 +498,18 @@ def _library() -> ctypes.CDLL:
 ROUTES = ("streamed", "resident")    # csrc/btp_mega.cu kStreamed, kResident
 
 
+def _check_smem(lib, dtype: torch.dtype, ngl: int, nq: int) -> int:
+    """Raise where one block's shared memory exceeds the card's limit;
+    returns the launcher's is_double flag."""
+    is_double = int(dtype == torch.float64)
+    need, limit = lib.btp_mega_smem_bytes(is_double, ngl, nq), lib.btp_mega_smem_limit()
+    if need > limit:
+        raise ValueError(
+            f"the megakernel needs {need} bytes of shared memory per block at "
+            f"ngl={ngl}, nq={nq}, {dtype}; the card allows {limit}")
+    return is_double
+
+
 def btp_mega_layout(dtype: torch.dtype, E: int, ngl: int, nq: int,
                     route: str | None = None) -> dict:
     """How a launch of E elements at these sizes is laid out on the current
@@ -512,12 +524,7 @@ def btp_mega_layout(dtype: torch.dtype, E: int, ngl: int, nq: int,
     if route not in (None, *ROUTES):
         raise ValueError(f"route must be None, 'streamed' or 'resident', got {route!r}")
     lib = _library()
-    is_double = int(dtype == torch.float64)
-    need, limit = lib.btp_mega_smem_bytes(is_double, ngl, nq), lib.btp_mega_smem_limit()
-    if need > limit:
-        raise ValueError(
-            f"the megakernel needs {need} bytes of shared memory per block at "
-            f"ngl={ngl}, nq={nq}, {dtype}; the card allows {limit}")
+    is_double = _check_smem(lib, dtype, ngl, nq)
     c = ctypes
     chosen = c.c_int(-1 if route is None else ROUTES.index(route))
     epb, threads, blocks = c.c_int(), c.c_int(), c.c_int()
@@ -557,8 +564,8 @@ def mega_launch(static, mops: MegaStatic, op: SolveOperands, acc, ws: Tensor,
     one (chip_smoke.py holds both against the plain version on the same
     grids). Launches on the current stream, does not synchronise, raises
     on operands the kernel does not take and on a refused launch. Counts in
-    `barotropic_solve_mega_cuda.launches` and, per route,
-    `.launches_resident` / `.launches_streamed`."""
+    `barotropic_solve_mega_cuda.launches` and, per route as the launcher
+    reports the one it launched, `.launches_resident` / `.launches_streamed`."""
     ngl, nq = mops.psiq.shape
     E = op.qb.shape[1]
     dtype, device = op.qb.dtype, op.qb.device
@@ -600,8 +607,8 @@ def mega_launch(static, mops: MegaStatic, op: SolveOperands, acc, ws: Tensor,
             or mops.nbr.device != device or not mops.nbr.is_contiguous()):
         raise ValueError("MegaStatic.nbr must be contiguous (E, 4) int32 on the device")
 
-    is_double = int(dtype == torch.float64)
     lib = _library()
+    is_double = _check_smem(lib, dtype, ngl, nq)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -623,19 +630,19 @@ def mega_launch(static, mops: MegaStatic, op: SolveOperands, acc, ws: Tensor,
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_reals = (ctypes.c_double * len(reals))(*[float(v) for v in reals])
+    taken = ctypes.c_int(-1)
     with torch.cuda.device(device):
-        taken = btp_mega_layout(dtype, E, ngl, nq, route)["route"]
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.btp_mega_launch_route(-1 if route is None else ROUTES.index(route),
                                         c_ptrs, len(ptrs), c_ints, len(ints),
-                                        c_reals, len(reals), stream)
+                                        c_reals, len(reals), stream, ctypes.byref(taken))
     if err != 0:
         raise RuntimeError(
             f"btp_mega kernel launch failed: CUDA error {err} "
             f"({lib.btp_mega_error_string(err).decode()})")
+    name = f"launches_{ROUTES[taken.value]}"
     barotropic_solve_mega_cuda.launches += 1
-    setattr(barotropic_solve_mega_cuda, f"launches_{taken}",
-            getattr(barotropic_solve_mega_cuda, f"launches_{taken}") + 1)
+    setattr(barotropic_solve_mega_cuda, name, getattr(barotropic_solve_mega_cuda, name) + 1)
     return qb_out
 
 

@@ -5,8 +5,6 @@ whole-solve megakernel.
     python3 hnumo_tpu_torch/tools/kernel_ablation.py [--kernels NAME ...]
         [--grids 64 256] [--steps N] [--out FILE]
     python3 hnumo_tpu_torch/tools/kernel_ablation.py --kernels btp_mega --grids 25 32
-    python3 hnumo_tpu_torch/tools/kernel_ablation.py --kernels btp_mega --grids 25 32 \
-        --sources DIR [DIR ...]
 
 Needs one CUDA device and nvcc. Builds `ops/csrc/btp_volume.cu`,
 `btp_volume_uni.cu`, `btp_faces.cu` and `btp_update.cu` (or those named by
@@ -25,16 +23,12 @@ per barotropic solve, timed at each grid through `ops.mega.mega_launch` on
 the same configuration with `mega="on"` (f32, p=4, viscous, 100 stages; its
 working set stays in the L2, so it is timed hot): full, memory-only,
 compute-only (no global reads after the first), barrier-only
-(`BTP_ABLATE=3`: the 100 stages left empty but for their grid barriers) and
-full again. Only the functions that the megakernel's wrapper had before its
-redesign are called, so the script also times that older kernel when it is
-run from a checkout of it with the same switches patched in.
-`--sources DIR ...` (with `--kernels btp_mega` alone) times, in place of the
-ablations, the megakernel built from each DIR — a copy of `ops/csrc` whose
-`btp_mega.cu` was changed to try one design choice — against the checkout's
-own build, in turns (all in order, then in reverse), each held against the
-plain version first (its error is printed; a copy that computes something
-else is timed all the same).
+(`BTP_ABLATE=3`: the 100 stages left empty but for their grid barriers),
+grid-barrier (`BTP_ABLATE=4`: the resident route's stages ordered by one grid
+barrier each instead of the neighbours' counters) and full again. Only the
+functions that the megakernel's wrapper had before its redesign are called,
+so the script also times that older kernel when it is run from a checkout of
+it with the same switches patched in.
 `--steps N` also drives N baroclinic steps of the fused path (after one
 untimed step) at each grid through `Model.run`, as `chip_smoke.py` does.
 `chip_smoke.py` takes the same readings among its phases; this script takes
@@ -60,7 +54,7 @@ import chip_smoke as cs  # noqa: E402
 
 VARIANTS = (("full", ()),) + tuple((name, (define,)) for name, define in cs.ABLATIONS)
 KERNELS = ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update")
-MEGA_VARIANTS = VARIANTS + (("barrier_only", ("BTP_ABLATE=3",)),)
+MEGA_VARIANTS = (("full", ()),) + tuple((name, (define,)) for name, define in cs.MEGA_ABLATIONS)
 
 
 def time_variants(launch, sets, n, variants=VARIANTS):
@@ -74,15 +68,15 @@ def time_variants(launch, sets, n, variants=VARIANTS):
     return out
 
 
-def mega_solve(nel):
-    """(model, (qb, qprime, coupling, operands), launch) of one megakernel
-    solve at an nel x nel grid, f32 p=4 (`mega="on"`), on fixed operands,
-    accumulating into one set of accumulators. Only functions the
-    megakernel's wrapper had before its redesign are called (see the
-    module's note)."""
+def time_mega(nel, n=20):
+    """The megakernel's variants at an nel x nel grid (MEGA_VARIANTS): one
+    launch = one f32 p=4 solve (`mega="on"`) on fixed operands, accumulating
+    into one set of accumulators. Only functions the megakernel's wrapper
+    had before its redesign are called (see the module's note)."""
     from hnumo_tpu_torch.model import Model
     from hnumo_tpu_torch.ops import mega
 
+    counters = dict(vars(mega.barotropic_solve_mega_cuda))
     m = Model(cs.main_path_config(nel, "float32", mega="on"))
     _, qb, qp, coup = cs.perturbed_inputs(m, seed=13)
     E, (ngl, nq) = nel * nel, m.g.psiq.shape
@@ -90,71 +84,14 @@ def mega_solve(nel):
     op = mega.solve_operands(m.static, m.g, coup, qb, qp, m.mega_ops)
     acc = mega.new_accumulators(E, ngl, nq, **opts)
     bufs = mega.new_state_buffers(E, ngl, **opts)
-    return m, (qb, qp, coup, op), lambda: mega.mega_launch(m.static, m.mega_ops, op, acc, *bufs)
-
-
-def time_mega(nel, n=20):
-    """The megakernel's variants at an nel x nel grid (MEGA_VARIANTS)."""
-    from hnumo_tpu_torch.ops import mega
-
-    counters = dict(vars(mega.barotropic_solve_mega_cuda))
-    m, _, launch = mega_solve(nel)
-    t = time_variants(launch, [()], n, MEGA_VARIANTS)
+    t = time_variants(lambda: mega.mega_launch(m.static, m.mega_ops, op, acc, *bufs), [()], n,
+                      MEGA_VARIANTS)
     vars(mega.barotropic_solve_mega_cuda).update(counters)   # timing launches are not the path's
     line = {"kernel": "btp_mega", "grid": nel, "bound_ms": cs.mega_bound(m)["bound_ms"], **t}
     layout = getattr(mega, "btp_mega_layout", None)     # absent before the redesign
     if layout is not None:
-        ngl, nq = m.g.psiq.shape
-        line["layout"] = layout(torch.float32, nel * nel, ngl, nq)
+        line["layout"] = layout(torch.float32, E, ngl, nq)
     return line
-
-
-def time_sources(dirs, grids, n=20):
-    """{grid: {label: [[ms, ms], err]}} of the checkout's megakernel
-    ("checkout") and of the builds of `dirs`, in turns; `err` is the error
-    against the plain version."""
-    from hnumo_tpu_torch.ops import _build, mega
-
-    key = ("btp_mega", ())
-    counters = dict(vars(mega.barotropic_solve_mega_cuda))
-    libs = {"checkout": _build.load_library("btp_mega")}
-    own = _build.CSRC_DIR
-    try:
-        for d in dirs:
-            _build.CSRC_DIR = pathlib.Path(d).resolve()
-            _build._loaded.pop(key, None)
-            libs[str(d)] = _build.load_library("btp_mega")
-    finally:
-        _build.CSRC_DIR = own
-    out = {}
-    for nel in grids:
-        m, (qb, qp, coup, op), launch = mega_solve(nel)
-        E, (ngl, nq) = nel * nel, m.g.psiq.shape
-        want = mega.barotropic_solve_mega_plain(m.static, m.P, m.g, m.bc, coup, qb, qp,
-                                                m.mega_ops)
-        rows = {}
-        for label, lib in libs.items():
-            _build._loaded[key] = lib
-            acc = mega.new_accumulators(E, ngl, nq, dtype=qb.dtype, device=qb.device)
-            qb_new = mega.mega_launch(m.static, m.mega_ops, op, acc,
-                                      *mega.new_state_buffers(E, ngl, dtype=qb.dtype,
-                                                              device=qb.device))
-            got = (qb_new.view(4, nel, nel, ngl, ngl),
-                   mega.averages_from_accumulators(m.static, m.mega_ops, *acc))
-            try:
-                err = cs.compare_solves(got, want, cs.F32_MEGA_TOL, label)[0]
-            except AssertionError as ex:
-                err = f"differs: {ex}"
-            rows[label] = [[], err]
-        for label in list(libs) + list(libs)[::-1]:
-            _build._loaded[key] = libs[label]
-            rows[label][0].append(cs.time_launches(launch, [()], n, device_only=True))
-        out[nel] = rows
-        del m
-        torch.cuda.empty_cache()
-    _build._loaded[key] = libs["checkout"]
-    vars(mega.barotropic_solve_mega_cuda).update(counters)   # timing launches are not the path's
-    return out
 
 
 def main() -> int:
@@ -163,7 +100,6 @@ def main() -> int:
                     default=list(KERNELS))
     ap.add_argument("--grids", type=int, nargs="+", default=[64, 256])
     ap.add_argument("--steps", type=int, default=0)
-    ap.add_argument("--sources", nargs="+", default=None, metavar="DIR")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -174,23 +110,10 @@ def main() -> int:
     from hnumo_tpu_torch.ops import _build
     from hnumo_tpu_torch.ops import btp_volume as bv
 
-    if args.sources:
-        if args.kernels != ["btp_mega"]:
-            ap.error("--sources takes --kernels btp_mega alone")
-        rows = time_sources(args.sources, args.grids)
-        lines = [{"kernel": "btp_mega", "grid": nel, "source": label, "ms": ms, "err": err}
-                 for nel, r in rows.items() for label, (ms, err) in r.items()]
-        own, usage = _build.CSRC_DIR, []
-        for label in ["checkout", *args.sources]:
-            _build.CSRC_DIR = own if label == "checkout" else pathlib.Path(label).resolve()
-            usage.append((f"btp_mega {label}", _build.resource_usage("btp_mega")))
-        _build.CSRC_DIR = own
-        return report(lines, usage, args.out)
-
     for _, defines in MEGA_VARIANTS:     # the sources of a variant side by side
         with _build.variant(*defines):
             _build.build_libraries([k for k in args.kernels
-                                    if k == "btp_mega" or defines != ("BTP_ABLATE=3",)])
+                                    if k == "btp_mega" or defines in dict(VARIANTS).values()])
 
     wrappers = cs.kernel_wrappers()
     lines = []

@@ -25,9 +25,12 @@ running-average value updated exactly once per element and stage, by the
 same thread in every stage; every table value loaded once per element (per
 stage on the streamed route); and the model's solve against the plain
 version within 1e-11 in f64 at 6x5 (the parity matrix of
-tests/test_torch_mega.py) and 25x25. The kernel itself is held against the
-plain version on the card by chip_smoke.py."""
+tests/test_torch_mega.py) and 25x25; and that chip_smoke.py's sheared state
+makes a fault in the neighbours' viscous gradient visible, where its other
+states do not. The kernel itself is held against the plain version on the
+card by chip_smoke.py."""
 import functools
+import importlib.util
 import re
 from pathlib import Path
 
@@ -43,6 +46,7 @@ from hnumo_tpu_torch.ops import mega as mg
 from test_torch_common import assert_close, leaves
 
 SOURCE = Path(mg.__file__).resolve().parent / "csrc" / "btp_mega.cu"
+SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 
 # ---- the layout rule of the source ----------------------------------------------
 
@@ -221,6 +225,8 @@ class MegaModel:
     """csrc/btp_mega.cu in numpy, for one solve. `route` is "resident" or
     "streamed"."""
 
+    UV_CHANNELS = (2, 3)     # the neighbours' pb*u, pb*v in their state
+
     def __init__(self, static, mops, op, acc, route):
         self.st, self.route = static, route
         self.n, self.m = mops.psiq.shape
@@ -355,11 +361,12 @@ class MegaModel:
         uv = B("uv", 2, n, n)
         if visc:
             nbuv = B("nbuv", 4, 2, npts)
+            cu, cv = self.UV_CHANNELS
             for s in range(4):
                 inside = ~wall[:, s]
                 inv = 1.0 / nb4[inside, s, 0]
-                nbuv[inside, s, 0] = nb4[inside, s, 2] * inv
-                nbuv[inside, s, 1] = nb4[inside, s, 3] * inv
+                nbuv[inside, s, 0] = nb4[inside, s, cu] * inv
+                nbuv[inside, s, 1] = nb4[inside, s, cv] * inv
             g = self.grad(uv, dpsi[0])
             B("g", 4, npts)[:] = g
             self.acc_view(2)[:] += g
@@ -572,17 +579,22 @@ def _solved_plain(cfg):
     return m, qb, qp, coup, want
 
 
-def run_model(cfg, route):
-    m, qb, qp, coup, want = _solved_plain(cfg)
-    E = cfg.nelx * cfg.nely
-    ngl, nq = m.g.psiq.shape
+def model_solve(m, qb, qp, coup, route, cls=MegaModel):
+    """(model, (qb at t+dt, averages)) of one solve through the numpy model."""
+    E, (ngl, nq) = m.cfg.nelx * m.cfg.nely, m.g.psiq.shape
     op = mg.solve_operands(m.static, m.g, coup, qb, qp, m.mega_ops)
     acc = mg.new_accumulators(E, ngl, nq, dtype=torch.float64)
-    model = MegaModel(m.static, m.mega_ops, op, acc, route)
+    model = cls(m.static, m.mega_ops, op, acc, route)
     qb_out, acc_out = model.solve()
-    got = (torch.tensor(qb_out).view(4, cfg.nely, cfg.nelx, ngl, ngl),
+    got = (torch.tensor(qb_out).view(4, m.cfg.nely, m.cfg.nelx, ngl, ngl),
            mg.averages_from_accumulators(m.static, m.mega_ops,
                                          *(torch.tensor(a) for a in acc_out)))
+    return model, got
+
+
+def run_model(cfg, route):
+    m, qb, qp, coup, want = _solved_plain(cfg)
+    model, got = model_solve(m, qb, qp, coup, route)
     return model, got, want
 
 
@@ -624,3 +636,52 @@ def test_model_matches_plain_at_25x25(route):
     cfg = config(25, 25)
     model, got, want = run_model(cfg, route)
     check(model, got, want, cfg.kstages * model.st.n_btp)
+
+
+# ---- chip_smoke.py's sheared state ---------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class SwappedUV(MegaModel):
+    """The kernel with a fault in the neighbours' viscous gradient: their u
+    and v read from each other's channel (a channel-stride fault)."""
+
+    UV_CHANNELS = (3, 2)
+
+
+def qb_error(got, want):
+    """Max over qb's four channels of max|got - want| / max|want|."""
+    return max(float((got[0][c] - want[0][c]).abs().max() / want[0][c].abs().max())
+               for c in range(4))
+
+
+@pytest.mark.parametrize("route", ["resident", "streamed"])
+def test_the_sheared_state_sees_the_neighbours_viscous_gradient(route):
+    """chip_smoke.py phase 7 holds the kernel against the plain version on
+    its sheared state (u, v ~ 1 m/s, viscosity SHEAR_VISC) at 6x5: there the
+    model matches the plain version within 1e-11 and the faulty model misses
+    it by far more, while on the perturbed state at the model's viscosity the
+    same fault stays inside the tolerance."""
+    cs = _smoke()
+    sheared = Model(cs.small_config(6, 5, "float64", 1, mega="on", visc_mlswe=cs.SHEAR_VISC),
+                    device="cpu")
+    plain = Model(cs.small_config(6, 5, "float64", 1, mega="on"), device="cpu")
+    errors = {}
+    for name, m, inputs in (("sheared", sheared, cs.sheared_inputs),
+                            ("perturbed", plain, cs.perturbed_inputs)):
+        _, qb, qp, coup = inputs(m, seed=3)
+        want = mg.barotropic_solve_mega_plain(m.static, m.P, m.g, m.bc, coup, qb, qp,
+                                              m.mega_ops)
+        if name == "sheared":
+            model, got = model_solve(m, qb, qp, coup, route)
+            check(model, got, want, m.static.kstages * m.static.n_btp)
+        errors[name] = qb_error(model_solve(m, qb, qp, coup, route, SwappedUV)[1], want)
+    assert errors["sheared"] > 1e3 * 1e-11, errors
+    assert errors["perturbed"] < 1e-11, errors
