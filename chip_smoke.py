@@ -14,8 +14,15 @@ megakernel (two launches per step, its resident route), 64x64 and a short run at
 through the per-stage path with the volume kernel, and the same two grids
 through the fused path (`mega="off", fused_tail="on"`: the uniform-geometry
 volume kernel, the all-faces kernel and the update kernel, 200 launches of
-each per step). Any failure raises and the run exits non-zero; there is no
-CPU path.
+each per step). `Model` steps through a captured CUDA graph by default: the
+wrappers' launch counters move in a model's first step only (eager warm-up
+and capture), so a `torch.profiler` trace of one replayed step counts the
+kernels the replays run. Then the graphed step against the eager one,
+bitwise, on the three paths (and a step of each under the sync debug
+mode), the frozen f64 trajectories and the 108-step CI bump on the graphed
+step, the f32 double-gyre campaign's first 2 model days against the f64
+band, and eager against graphed ms/step in turns. Any failure raises and
+the run exits non-zero; there is no CPU path.
 
 Output: one line per phase, then a `{"kernels": [...]}` line (five kernels), the card's
 name and power limit, and as the last line
@@ -892,43 +899,63 @@ def kernel_wrappers():
             "btp_update": btp_update_cuda}
 
 
-def drive(m, warm: int, steps: int):
-    """`warm` + `steps` baroclinic steps through Model.run; launches are
-    counted over the timed steps only (all five counters are zeroed just
-    before). On the megakernel path a step is exactly 2 megakernel launches;
-    on the fused path 2*N_btp*kstages launches of each of the uniform-geometry
-    volume kernel, the face kernel and the update kernel; on the per-stage
-    path 2*N_btp*kstages volume kernel launches (of the uniform-geometry one
-    under uni_volume). Every other kernel: none."""
+def path_launches_per_step(m) -> dict:
+    """{kernel: launches per baroclinic step} on this model's path. On the
+    megakernel path a step is exactly 2 megakernel launches; on the fused
+    path 2*N_btp*kstages launches of each of the uniform-geometry volume
+    kernel, the face kernel and the update kernel; on the per-stage path
+    2*N_btp*kstages volume kernel launches (of the uniform-geometry one under
+    uni_volume). Every other kernel: none."""
+    per_stage = 2 * m.static.n_btp * m.static.kstages
+    if m.static.mega:
+        return {"btp_mega": 2}
+    if m.static.fused_tail:
+        return {"btp_volume_uni": per_stage, "btp_faces": per_stage,
+                "btp_update": per_stage}
+    if m.static.uni_volume:
+        return {"btp_volume_uni": per_stage}
+    return {"btp_volume": per_stage}
+
+
+def zero_counts():
     from hnumo_tpu_torch.ops.mega import ROUTES
 
     wrappers = kernel_wrappers()
-    s = m.state0
-    mass0 = total_mass(m, s)
-    s = m.run(s, warm)
-    torch.cuda.synchronize()
     for fn in wrappers.values():
         fn.launches = 0
     for r in ROUTES:
         setattr(wrappers["btp_mega"], f"launches_{r}", 0)
+    return wrappers
+
+
+def drive(m, warm: int, steps: int):
+    """`warm` + `steps` baroclinic steps through Model.run from the initial
+    state; `steps` are timed. All five launch counters are zeroed just
+    before the first step and read after the last. Eager, every step
+    launches `path_launches_per_step`. Graphed (the default on the card,
+    `warm` >= 1 so that the capture is not timed), the wrappers run in the
+    first step only, twice: in the eager warm-up step before the capture and
+    while the capture records; the replays launch the recorded kernels
+    without them (`replay_profile` counts those in a trace)."""
+    graphed = m.step_impl == "graph"
+    if graphed and warm < 1:
+        raise ValueError("a graphed model needs a warm step: the first step captures")
+    s = m.state0
+    mass0 = total_mass(m, s)
+    wrappers = zero_counts()
+    s = m.run(s, warm)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     s = m.run(s, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    per_stage = 2 * m.static.n_btp * m.static.kstages
-    if m.static.mega:
-        per_step = {"btp_mega": 2}
-    elif m.static.fused_tail:
-        per_step = {"btp_volume_uni": per_stage, "btp_faces": per_stage,
-                    "btp_update": per_stage}
-    elif m.static.uni_volume:
-        per_step = {"btp_volume_uni": per_stage}
-    else:
-        per_step = {"btp_volume": per_stage}
-    want = {name: steps * per_step.get(name, 0) for name in wrappers}
+    per_step = path_launches_per_step(m)
+    times = 2 if graphed else warm + steps
+    want = {name: times * per_step.get(name, 0) for name in wrappers}
     if counts != want:
-        raise AssertionError(f"{steps} steps launched {counts}, expected {want}")
+        raise AssertionError(f"{warm} + {steps} {m.step_impl} steps launched {counts}, "
+                             f"expected {want}")
     if not bool(s.ok):
         raise AssertionError("state.ok is False")
     for name in ("qb_df", "q_df", "qprime_df"):
@@ -943,7 +970,7 @@ def drive(m, warm: int, steps: int):
     return {"ms_per_step": wall / steps * 1e3, "gp_steps_per_s": gp * steps / wall,
             "launches": counts[first], "launches_per_step": per_step[first],
             "counts": counts, "mega_routes": mega_routes(), "mass_drift": drift,
-            "t": float(s.t)}, s
+            "step_impl": m.step_impl, "t": float(s.t)}, s
 
 
 def _device_rows(prof):
@@ -1007,6 +1034,174 @@ def profile_step(m, state, out_path, title):
     mega = [e for e in dev if "btp_mega_kernel" in e.key]
     if mega:
         out["mega_kernel_ms"] = sum(e.self_device_time_total for e in mega) / 1e3
+    return out
+
+
+KERNEL_SYMBOLS = {"btp_volume": "btp_volume_kernel", "btp_mega": "btp_mega_kernel",
+                  "btp_volume_uni": "btp_volume_uni_kernel", "btp_faces": "btp_faces_kernel",
+                  "btp_update": "btp_update_kernel"}
+
+
+def replay_profile(m, state, out_path=None, title=None):
+    """torch.profiler over one replay of a graphed model's step: the five
+    kernels counted by name in the trace (each must be its path's
+    per-step count, the others none), the device activities and busy ms."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    if m.step_impl != "graph" or m._graph is None:
+        raise ValueError("replay_profile takes a graphed model that has captured its step")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        m.step(state)
+        torch.cuda.synchronize()
+    dev = _device_rows(prof)
+    counts = {name: sum(e.count for e in dev if re.search(rf"\b{sym}\b", e.key))
+              for name, sym in KERNEL_SYMBOLS.items()}
+    want = {name: path_launches_per_step(m).get(name, 0) for name in KERNEL_SYMBOLS}
+    if counts != want:
+        raise AssertionError(f"one replayed step ran {counts}, expected {want}")
+    if out_path:
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+        with open(out_path, "a") as f:
+            f.write(f"==== {title} ====\n{table}\n")
+    return {"replay_kernels": counts,
+            "replay_device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+            "replay_device_activities": sum(e.count for e in dev)}
+
+
+def check_graph_vs_eager(cfg, steps: int):
+    """`steps` steps of a graphed and of an eager model of `cfg` from the
+    initial state: every field of every state must be bitwise equal. Also
+    the contract of Model.step under the graph: the caller's state is not
+    mutated and a state a step returned is not overwritten by a later step.
+    Returns the two models, their last states and the launches the graphed
+    model's first step (warm-up and capture) made."""
+    from hnumo_tpu_torch.core.types import State
+    from hnumo_tpu_torch.model import Model
+
+    me, mg = Model(cfg, step_impl="eager"), Model(cfg)
+    if mg.step_impl != "graph" or me.step_impl != "eager":
+        raise AssertionError("Model must step through a CUDA graph by default on the card")
+    given = State(*[t.clone() for t in mg.state0])
+    wrappers = zero_counts()
+    sg = mg.step(mg.state0)
+    at_capture = {k: fn.launches for k, fn in wrappers.items()}
+    want = {k: 2 * path_launches_per_step(mg).get(k, 0) for k in wrappers}
+    if at_capture != want:
+        raise AssertionError(f"the first graphed step (warm-up and capture) launched "
+                             f"{at_capture}, expected {want}")
+    first, first_copy = sg, State(*[t.clone() for t in sg])
+    se = me.step(me.state0)
+    for i in range(steps):
+        if i:
+            sg, se = mg.step(sg), me.step(se)
+        for name in State._fields:
+            a, b = getattr(sg, name), getattr(se, name)
+            if not torch.equal(a, b):
+                diff = float((a.double() - b.double()).abs().max())
+                raise AssertionError(f"step {i + 1}: graphed {name} != eager, max |diff| "
+                                     f"{diff:.3e}")
+    for what, state, copy in (("the initial state it was given", mg.state0, given),
+                              ("the state its first step returned", first, first_copy)):
+        if not all(torch.equal(x, y) for x, y in zip(state, copy)):
+            raise AssertionError(f"later graphed steps changed {what}")
+    torch.cuda.synchronize()
+    return me, se, mg, sg, at_capture
+
+
+def sync_free_step(m, state):
+    """One step under torch.cuda.set_sync_debug_mode("error"): any
+    synchronising CUDA call in it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = m.step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_goldens():
+    """The frozen f64 trajectories (tests/goldens/*.npz) and the 108-step CI
+    bump against the reference's FIN values and mass gate, stepped by the
+    graphed model (hnumo_tpu_torch/tools/goldens.py: the port's copies of the
+    configurations, fingerprint and tolerances)."""
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.tools import goldens
+
+    out = {}
+    for name, cfg, steps, route in (("bump_traj", goldens.bump_config(), None, "resident"),
+                                    ("dgyre_traj", goldens.dgyre_config(), 10, "streamed")):
+        m = Model(cfg)
+        if not (m.step_impl == "graph" and m.static.mega and m.static.mega_impl == "kernel"):
+            raise AssertionError(f"{name}: expected the graphed megakernel path")
+        zero_counts()
+        out[name] = goldens.replay(m, name, max_steps=steps)
+        routes = mega_routes()
+        if routes[route] == 0 or sum(routes.values()) != routes[route]:
+            raise AssertionError(f"{name}: expected the {route} route only, got {routes}")
+        if name == "bump_traj":
+            out["ci_bump"] = goldens.ci_bump(m)
+        del m
+    return out
+
+
+def check_campaign_spin_up(days: float = 2.0):
+    """The committed double-gyre campaign's first `days` model days (f32,
+    25x25, graphed) against docs/artifacts/dgyre_f64_cpu.json in the band of
+    tests/test_campaign.py (hnumo_tpu_torch/tools/dgyre_campaign.band)."""
+    import pathlib
+
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.tools import dgyre_campaign as dc
+
+    m = Model(dc.campaign_config())
+    art = dc.run(m, days)
+    with open(pathlib.Path(__file__).resolve().parent / "docs" / "artifacts"
+              / "dgyre_f64_cpu.json") as f:
+        d64 = json.load(f)
+    if not (art["complete"] and art["ok"]):
+        raise AssertionError("the campaign's spin-up did not complete")
+    dev = dc.band(art, d64, min_common=len(art["records"]))
+    return {"steps": art["steps"], "ms_per_step": art["ms_per_step"], **dev}
+
+
+def time_in_turns(cfg, steps: int, out_path=None, title=None):
+    """ms/step of an eager and a graphed model of `cfg`, timed in turns
+    (eager, graph, graph, eager) after one untimed step each (the graphed
+    one captures there), peak device memory of each and the device idle
+    share of one replayed step (its busy time over the graphed ms/step)."""
+    from hnumo_tpu_torch.model import Model
+
+    out = {}
+    models = {}
+    for impl in ("eager", "graph"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m = Model(cfg, step_impl=impl)
+        s = m.run(m.state0, 1)
+        torch.cuda.synchronize()
+        # this model's own: tables, state, one step's intermediates (the
+        # graph's private pool keeps them reserved between replays)
+        out[f"peak_gib_{impl}"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        models[impl] = (m, s)
+    ms = {"eager": [], "graph": []}
+    for impl in ("eager", "graph", "graph", "eager"):
+        m, s = models[impl]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run(s, steps)
+        torch.cuda.synchronize()
+        ms[impl].append((time.perf_counter() - t0) / steps * 1e3)
+    m, s = models["graph"]
+    prof = replay_profile(m, s, out_path, title)
+    out.update({"ms_eager": ms["eager"], "ms_graph": ms["graph"], **prof,
+                "replay_device_idle_share":
+                    1.0 - prof["replay_device_busy_ms"] / (sum(ms["graph"]) / 2)})
     return out
 
 
@@ -1129,8 +1324,9 @@ def main() -> int:
     tv64 = time_volume_stage(m64)
     b64 = volume_bound(m64)
     print(f"phase 5 per-stage path 64x64 p=4 L=2 f32 N_btp={m64.static.n_btp}: "
-          f"{run64['ms_per_step']:.2f} ms/step, {run64['gp_steps_per_s']:.4g} gp-steps/s, "
-          f"{run64['launches_per_step']} kernel launches/step, ok, finite, "
+          f"{run64['ms_per_step']:.2f} ms/step ({run64['step_impl']}), "
+          f"{run64['gp_steps_per_s']:.4g} gp-steps/s, {run64['launches_per_step']} kernel "
+          f"launches/step ({run64['launches']} through the wrapper), ok, finite, "
           f"mass drift {run64['mass_drift']:.2e}; volume kernel {tv64['ms']:.4f} ms/launch "
           f"on the device ({tv64['ms_with_wrapper']:.4f} as the host launches it; hot "
           f"{tv64['ms_hot']:.4f} / {tv64['ms_hot_with_wrapper']:.4f}), plain "
@@ -1148,10 +1344,11 @@ def main() -> int:
     m256 = Model(main_path_config(256, "float32"))
     if m256.static.mega:
         raise AssertionError("256x256 must stay on the per-stage path under 'auto'")
-    run256, _ = drive(m256, warm=0, steps=2)
+    run256, _ = drive(m256, warm=1, steps=2)
     tv256 = time_volume_stage(m256, n=20, nsets=2)
     b256 = volume_bound(m256)
-    print(f"phase 6 256x256 p=4 L=2 f32: {run256['ms_per_step']:.1f} ms/step, "
+    print(f"phase 6 256x256 p=4 L=2 f32: {run256['ms_per_step']:.1f} ms/step "
+          f"({run256['step_impl']}), "
           f"{run256['gp_steps_per_s']:.4g} gp-steps/s, ok, finite, mass drift "
           f"{run256['mass_drift']:.2e}; volume kernel {tv256['ms']:.4f} ms/launch on the "
           f"device ({tv256['ms_with_wrapper']:.4f} as the host launches it), "
@@ -1230,9 +1427,9 @@ def main() -> int:
     if not (m32.static.mega and m32.static.mega_impl == "kernel"):
         raise AssertionError("32x32 with default arguments must take the megakernel")
     run32, s32 = drive(m32, warm=3, steps=20)
-    if run32["mega_routes"] != {"streamed": 0, "resident": 2 * 20}:
-        raise AssertionError(f"20 steps at 32x32 f32 must be 40 launches of the resident "
-                             f"route: {run32['mega_routes']}")
+    if run32["mega_routes"] != {"streamed": 0, "resident": run32["launches"]}:
+        raise AssertionError(f"32x32 f32 must launch the resident route only: "
+                             f"{run32['mega_routes']}")
     tm32 = time_mega(m32)
     b32 = mega_bound(m32)
     # the grid of the committed f32 campaign, one element per block too
@@ -1248,12 +1445,13 @@ def main() -> int:
     # the caller says so, beside phase 5's reading of the same grid
     m64on = Model(main_path_config(64, "float32", mega="on"))
     run64on, _ = drive(m64on, warm=1, steps=5)
-    if run64on["mega_routes"] != {"streamed": 2 * 5, "resident": 0}:
+    if run64on["mega_routes"] != {"streamed": run64on["launches"], "resident": 0}:
         raise AssertionError(f"64x64 must take the streamed route: {run64on['mega_routes']}")
     tm64on = time_mega(m64on, n=5, ablations=False)
     del m64on
     print(f"phase 9 main path 32x32 p=4 L=2 f32 N_btp={m32.static.n_btp}: "
-          f"{run32['ms_per_step']:.2f} ms/step, {run32['gp_steps_per_s']:.4g} gp-steps/s, "
+          f"{run32['ms_per_step']:.2f} ms/step ({run32['step_impl']}), "
+          f"{run32['gp_steps_per_s']:.4g} gp-steps/s, "
           f"{run32['launches_per_step']} megakernel launches/step, 0 volume kernel "
           f"launches, ok, finite, mass drift {run32['mass_drift']:.2e}; with mega='off' "
           f"{run32off['ms_per_step']:.2f} ms/step, {run32off['gp_steps_per_s']:.4g} "
@@ -1326,9 +1524,10 @@ def main() -> int:
     tf64 = time_fused_kernels(f64m)
     bf64 = fused_bounds(f64m)
     print(f"phase 12 fused path 64x64 p=4 L=2 f32 N_btp={f64m.static.n_btp}: "
-          f"{runf64['ms_per_step']:.2f} ms/step, {runf64['gp_steps_per_s']:.4g} gp-steps/s "
+          f"{runf64['ms_per_step']:.2f} ms/step ({runf64['step_impl']}), "
+          f"{runf64['gp_steps_per_s']:.4g} gp-steps/s "
           f"(per-stage path in this call, phase 5: {run64['ms_per_step']:.2f} ms/step, "
-          f"{run64['gp_steps_per_s']:.4g} gp-steps/s), launches in 3 steps "
+          f"{run64['gp_steps_per_s']:.4g} gp-steps/s), launches through the wrappers "
           f"{json.dumps(runf64['counts'])}, ok, finite, mass drift "
           f"{runf64['mass_drift']:.2e}; " + "; ".join(
               f"{k} {tf64[k]['ms']:.4f} ms/launch on the device "
@@ -1349,11 +1548,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     f256m = Model(fused_config(256, "float32"))
-    runf256, _ = drive(f256m, warm=0, steps=2)
+    runf256, _ = drive(f256m, warm=1, steps=2)
     peak256 = torch.cuda.max_memory_allocated() / 2**30
     tf256 = time_fused_kernels(f256m, n=20)
     bf256 = fused_bounds(f256m)
-    print(f"phase 13 fused path 256x256 p=4 L=2 f32: {runf256['ms_per_step']:.1f} ms/step, "
+    print(f"phase 13 fused path 256x256 p=4 L=2 f32: {runf256['ms_per_step']:.1f} ms/step "
+          f"({runf256['step_impl']}), "
           f"{runf256['gp_steps_per_s']:.4g} gp-steps/s (per-stage path in this call, "
           f"phase 6: {run256['ms_per_step']:.1f} ms/step), ok, finite, mass drift "
           f"{runf256['mass_drift']:.2e}, peak device memory {peak256:.2f} GiB; "
@@ -1371,7 +1571,80 @@ def main() -> int:
               f"{t256['ms']:.4f}; {t64['ms_memory_only']:.4f} / {t256['ms_memory_only']:.4f}; "
               f"{t64['ms_compute_only']:.4f} / {t256['ms_compute_only']:.4f}")
 
-    # ---- phase 14: the kernels line ------------------------------------------
+    # ---- phase 14: the graphed step against the eager one, bitwise ------------
+    # ---- phase 15: a step under the sync debug mode, eager and graphed --------
+    # ---- phase 16: the kernels of a replayed step, counted in a trace --------
+    graph_paths = {"32x32 megakernel": (main_path_config(32, "float32"), 4),
+                   "64x64 fused": (fused_config(64, "float32"), 3),
+                   "64x64 per-stage": (main_path_config(64, "float32"), 3)}
+    replays = {}
+    for label, (cfg, steps) in graph_paths.items():
+        me, se, mg, sg, at_capture = check_graph_vs_eager(cfg, steps)
+        sync_free_step(me, se)
+        sg = sync_free_step(mg, sg)
+        replays[label] = {"steps_bitwise": steps, "launches_at_capture": at_capture,
+                          **replay_profile(mg, sg, args.profile,
+                                           f"{label} f32, one replayed step")}
+        del me, se, mg, sg
+    torch.cuda.empty_cache()
+    print("phase 14 graphed step == eager step, bitwise, every field of every state, and "
+          "neither the given nor a returned state changed by later steps: " + "; ".join(
+              f"{k} over {v['steps_bitwise']} steps" for k, v in replays.items()))
+    print("phase 15 sync debug mode 'error': one eager and one graphed step of each path "
+          "ran without a synchronising call")
+    print("phase 16 kernels in one replayed step (torch.profiler trace; launches through "
+          "the wrappers in the first step, eager warm-up + capture): " + "; ".join(
+              f"{k}: {json.dumps({n: c for n, c in v['replay_kernels'].items() if c})}, "
+              f"{v['replay_device_activities']} device activities, "
+              f"{v['replay_device_busy_ms']:.3f} ms busy; at capture "
+              f"{json.dumps({n: c for n, c in v['launches_at_capture'].items() if c})}"
+              for k, v in replays.items()))
+
+    # ---- phase 17: the frozen f64 trajectories and the CI bump, graphed --------
+    gold = check_goldens()
+    print(f"phase 17 f64 graphed megakernel path: bump_traj steps 3, 10 (resident route) "
+          f"worst {gold['bump_traj'][0]:.3e} of the tolerance ({gold['bump_traj'][1]}); "
+          f"dgyre_traj steps 3, 10 (streamed route) {gold['dgyre_traj'][0]:.3e} "
+          f"({gold['dgyre_traj'][1]}) (rtol 1e-9, atol 1e-13 of scale); CI bump "
+          f"{gold['ci_bump']['steps']} steps: FIN values worst rel dev "
+          f"{gold['ci_bump']['fin_rel_dev']:.3e} (tol 1e-5), mass loss "
+          f"{gold['ci_bump']['mass_rel_loss']:.3e} (tol 1e-12)")
+
+    # ---- phase 18: the f32 campaign's spin-up in the f64 band, graphed ---------
+    spin = check_campaign_spin_up(2.0)
+    print(f"phase 18 double gyre f32 25x25, first 2 model days ({spin['steps']} steps, "
+          f"{spin['ms_per_step']} ms/step graphed with 4 samples read back), against "
+          f"dgyre_f64_cpu.json at {spin['samples']} samples: KE {spin['ke_rel']:.3e} (band "
+          f"0.02), |u|max {spin['umax_rel']:.3e} (0.03), SSH extrema {spin['ssh_rel']:.3e} "
+          f"(0.10), mass drift {spin['mass_rel_drift']:.3e} (1e-5)")
+
+    # ---- phase 19: eager and graphed ms/step in turns ---------------------------
+    turn_cfgs = {"32x32 megakernel": (main_path_config(32, "float32"), 20),
+                 "64x64 fused": (fused_config(64, "float32"), 5),
+                 "64x64 per-stage": (main_path_config(64, "float32"), 2),
+                 "256x256 fused": (fused_config(256, "float32"), 2)}
+    turns = {k: time_in_turns(cfg, n, args.profile, f"{k} f32, one replayed step (turns)")
+             for k, (cfg, n) in turn_cfgs.items()}
+    torch.cuda.empty_cache()
+    print("phase 19 ms/step in turns eager, graph, graph, eager (after one untimed step "
+          "each); device idle share of one replayed step; peak device memory eager / "
+          "graph: " + "; ".join(
+              f"{k}: {t['ms_eager'][0]:.2f}, {t['ms_graph'][0]:.2f}, {t['ms_graph'][1]:.2f}, "
+              f"{t['ms_eager'][1]:.2f} ms; replay busy {t['replay_device_busy_ms']:.2f} ms, "
+              f"idle {t['replay_device_idle_share']:.3f}; {t['peak_gib_eager']:.2f} / "
+              f"{t['peak_gib_graph']:.2f} GiB" for k, t in turns.items()))
+
+    def graph_extras(path, turn):
+        """What the graphed step adds to a kernel's entry."""
+        r, t = replays[path], turns[turn]
+        return {"launches_at_capture": r["launches_at_capture"],
+                "replay_kernels": r["replay_kernels"],
+                "replay_device_busy_ms": r["replay_device_busy_ms"],
+                "step_ms_eager_turns": t["ms_eager"], "step_ms_graph_turns": t["ms_graph"],
+                "replay_device_idle_share": t["replay_device_idle_share"],
+                "peak_gib_eager": t["peak_gib_eager"], "peak_gib_graph": t["peak_gib_graph"]}
+
+    # ---- phase 20: the kernels line ------------------------------------------
     replaces = {"btp_volume_uni": "hnumo_tpu/ops/pallas_btp.py:287",
                 "btp_faces": "hnumo_tpu/ops/pallas_btp_tail.py:158",
                 "btp_update": "hnumo_tpu/ops/pallas_btp_tail.py:362"}
@@ -1404,6 +1677,8 @@ def main() -> int:
         "step_ms_256_per_stage_path": run256["ms_per_step"],
         "peak_memory_gib_256": peak256, **extraf,
         **ablated_extras(k, tf64[k], tf256[k]),
+        "graph": graph_extras("64x64 fused", "64x64 fused"),
+        "graph_256": graph_extras("64x64 fused", "256x256 fused"),
     } for k in names]
     kernels = [{
         "name": "btp_volume", "route": "cuda",
@@ -1422,6 +1697,7 @@ def main() -> int:
         "launches_per_step": run64["launches_per_step"],
         "step_ms": run64["ms_per_step"], "gp_steps_per_s": run64["gp_steps_per_s"],
         **big, **extra,
+        "graph": graph_extras("64x64 per-stage", "64x64 per-stage"),
     }, {
         "name": "btp_mega", "route": "cuda",
         "source": "hnumo_tpu_torch/ops/csrc/btp_mega.cu",
@@ -1454,6 +1730,8 @@ def main() -> int:
         "ms_64": tm64on["ms"], "step_ms_64_mega_on": run64on["ms_per_step"],
         "gp_steps_per_s_64_mega_on": run64on["gp_steps_per_s"],
         **extra32,
+        "graph": graph_extras("32x32 megakernel", "32x32 megakernel"),
+        "goldens_f64": gold, "campaign_spin_up": spin,
     }] + fused_entries
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,8 +3,9 @@
 Counterpart of hnumo_tpu/config.py: the same physics and namelist fields
 with the same defaults (reference src/mod_input.F90:118-269), so a
 configuration written for one package describes the same run in the other.
-Of the JAX package's backend knobs `mega`, `fused_tail` and `uni_volume` are
-carried over, with the same meaning and the same defaults; use_pallas,
+Of the JAX package's backend knobs `mega`, `fused_tail`, `uni_volume` and
+`debug_checks` are carried over, with the same meaning and the same
+defaults; use_pallas,
 pallas_interpret, scan_stages, mega_precision and batched_faces have no
 counterpart here (one precision, full f32; kernel or plain version is chosen
 by `Model(..., volume_impl=, mega_impl=, tail_impl=)`).
@@ -93,6 +94,10 @@ class Config:
     # Reproduce the reference's wind/bottom-stress vertical distribution
     # verbatim, including its indexing slip (see core/bcl.py).
     compat_reference_stress: bool = False
+    # debug mode: after every step, raise on a non-finite value in the state
+    # (the JAX package's per-step check, hnumo_tpu/model.py:186-200). Costs a
+    # read of the state from the device per step; off in production.
+    debug_checks: bool = False
 
     def __post_init__(self):
         # normalize periodic coupling (reference src/mod_input.F90:449-465)

@@ -469,9 +469,8 @@ def _barotropic_solve_fused(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     accn = torch.zeros((3, E, npts), **opts)
     af = torch.zeros((16, F, nq), **opts)
 
-    # SSPRK tables as Python floats: no device read inside the stage loop
-    a = [[float(v) for v in row] for row in P.ssprk_a.tolist()]
-    beta = [float(v) for v in P.ssprk_beta.tolist()]
+    # SSPRK tables as Python floats, made at build: no device read in a solve
+    a, beta = static.ssprk_a, static.ssprk_beta
 
     qb1 = eflat(qb_df.contiguous())
     qb2 = torch.zeros_like(qb1)
@@ -577,9 +576,8 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     agf = torch.zeros((2, 4, F, ngl), **opts)           # graduv L/R
     agrad = torch.zeros((4, ney, nex, ngl, ngl), **opts)  # graduvb nodal
 
-    # SSPRK tables as Python floats: no device read inside the stage loop
-    a = [[float(v) for v in row] for row in P.ssprk_a.tolist()]
-    beta = [float(v) for v in P.ssprk_beta.tolist()]
+    # SSPRK tables as Python floats, made at build: no device read in a solve
+    a, beta = static.ssprk_a, static.ssprk_beta
 
     # constant over the whole solve: bottom-layer primes (nodal for the
     # uniform-geometry stage, which interpolates them itself, else at quad

@@ -79,6 +79,11 @@ class StaticConfig:
     fused_tail_on: bool = False   # opt-in whole-stage fused path (config)
     uni_volume_on: bool = False   # opt-in uniform-geometry volume kernel
     tail_impl: str = "plain"      # "kernel" | "plain"
+    # SSPRK tables (reference src/mod_initial_mlswe.F90:582-681) as Python
+    # floats rounded to the compute dtype — the values of P.ssprk_a /
+    # P.ssprk_beta — so that a solve reads no device tensor on the host
+    ssprk_a: tuple = ()           # kstages rows of 3
+    ssprk_beta: tuple = ()        # kstages
 
     def __post_init__(self):
         if self.volume_impl not in VOLUME_IMPLS:
@@ -631,6 +636,8 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
         fused_tail_on=cfg.fused_tail == "on",
         uni_volume_on=cfg.uni_volume == "on",
         tail_impl=tail_impl,
+        ssprk_a=tuple(map(tuple, P.ssprk_a.tolist())),
+        ssprk_beta=tuple(P.ssprk_beta.tolist()),
     )
     if cfg.mega == "on" and not static.mega:
         raise ValueError(

@@ -3,8 +3,10 @@
 Counterpart of hnumo_tpu/model.py for one device. Replaces the reference
 wiring of grid init, field init and the time loop (src/amain.F90:12-190).
 The baroclinic step (predictor + corrector + 2 barotropic sub-cycles) is a
-pure function `state -> state` run eagerly; a caller's State is never
-mutated or consumed, so it can be stepped again.
+pure function `state -> state`. On a CUDA device it runs as one captured
+CUDA graph, replayed once per step (`step_impl="graph"`, the counterpart of
+the JAX package's jitted step); elsewhere it runs eagerly. Either way a
+caller's State is never mutated or consumed, so it can be stepped again.
 """
 from __future__ import annotations
 
@@ -49,22 +51,29 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+STEP_IMPLS = ("graph", "eager")
+
+
 def _resolve_impl(name: str, impl, allowed, device: torch.device) -> str:
-    """Default: the kernel on a CUDA device, the plain version elsewhere."""
+    """`allowed` = (the CUDA form, the form that runs anywhere): the first is
+    the default on a CUDA device and raises elsewhere, the second is the
+    default elsewhere."""
+    cuda_only, anywhere = allowed
     if impl is None:
-        return "kernel" if device.type == "cuda" else "plain"
+        return cuda_only if device.type == "cuda" else anywhere
     if impl not in allowed:
         raise ValueError(f"{name} must be one of {allowed}, got {impl!r}")
-    if impl == "kernel" and device.type != "cuda":
+    if impl == cuda_only and device.type != "cuda":
         raise ValueError(
-            f"{name}='kernel' needs a CUDA device, got {device}; the CUDA "
-            f"kernel has no CPU form (use {name}='plain')")
+            f"{name}={impl!r} needs a CUDA device, got {device}; it has no "
+            f"CPU form (use {name}={anywhere!r})")
     return impl
 
 
 class Model:
     def __init__(self, cfg: Config, device=None, volume_impl: str | None = None,
-                 mega_impl: str | None = None, tail_impl: str | None = None):
+                 mega_impl: str | None = None, tail_impl: str | None = None,
+                 step_impl: str | None = None):
         """`device`: None = the CUDA device (raises without one), or any
         torch device; the tests pass "cpu". `volume_impl` / `mega_impl` /
         `tail_impl`: "kernel" (the CUDA kernel of the volume stage — general
@@ -72,12 +81,15 @@ class Model:
         and update stages of the fused path; default on CUDA) or "plain"
         (its plain PyTorch version; default on the CPU). Which barotropic
         path runs is `cfg.mega`, then `cfg.fused_tail` (see
-        StaticConfig.mega, .fused_tail, .uni_volume)."""
+        StaticConfig.mega, .fused_tail, .uni_volume). `step_impl`: "graph"
+        (the step captured once as a CUDA graph and replayed; default on
+        CUDA) or "eager" (dispatched op by op; default on the CPU)."""
         self.device = _resolve_device(device)
         volume_impl = _resolve_impl("volume_impl", volume_impl, VOLUME_IMPLS,
                                     self.device)
         mega_impl = _resolve_impl("mega_impl", mega_impl, MEGA_IMPLS, self.device)
         tail_impl = _resolve_impl("tail_impl", tail_impl, TAIL_IMPLS, self.device)
+        self.step_impl = _resolve_impl("step_impl", step_impl, STEP_IMPLS, self.device)
         _set_full_precision()
         check_ported(cfg)
         self.cfg = cfg
@@ -104,18 +116,21 @@ class Model:
                          if self.static.mega else None)
         self.tail_ops = (build_fused_operators(self.static, self.g, self.P, self.bc)
                          if self.static.fused_tail and not self.static.mega else None)
+        # a graph holds the addresses of the tables it was captured with
+        self._graph = None
 
     @classmethod
     def from_tables(cls, cfg: Config, P, g, state0: State, device=None,
                     volume_impl: str | None = None,
                     mega_impl: str | None = None,
-                    tail_impl: str | None = None) -> "Model":
+                    tail_impl: str | None = None,
+                    step_impl: str | None = None) -> "Model":
         """A model stepping on given tables (see convert.from_numpy_tables)
         in place of the ones its own build_precomputed makes — the static
         parameters still come from `cfg`. Lets a test hold the stepping code
         against another implementation on identical tables."""
         m = cls(cfg, device=device, volume_impl=volume_impl, mega_impl=mega_impl,
-                tail_impl=tail_impl)
+                tail_impl=tail_impl, step_impl=step_impl)
         want = (m.dtype, m.device)
         for t in (P.pbprime, g.wjac, state0.qb_df):
             if (t.dtype, t.device) != want:
@@ -131,11 +146,70 @@ class Model:
         """The initial state (steps never mutate it)."""
         return self._state0
 
+    @property
+    def nsteps_total(self) -> int:
+        """Baroclinic steps from time_initial to time_final."""
+        return int(round((self.cfg.t_final - self.cfg.t_initial) / self.cfg.dt))
+
     def step(self, state: State) -> State:
         with torch.no_grad():
-            return ti_rk_bcl(self.static, self.P, self.g, self.bc, state,
-                             vol_ops=self.vol_ops, mega_ops=self.mega_ops,
-                             tail_ops=self.tail_ops)
+            out = (self._replay(state) if self.step_impl == "graph"
+                   else self._step_eager(state))
+        if self.cfg.debug_checks:
+            # debug mode: a per-step finite-value check, read back from the
+            # device after the step (the JAX package's, hnumo_tpu/model.py:186-200)
+            for name in ("qb_df", "q_df", "qprime_df"):
+                bad = int((~torch.isfinite(getattr(out, name))).sum())
+                if bad:
+                    raise FloatingPointError(
+                        f"debug_checks: {bad} non-finite values in {name} "
+                        f"at t={float(out.t)}")
+        return out
+
+    def _step_eager(self, state: State) -> State:
+        return ti_rk_bcl(self.static, self.P, self.g, self.bc, state,
+                         vol_ops=self.vol_ops, mega_ops=self.mega_ops,
+                         tail_ops=self.tail_ops)
+
+    def _capture(self, state: State) -> None:
+        """Record one step, from static input buffers shaped like `state`,
+        into a CUDA graph. One eager warm-up step on a side stream comes
+        first (PyTorch's recipe): it builds the kernels, plans their launches
+        and fills the caches of small device constants, none of which may
+        happen while the stream is captured. A failed capture raises: there
+        is no eager fallback."""
+        inputs = State(*[t.clone() for t in state])
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step_eager(inputs)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = self._step_eager(inputs)
+        self._graph = (graph, inputs, outputs)
+
+    def _replay(self, state: State) -> State:
+        """One step as a replay of the captured graph (captured at the first
+        step). The reference donates the state to its jitted step; here the
+        caller's state is copied into the graph's input buffers and the
+        result cloned out of its output buffers — a few MB, against a step
+        of thousands of launches — so that `step` keeps its contract: a
+        caller's State is never mutated, and a state a step returned is not
+        overwritten by a later one."""
+        with torch.cuda.device(self.device):
+            if self._graph is None:
+                self._capture(state)
+            graph, inputs, outputs = self._graph
+            for name, dst, src in zip(State._fields, inputs, state):
+                if (src.shape, src.dtype, src.device) != (dst.shape, dst.dtype, dst.device):
+                    raise ValueError(
+                        f"state.{name} is {tuple(src.shape)} {src.dtype} on "
+                        f"{src.device}; the captured step takes "
+                        f"{tuple(dst.shape)} {dst.dtype} on {dst.device}")
+                dst.copy_(src)
+            graph.replay()
+            return State(*[t.clone() for t in outputs])
 
     def run(self, state: State, nsteps: int, check_ok: bool = True) -> State:
         for _ in range(nsteps):

@@ -172,8 +172,6 @@ def build_mega_static(static, g, P, bc) -> MegaStatic:
     def dev(a):
         return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
-    a_tab = tuple(tuple(float(v) for v in row) for row in P.ssprk_a.tolist())
-    b_tab = tuple(float(v) for v in P.ssprk_beta.tolist())
     return MegaStatic(
         psiq=g.psiq.contiguous(), dpsiq=g.dpsiq.contiguous(),
         dpsi=g.dpsi.contiguous(),
@@ -184,7 +182,7 @@ def build_mega_static(static, g, P, bc) -> MegaStatic:
         pbprime_df=ef(P.pbprime_df), opbp_df=ef(P.one_over_pbprime_df),
         masku=ef(mu_w), maskv=ef(mv_w), ftab=ftab.contiguous(),
         ntab=ntab.contiguous(), nbr=nbr.reshape(E, 4).to(device).contiguous(),
-        mir_q=dev(mir_q), mir_g=dev(mir_g), a_tab=a_tab, b_tab=b_tab,
+        mir_q=dev(mir_q), mir_g=dev(mir_g), a_tab=static.ssprk_a, b_tab=static.ssprk_beta,
         ney=ney, nex=nex)
 
 

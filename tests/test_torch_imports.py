@@ -19,7 +19,10 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+hnumo_tpu(\s|\.|$
                                     "hnumo_tpu_torch.ops.mega",
                                     "hnumo_tpu_torch.ops.btp_volume_uni",
                                     "hnumo_tpu_torch.ops.btp_tail",
-                                    "hnumo_tpu_torch.core.btp"])
+                                    "hnumo_tpu_torch.core.btp",
+                                    "hnumo_tpu_torch.io.diagnostics",
+                                    "hnumo_tpu_torch.tools.goldens",
+                                    "hnumo_tpu_torch.tools.dgyre_campaign"])
 def test_import_pulls_in_no_jax(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
