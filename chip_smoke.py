@@ -21,8 +21,14 @@ kernels the replays run. Then the graphed step against the eager one,
 bitwise, on the three paths (and a step of each under the sync debug
 mode), the frozen f64 trajectories and the 108-step CI bump on the graphed
 step, the f32 double-gyre campaign's first 2 model days against the f64
-band, and eager against graphed ms/step in turns. Any failure raises and
-the run exits non-zero; there is no CPU path.
+band, and eager against graphed ms/step in turns. Then the run layer: the
+32x32 configuration written as a namelist and run through the CLI
+(`hnumo_tpu_torch.driver.main`, snapshots, FIN file), restarted from a
+snapshot and held against the straight run, in f32 and f64; and a deformed
+32x32 grid read from an MSH file with its $BC and $Bathy sections, whose
+metric varies from node to node, stepped through the general volume kernel
+(200 launches per step), which is held against its plain version on that
+metric. Any failure raises and the run exits non-zero; there is no CPU path.
 
 Output: one line per phase, then a `{"kernels": [...]}` line (five kernels), the card's
 name and power limit, and as the last line
@@ -32,8 +38,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -200,11 +208,22 @@ def check_kernel_against_plain(nelx, nely, dtype, botfr, nop=4, curvilinear=Fals
     must leave its inputs as they were and update each accumulator once (the
     plain version's result says what once is)."""
     from hnumo_tpu_torch.model import Model
-    from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda, btp_volume_plain
 
     m = Model(small_config(nelx, nely, dtype, botfr, nop=nop))
     ops = curvilinear_like(m.vol_ops, seed=botfr) if curvilinear else m.vol_ops
-    qbf, qplq, coupf, accv0, accn0 = volume_operands(m, seed=botfr)
+    return compare_volume_kernel(m, ops, seed=botfr,
+                                 what=f"botfr={botfr} E={nelx * nely} p={nop} "
+                                      f"curvilinear={curvilinear}")
+
+
+def compare_volume_kernel(m, ops, seed, what):
+    """The volume kernel against its plain version on the operators `ops`
+    and a perturbed state of model `m`, at the tolerance of its dtype;
+    returns (max scaled error, max abs error)."""
+    from hnumo_tpu_torch.ops.btp_volume import btp_volume_cuda, btp_volume_plain
+
+    dtype = m.cfg.dtype
+    qbf, qplq, coupf, accv0, accn0 = volume_operands(m, seed=seed)
     kw = volume_kwargs(m.static)
     inputs = (qbf, qplq, coupf, ops.met, ops.ptab, ops.pbp_df)
     keep = [t.clone() for t in inputs]
@@ -230,8 +249,8 @@ def check_kernel_against_plain(nelx, nely, dtype, botfr, nop=4, curvilinear=Fals
         worst_abs = max(worst_abs, err)
         if not err <= tol * scale:
             raise AssertionError(
-                f"kernel != plain: {name} {dtype} botfr={botfr} E={nelx * nely} p={nop} "
-                f"curvilinear={curvilinear}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+                f"kernel != plain: {name} {dtype} {what}: max|diff|={err:.3e} > "
+                f"{tol:g}*{scale:.3e}")
     return worst_scaled, worst_abs
 
 
@@ -367,16 +386,8 @@ def check_mega_vs_per_stage():
     w_solve, _, n = compare_solves(a, b, SOLVE_TOL, "megakernel != per-stage path")
     sa, sb = mm.run(mm.state0, 2), mp.run(mp.state0, 2)
     torch.cuda.synchronize()
-    w_step = 0.0
-    for name in ("qb_df", "q_df", "qprime_df"):
-        x, y = getattr(sa, name), getattr(sb, name)
-        scale = float(y.abs().max())
-        err = float((x - y).abs().max())
-        w_step = max(w_step, err / scale)
-        if not err <= STEP_TOL * scale:
-            raise AssertionError(f"two steps, megakernel != per-stage path: {name}: "
-                                 f"{err:.3e} vs scale {scale:.3e}")
-    return w_solve, n, w_step
+    w_step = compare_states(sa, sb, STEP_TOL, "two steps, megakernel != per-stage path")
+    return w_solve, n, max(w_step.values())
 
 
 def rand_like_shape(rng, shape, like):
@@ -647,8 +658,9 @@ def time_ablations(kernel, sets, n):
     return out
 
 
-def time_volume_stage(m, n=60, nsets=None):
-    """Kernel and plain version at this model's shapes.
+def time_volume_stage(m, n=60, nsets=None, ablations=True):
+    """Kernel and plain version at this model's shapes (on its own
+    operators: its metric), and with `ablations` the kernel's ablated builds.
 
     Times are taken twice: rotating over enough independent operand sets to
     exceed the 50 MB L2 ("cold": every launch reads its data from device
@@ -674,7 +686,7 @@ def time_volume_stage(m, n=60, nsets=None):
            "ms_hot": time_launches(kernel, sets[:1], n, device_only=True),
            "ms_hot_with_wrapper": time_launches(kernel, sets[:1], n),
            "plain_ms_hot": time_launches(plain, sets[:1], n),
-           **time_ablations(kernel, sets, n)}
+           **(time_ablations(kernel, sets, n) if ablations else {})}
     btp_volume_cuda.launches = before   # timing launches are not the path's
     return out
 
@@ -1153,8 +1165,6 @@ def check_campaign_spin_up(days: float = 2.0):
     """The committed double-gyre campaign's first `days` model days (f32,
     25x25, graphed) against docs/artifacts/dgyre_f64_cpu.json in the band of
     tests/test_campaign.py (hnumo_tpu_torch/tools/dgyre_campaign.band)."""
-    import pathlib
-
     from hnumo_tpu_torch.model import Model
     from hnumo_tpu_torch.tools import dgyre_campaign as dc
 
@@ -1203,6 +1213,328 @@ def time_in_turns(cfg, steps: int, out_path=None, title=None):
                 "replay_device_idle_share":
                     1.0 - prof["replay_device_busy_ms"] / (sum(ms["graph"]) / 2)})
     return out
+
+
+# ---- the run layer (phase 20) and a curvilinear grid (phase 21) --------------
+
+CLI_STEPS = 20        # steps of the CLI's run: time_final
+CLI_EVERY = 5         # a snapshot every CLI_EVERY steps: time_restart
+CLI_RESTART_AT = 10   # the snapshot the restarted run starts from
+# The restart. A txt snapshot keeps the derived fields and pb, not pb'
+# (reference src/diagnostics.F90, src/mod_restart.F90): the restored pb' =
+# pb - pbprime carries the rounding of pb, up to one unit in the last place
+# (ulp) of max|pb| (f32: 8 Pa at the double gyre's 1e8 Pa, 0.8 mm of free
+# surface; f64: 1.5e-8 Pa). Every other channel is rebuilt from f64 derived
+# values, to its rounding (a unit: the channel's ulp in its dtype plus the
+# f64 ulp of the full variable it is rebuilt from) and to the model's own
+# consistency between u', v' and u - ub, which cancel: measured at most 3
+# units in f32 and 12 in f64 (8x8 on the CPU, 32x32 on the H100);
+# RESTORE_ULPS allows 100 (a wrong reference state or alpha rounded to f32
+# is ~2000). The
+# gravity waves that the pb' error radiates over the next steps carry
+# momenta of up to max|pb| * err / (rho * sqrt(g H)): the final error is
+# linear in the restored pb' error and so proportional to the dtype's
+# epsilon, while the momenta it is compared with grow with the time
+# stepped. Measured after 10 more steps, per channel over its max: 4.3e-2
+# (f32) and 5.2e-11 (f64) at 8x8 on the CPU, 1.2e-1 and 2.7e-10 at 32x32 on
+# the H100 (1.0e6 and 1.2e6 epsilons), with restored pb' errors of 0.77
+# and 0.5 ulp of pb; at a full ulp the f64 reading would be 2.4e6
+# epsilons. The final states are held within RESTART_FINAL_EPS epsilons of
+# each channel's max, pb' within twice its restored error. A restart that
+# must be exact takes the npz checkpoint (io/snapshots.save_checkpoint).
+RESTORE_ULPS = 100
+RESTART_FINAL_EPS = 4e6
+CURV_DEFORM = 0.2     # interior-vertex displacement of the curvilinear grid, of a cell
+CURV_STEPS = 5        # graphed f32 steps on it
+
+
+def write_namelist(path, cfg, **over):
+    """A reference-format namelist (numo3d.in) holding every field of
+    `cfg` (with `over`) that differs from the default, but its dtype: the
+    CLI's --f32 chooses that."""
+    import dataclasses
+
+    from hnumo_tpu_torch.config import Config
+
+    cfg = dataclasses.replace(cfg, **over)
+    grid = ("nelx", "nely", "nopx", "nopy", "xdims", "ydims", "nlayers",
+            "x_boundary", "y_boundary")
+
+    def fmt(v):
+        if isinstance(v, bool):
+            return ".true." if v else ".false."
+        if isinstance(v, str):
+            return f"'{v}'"
+        if isinstance(v, tuple):
+            return ", ".join(fmt(x) for x in v)
+        return repr(v)
+
+    lines = {"gridnl": [], "input": []}
+    for f in dataclasses.fields(Config):
+        v = getattr(cfg, f.name)
+        if f.name != "dtype" and v != f.default:
+            lines["gridnl" if f.name in grid else "input"].append(f" {f.name} = {fmt(v)}")
+    path.write_text("".join(f"&{g}\n" + "\n".join(ls) + "\n/\n" for g, ls in lines.items()))
+    return path
+
+
+def compare_states(got, want, tol, what, per_channel=False, skip=()):
+    """Every field (or channel) of `got` but those named in `skip` within
+    tol * max|want|; returns {field: max error / scale}."""
+    out = {}
+    for name in ("qb_df", "q_df", "qprime_df"):
+        a, b = getattr(got, name).double(), getattr(want, name).double()
+        for c, (x, y) in enumerate(zip(a, b) if per_channel else [(a, b)]):
+            key = f"{name}[{c}]" if per_channel else name
+            scale = float(y.abs().max())
+            err = float((x - y).abs().max())
+            out[key] = err / scale
+            if key not in skip and not err <= tol * scale:
+                raise AssertionError(f"{what}: {key}: max|diff| {err:.3e} > {tol:g} * "
+                                     f"{scale:.3e}")
+    return out
+
+
+def cli_run(nml, outdir, *args):
+    """driver.main on `nml` with the launch counters zeroed just before it
+    and read just after: (runner, final state, summary, counts)."""
+    from hnumo_tpu_torch import driver
+
+    wrappers = zero_counts()
+    runner, state, summ = driver.main([str(nml), "--outdir", str(outdir), "--quiet", *args])
+    torch.cuda.synchronize()
+    return runner, state, summ, {k: fn.launches for k, fn in wrappers.items()}
+
+
+def check_cli(tmp):
+    """bench.py's configuration (32x32 f32 double gyre, the megakernel
+    path) run through the CLI, `python -m hnumo_tpu_torch numo3d.in --f32`,
+    for CLI_STEPS steps with a snapshot every CLI_EVERY; a second run
+    restarted from snapshot CLI_RESTART_AT, and the same two in f64;
+    NetCDF and binary VTK snapshots of the final state; the Runner's ms/step
+    beside Model.run's on the same model, in turns."""
+    import dataclasses
+    import shutil
+
+    from hnumo_tpu_torch.config import config_from_namelist
+    from hnumo_tpu_torch.core.types import State
+    from hnumo_tpu_torch.io import snapshots as snap
+    from hnumo_tpu_torch.io.vtk import write_vtk
+
+    base = main_path_config(32, "float32")
+    cfg = dataclasses.replace(base, time_final=CLI_STEPS * base.dt,
+                              time_restart=CLI_EVERY * base.dt)
+    nml = write_namelist(tmp / "numo3d.in", cfg)
+    if config_from_namelist(nml, dtype="float32") != cfg:
+        raise AssertionError("the CLI's namelist does not read back as bench.py's configuration")
+    restart = dict(time_initial=CLI_RESTART_AT * cfg.dt, irestart_file_number=CLI_RESTART_AT)
+    nml_r = write_namelist(tmp / "restart.in", cfg, **restart)
+    rfile = f"mlswe{CLI_RESTART_AT:04d}"
+    out = {}
+    for tag, args in (("f32", ("--f32",)), ("f64", ())):
+        run_dir, rst_dir = tmp / f"run_{tag}", tmp / f"restart_{tag}"
+        t0 = time.perf_counter()
+        runner, state, summ, counts = cli_run(nml, run_dir, *args)
+        wall = time.perf_counter() - t0
+        m = runner.model
+        if not (m.step_impl == "graph" and m.static.mega and m.static.mega_impl == "kernel"
+                and m.cfg.dtype == ("float32" if tag == "f32" else "float64")):
+            raise AssertionError(f"CLI {tag}: expected the graphed megakernel path")
+        want = {k: 2 * path_launches_per_step(m).get(k, 0) for k in counts}
+        if counts != want:        # the first step: eager warm-up and capture
+            raise AssertionError(f"CLI {tag}: launched {counts}, expected {want}")
+        names = [f"mlswe{i:04d}" for i in range(0, CLI_STEPS + 1, CLI_EVERY)]
+        missing = [n for n in names + ["mlswe_FIN.txt", "time.csv", "mass_mlswe.cons"]
+                   if not (run_dir / n).exists()]
+        if missing:
+            raise AssertionError(f"CLI {tag}: missing output files {missing}")
+        loss = [layer["mass_loss"] for layer in summ["layers"]]
+        if not (bool(state.ok) and max(loss) <= MASS_TOL):
+            raise AssertionError(f"CLI {tag}: ok={bool(state.ok)}, mass loss {loss}")
+        for name in ("qb_df", "q_df", "qprime_df"):
+            if not bool(torch.isfinite(getattr(state, name)).all()):
+                raise AssertionError(f"CLI {tag}: non-finite values in {name}")
+        # the restart: snapshot CLI_RESTART_AT alone in a directory of its own
+        rst_dir.mkdir()
+        shutil.copy(run_dir / rfile, rst_dir)
+        r2, state2, _, counts2 = cli_run(nml_r, rst_dir, *args)
+        if counts2 != want or r2.ntime != CLI_STEPS or float(state2.t) != float(state.t):
+            raise AssertionError(f"CLI {tag} restart: launched {counts2}, ntime {r2.ntime}, "
+                                 f"t {float(state2.t)} vs {float(state.t)}")
+        # exact: the restarted run is the straight model's steps from the
+        # restored snapshot, bit for bit (the same graph on the same inputs)
+        restored = snap.restore_state(m, snap.read_txt(rst_dir / rfile),
+                                      t=restart["time_initial"])
+        control = m.run(restored, CLI_STEPS - CLI_RESTART_AT)
+        if not all(torch.equal(a, b) for a, b in zip(control, state2)):
+            raise AssertionError(f"CLI {tag} restart != the straight model stepped from the "
+                                 f"restored snapshot")
+        entry = {"wall_s": wall, "mass_loss": loss, "replay": replay_profile(m, state),
+                 "launches_at_capture": counts, "restart_launches_at_capture": counts2}
+        # the restored state against the straight run's at the same step, in
+        # units of the rounding it went through: the channel's in its dtype,
+        # and the f64 one of the full variable it was rebuilt from (the full
+        # thickness for the thickness channels, the layer velocity for u', v')
+        straight = m.run(m.state0, CLI_RESTART_AT)
+        dp = m.P.dpp_ref_df.double() + straight.q_df[0].double()
+        full = {"q_df[0]": float(dp.abs().max()), "qprime_df[0]": float(dp.abs().max())}
+        full["qprime_df[1]"] = full["qprime_df[2]"] = float(
+            (straight.q_df[1:].double() / dp).abs().max())
+        ulp = {}
+        for name in State._fields[:3]:
+            for c, (x, y) in enumerate(zip(getattr(restored, name), getattr(straight, name))):
+                key = f"{name}[{c}]"
+                err = float((x.double() - y.double()).abs().max())
+                ymax = float(y.abs().max())
+                unit = (float(np.spacing(ymax, dtype=np.dtype(m.cfg.dtype)))
+                        + float(np.spacing(full.get(key, ymax))))
+                ulp[key] = err / unit
+                if key == "qb_df[1]":      # pb - pbprime: one ulp of pb
+                    pb_ulp = float(np.spacing(float(straight.qb_df[0].abs().max()),
+                                              dtype=np.dtype(m.cfg.dtype)))
+                    entry.update(restored_pb_prime_err=err, pb_ulp=pb_ulp)
+                    if not err <= pb_ulp:
+                        raise AssertionError(f"CLI {tag}: restored pb' off by {err:.3e} > "
+                                             f"one ulp of max|pb| {pb_ulp:.3e}")
+                elif not ulp[key] <= RESTORE_ULPS:
+                    raise AssertionError(f"CLI {tag}: restored {key} off by {ulp[key]:.1f} "
+                                         f"units of rounding > {RESTORE_ULPS}")
+        tol = RESTART_FINAL_EPS * torch.finfo(m.dtype).eps
+        final = compare_states(state2, state, tol, f"{tag} restart vs straight run",
+                               per_channel=True, skip=("qb_df[1]",))
+        dpb = float((state2.qb_df[1] - state.qb_df[1]).abs().max())
+        if not dpb <= 2 * entry["restored_pb_prime_err"]:
+            raise AssertionError(f"CLI {tag} restart: final pb' off by {dpb:.3e} > twice "
+                                 f"the restored {entry['restored_pb_prime_err']:.3e}")
+        entry.update(restored_ulps=ulp, restart_vs_straight=final, restart_tol=tol,
+                     final_pb_prime_err=dpb)
+        if tag == "f32":
+            # the other writers on the final state, and the NetCDF read back
+            path = snap.write_nc(m, state, CLI_STEPS, outdir=str(run_dir))
+            back, ref = snap.read_nc(path), snap.snapshot_arrays(m, state)
+            for k in ("x", "y", "pb", "pbub", "pbvb", "zbot", "h", "u", "v", "eta"):
+                if not np.array_equal(back[k], ref[k]):
+                    raise AssertionError(f"NetCDF snapshot: {k} does not read back")
+            vtks = write_vtk(m, state, CLI_STEPS, outdir=str(run_dir), fmt="binary")
+            raw = open(vtks[0], "rb").read()
+            i = raw.index(b"POINTS")
+            j = raw.index(b"\n", i) + 1
+            npts = ref["npoin"]
+            pts = np.frombuffer(raw[j:j + 12 * npts], dtype=">f4").reshape(-1, 3)
+            if len(vtks) != 2 or b"BINARY" not in raw[:120] or not np.allclose(
+                    pts[:, 0], ref["x"], rtol=1e-6):
+                raise AssertionError("binary VTK snapshot: wrong header or points")
+            entry["turns"] = runner_in_turns(m, tmp / "turns")
+        out[tag] = entry
+        del runner, r2, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def runner_in_turns(m, outdir):
+    """ms/step of the Runner (its snapshots, diagnostics and FIN file
+    included; and of its steps alone, its rhs_time) and of Model.run on the
+    same model from the initial state, in turns Runner, run, run, Runner."""
+    from hnumo_tpu_torch import driver
+
+    ms = {"runner": [], "runner_steps": [], "model_run": []}
+    for kind in ("runner", "model_run", "model_run", "runner"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "runner":
+            r = driver.Runner(m, outdir=str(outdir))
+            r.run(quiet=True)
+            ms["runner_steps"].append(r.rhs_time / r.ntime * 1e3)
+        else:
+            m.run(m.state0, CLI_STEPS)
+        torch.cuda.synchronize()
+        ms[kind].append((time.perf_counter() - t0) / CLI_STEPS * 1e3)
+    return ms
+
+
+def write_msh(path, nel, length, deform, bathy, bc_codes=(4, 4, 4, 4)):
+    """An MSH 2.2 ASCII file of an nel x nel quad grid on [0, length]^2 with
+    its interior vertices displaced by a smooth deformation of `deform` cells
+    (the outer sides stay straight), boundary lines tagged 1-4 (west, east,
+    south, north) with `bc_codes` in a $BC section, and a $Bathy section of
+    bathy(x, y) at the vertices."""
+    n = nel + 1
+    X, Y = np.meshgrid(np.linspace(0.0, length, n), np.linspace(0.0, length, n))
+    cell = length / nel
+    sx, sy = np.sin(np.pi * X / length), np.sin(np.pi * Y / length)
+    X = X + deform * cell * sx * sy
+    Y = Y + deform * cell * np.sin(2 * np.pi * X / length) * sy
+    nid = np.arange(n * n).reshape(n, n) + 1
+    lines = []
+    for iy in range(nel):
+        lines += [(1, nid[iy, 0], nid[iy + 1, 0]), (2, nid[iy, -1], nid[iy + 1, -1])]
+    for ix in range(nel):
+        lines += [(3, nid[0, ix], nid[0, ix + 1]), (4, nid[-1, ix], nid[-1, ix + 1])]
+    quads = [(nid[ey, ex], nid[ey, ex + 1], nid[ey + 1, ex + 1], nid[ey + 1, ex])
+             for ey in range(nel) for ex in range(nel)]
+    rows = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes", str(n * n)]
+    rows += [f"{k} {x:.16e} {y:.16e} 0" for k, x, y in zip(nid.ravel(), X.ravel(), Y.ravel())]
+    rows += ["$EndNodes", "$Elements", str(len(lines) + len(quads))]
+    rows += [f"{k} 1 2 {t} {t} {a} {b}" for k, (t, a, b) in enumerate(lines, 1)]
+    rows += [f"{k} 3 2 99 99 {a} {b} {c} {d}"
+             for k, (a, b, c, d) in enumerate(quads, len(lines) + 1)]
+    rows += ["$EndElements", "$BC", "4"] + [f"{t} {c}" for t, c in zip((1, 2, 3, 4), bc_codes)]
+    rows += ["$EndBC", "$Bathy", "nodal"]
+    rows += [f"{k} {z:.16e}" for k, z in zip(nid.ravel(), bathy(X, Y).ravel())]
+    rows += ["$EndBathy"]
+    path.write_text("\n".join(rows) + "\n")
+    return path
+
+
+def check_curvilinear(tmp):
+    """bench.py's basin on a deformed 32x32 grid read from an MSH file with
+    a seamount from its $Bathy section, through a namelist: a grid whose
+    metric varies from node to node, on which every barotropic stage runs
+    the general volume kernel. The kernel against its plain version on this
+    model's operands; f64 steps with the kernel against steps with the
+    plain version; f32 graphed steps; the kernel's time beside its bound,
+    and beside its time on the 32x32 brick."""
+    import dataclasses
+
+    from hnumo_tpu_torch.config import config_from_namelist
+    from hnumo_tpu_torch.model import Model
+
+    base = main_path_config(32, "float32")
+    length = base.xdims[1]
+    msh = write_msh(tmp / "basin.msh", 32, length, CURV_DEFORM,
+                    lambda x, y: -9928.0 + 1500.0 * np.exp(
+                        -((x - 0.5 * length) ** 2 + (y - 0.5 * length) ** 2) / (0.2 * length) ** 2))
+    nml = write_namelist(tmp / "curvilinear.in", base, lread_external_grid=True, mesh_file=str(msh),
+                         lread_external_bathy=True)
+    cfg = config_from_namelist(nml, dtype="float32")
+    m = Model(cfg)
+    st = m.static
+    if (m.cfg.nelx, m.cfg.nely) != (32, 32) or st.uniform_geom or st.mega or \
+            st.volume_impl != "kernel" or m.step_impl != "graph":
+        raise AssertionError(f"curvilinear 32x32: expected the graphed per-stage path with "
+                             f"the volume kernel on a non-uniform grid, got "
+                             f"{(m.cfg.nelx, m.cfg.nely)} uniform_geom={st.uniform_geom} "
+                             f"mega={st.mega} volume_impl={st.volume_impl}")
+    met = m.vol_ops.met
+    spread = float((met[:4].amax(dim=(1, 2)) - met[:4].amin(dim=(1, 2))).max()
+                   / met[:4].abs().max())
+    run, s = drive(m, warm=1, steps=CURV_STEPS)
+    replay = replay_profile(m, s)
+    m64 = Model(config_from_namelist(nml))
+    errs = {"float32": compare_volume_kernel(m, m.vol_ops, 31, "curvilinear 32x32"),
+            "float64": compare_volume_kernel(m64, m64.vol_ops, 31, "curvilinear 32x32")}
+    mp = Model(config_from_namelist(nml), volume_impl="plain")
+    step = compare_states(m64.run(m64.state0, 2), mp.run(mp.state0, 2), STEP_TOL,
+                          "curvilinear f64, two steps, volume kernel vs plain version")
+    del m64, mp
+    timing = time_volume_stage(m, ablations=False)
+    bound = volume_bound(m)
+    brick = Model(dataclasses.replace(base, mega="off"))
+    timing_brick = time_volume_stage(brick, ablations=False)
+    del brick
+    torch.cuda.empty_cache()
+    return {"run": run, "replay": replay, "metric_spread": spread, "errs": errs,
+            "step_err": step, "timing": timing, "bound": bound, "timing_brick": timing_brick}
 
 
 def main() -> int:
@@ -1644,7 +1976,62 @@ def main() -> int:
                 "replay_device_idle_share": t["replay_device_idle_share"],
                 "peak_gib_eager": t["peak_gib_eager"], "peak_gib_graph": t["peak_gib_graph"]}
 
-    # ---- phase 20: the kernels line ------------------------------------------
+    # ---- phase 20: the run layer: the CLI at full width, restart included -------
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = check_cli(pathlib.Path(tmp))
+    c32, c64 = cli["f32"], cli["f64"]
+    turns_cli = c32["turns"]
+
+    def restart_text(c):
+        return (f"restored pb' off by {c['restored_pb_prime_err']:.3e} Pa (limit one ulp of "
+                f"max|pb|, {c['pb_ulp']:.3e}), other channels by at most "
+                f"{max(v for k, v in c['restored_ulps'].items() if k != 'qb_df[1]'):.2f} "
+                f"units of their rounding (limit {RESTORE_ULPS}); final state vs the "
+                f"straight run, "
+                f"per channel over its max: " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in c["restart_vs_straight"].items())
+                + f" (limit {c['restart_tol']:.2e} but pb', whose final error "
+                f"{c['final_pb_prime_err']:.3e} Pa is within twice the restored one)")
+
+    print(f"phase 20 CLI (python -m hnumo_tpu_torch numo3d.in) on bench.py's 32x32 "
+          f"configuration, {CLI_STEPS} steps, a txt snapshot every {CLI_EVERY}, through the "
+          f"graphed megakernel: f32 (--f32) {c32['wall_s']:.2f} s, f64 {c64['wall_s']:.2f} s; "
+          f"mlswe0000-{CLI_STEPS:04d}, mlswe_FIN.txt, time.csv, mass_mlswe.cons written; "
+          f"mass loss per layer f32 {', '.join(f'{v:.2e}' for v in c32['mass_loss'])}, f64 "
+          f"{', '.join(f'{v:.2e}' for v in c64['mass_loss'])} (limit {MASS_TOL:g}); launches "
+          f"at capture {json.dumps({k: v for k, v in c32['launches_at_capture'].items() if v})}"
+          f", one replayed step "
+          f"{json.dumps({k: v for k, v in c32['replay']['replay_kernels'].items() if v})}; "
+          f"restarted from mlswe{CLI_RESTART_AT:04d}: == the straight model stepped from the "
+          f"restored snapshot, bitwise (f32 and f64); f32 {restart_text(c32)}; f64 "
+          f"{restart_text(c64)}; NetCDF snapshot read back exactly, binary VTK written; "
+          f"f32 ms/step in turns Runner, Model.run, Model.run, Runner: "
+          f"{turns_cli['runner'][0]:.2f}, {turns_cli['model_run'][0]:.2f}, "
+          f"{turns_cli['model_run'][1]:.2f}, {turns_cli['runner'][1]:.2f} (the Runner's "
+          f"steps alone {turns_cli['runner_steps'][0]:.2f}, "
+          f"{turns_cli['runner_steps'][1]:.2f})")
+
+    # ---- phase 21: kernel 1 on a curvilinear grid read from an MSH file --------
+    with tempfile.TemporaryDirectory() as tmp:
+        curv = check_curvilinear(pathlib.Path(tmp))
+    cr, ct, cb = curv["run"], curv["timing"], curv["bound"]
+    print(f"phase 21 curvilinear 32x32 (deformed by {CURV_DEFORM:g} of a cell, $BC, "
+          f"$Bathy seamount; metric spread {curv['metric_spread']:.3f} of its max) f32: "
+          f"uniform_geom False, {cr['ms_per_step']:.2f} ms/step ({cr['step_impl']}), "
+          f"{cr['gp_steps_per_s']:.4g} gp-steps/s, launches at capture "
+          f"{json.dumps({k: v for k, v in cr['counts'].items() if v})}, one replayed step "
+          f"{json.dumps({k: v for k, v in curv['replay']['replay_kernels'].items() if v})}, "
+          f"ok, finite, mass drift {cr['mass_drift']:.2e}; volume kernel vs plain on this "
+          f"model's operands f64 / f32 {curv['errs']['float64'][0]:.3e} / "
+          f"{curv['errs']['float32'][0]:.3e} (tol {F64_TOL:g} / {F32_TOL:g}); f64 two "
+          f"steps, kernel vs plain version "
+          + ", ".join(f"{k} {v:.2e}" for k, v in curv["step_err"].items())
+          + f" (tol {STEP_TOL:g}); volume kernel {ct['ms']:.4f} ms/launch on the device "
+          f"({ct['ms_with_wrapper']:.4f} as the host launches it), plain "
+          f"{ct['plain_ms']:.4f}, bound {cb['bound_ms']:.4f} ms by {cb['bound_by']}; on the "
+          f"32x32 brick {curv['timing_brick']['ms']:.4f}")
+
+    # ---- phase 22: the kernels line ------------------------------------------
     replaces = {"btp_volume_uni": "hnumo_tpu/ops/pallas_btp.py:287",
                 "btp_faces": "hnumo_tpu/ops/pallas_btp_tail.py:158",
                 "btp_update": "hnumo_tpu/ops/pallas_btp_tail.py:362"}
@@ -1698,6 +2085,20 @@ def main() -> int:
         "step_ms": run64["ms_per_step"], "gp_steps_per_s": run64["gp_steps_per_s"],
         **big, **extra,
         "graph": graph_extras("64x64 per-stage", "64x64 per-stage"),
+        "curvilinear_32": {
+            "launches_at_capture": cr["counts"]["btp_volume"],
+            "replay_launches_per_step": curv["replay"]["replay_kernels"]["btp_volume"],
+            "max_abs_err": curv["errs"]["float32"][1],
+            "max_err_over_scale": curv["errs"]["float32"][0],
+            "max_err_over_scale_f64": curv["errs"]["float64"][0],
+            "step_err_f64_kernel_vs_plain": curv["step_err"],
+            "ms": ct["ms"], "ms_with_wrapper": ct["ms_with_wrapper"],
+            "plain_ms": ct["plain_ms"], "ms_hot": ct["ms_hot"],
+            "bound_ms": cb["bound_ms"], "bound_by": cb["bound_by"],
+            "ms_brick_32": curv["timing_brick"]["ms"],
+            "plain_ms_brick_32": curv["timing_brick"]["plain_ms"],
+            "metric_spread": curv["metric_spread"], "step_ms": cr["ms_per_step"],
+            "gp_steps_per_s": cr["gp_steps_per_s"], "mass_drift": cr["mass_drift"]},
     }, {
         "name": "btp_mega", "route": "cuda",
         "source": "hnumo_tpu_torch/ops/csrc/btp_mega.cu",
@@ -1732,6 +2133,16 @@ def main() -> int:
         **extra32,
         "graph": graph_extras("32x32 megakernel", "32x32 megakernel"),
         "goldens_f64": gold, "campaign_spin_up": spin,
+        "cli_32": {"launches_at_capture": c32["launches_at_capture"]["btp_mega"],
+                   "replay_launches_per_step": c32["replay"]["replay_kernels"]["btp_mega"],
+                   "wall_s": c32["wall_s"], "mass_loss": c32["mass_loss"],
+                   "restart_f32": {k: c32[k] for k in (
+                       "restored_pb_prime_err", "pb_ulp", "restored_ulps",
+                       "restart_vs_straight", "restart_tol", "final_pb_prime_err")},
+                   "restart_f64": {k: c64[k] for k in (
+                       "restored_pb_prime_err", "pb_ulp", "restored_ulps",
+                       "restart_vs_straight", "restart_tol", "final_pb_prime_err")},
+                   "ms_per_step_turns": turns_cli},
     }] + fused_entries
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -309,8 +309,6 @@ def check_ported(cfg: Config) -> None:
     """Raise for the options of the JAX package that are not ported yet."""
     if cfg.nopy != cfg.nopx:
         raise NotImplementedError("anisotropic polynomial order not supported yet")
-    if cfg.lread_external_grid or cfg.lread_external_bathy or cfg.lread_bc:
-        raise NotImplementedError("external meshes/bathymetry are not ported yet")
     if 3 in cfg.x_boundary or 3 in cfg.y_boundary:
         raise NotImplementedError("periodic boundaries are not ported yet")
     if cfg.ti_method_btp not in ("rk35", "ssprk"):

@@ -10,6 +10,8 @@ caller's State is never mutated or consumed, so it can be stepped again.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .config import Config
@@ -92,19 +94,39 @@ class Model:
         self.step_impl = _resolve_impl("step_impl", step_impl, STEP_IMPLS, self.device)
         _set_full_precision()
         check_ported(cfg)
-        self.cfg = cfg
         self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
 
-        bc = (cfg.x_boundary[0], cfg.x_boundary[1],
-              cfg.y_boundary[0], cfg.y_boundary[1])
-        self.geom = build_geometry(cfg.nelx, cfg.nely, cfg.nopx, cfg.xdims,
-                                   cfg.ydims, bc=bc,
-                                   exact_integration=cfg.dg_integ_exact)
+        zbot_ext = None
+        if cfg.lread_external_grid:
+            # external gmsh mesh (reference read_gmsh + read_bathy,
+            # src/read_gmsh.F90); the BC codes come from its $BC section
+            from .mesh.gmsh import geometry_from_msh
+
+            self.geom, zbot_ext = geometry_from_msh(
+                cfg.mesh_file, cfg.nopx, exact_integration=cfg.dg_integ_exact,
+                bathy_path=(cfg.bathymetry_file
+                            if cfg.lread_external_bathy else None),
+                use_bathy=cfg.lread_external_bathy)
+            if zbot_ext is not None and cfg.bathymetry_shift:
+                zbot_ext = zbot_ext + cfg.bathymetry_shift
+            # the configuration describes the grid that runs: the mesh's
+            # element counts and boundary codes
+            bc = self.geom.bc
+            cfg = dataclasses.replace(cfg, nelx=self.geom.nelx, nely=self.geom.nely,
+                                      x_boundary=bc[:2], y_boundary=bc[2:])
+            check_ported(cfg)
+        else:
+            bc = (cfg.x_boundary[0], cfg.x_boundary[1],
+                  cfg.y_boundary[0], cfg.y_boundary[1])
+            self.geom = build_geometry(cfg.nelx, cfg.nely, cfg.nopx, cfg.xdims,
+                                       cfg.ydims, bc=bc,
+                                       exact_integration=cfg.dg_integ_exact)
+        self.cfg = cfg
         self.g = device_geom(self.geom, self.dtype, self.device)
         self.bc = BCs(*bc)
         self.P, self._state0, self.static, self.init_fields = build_precomputed(
             cfg, self.geom, self.dtype, self.device, volume_impl=volume_impl,
-            mega_impl=mega_impl, tail_impl=tail_impl)
+            mega_impl=mega_impl, tail_impl=tail_impl, zbot_ext=zbot_ext)
         self._build_operators()
 
     def _build_operators(self):

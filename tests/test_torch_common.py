@@ -6,6 +6,7 @@ packages as numpy arrays.
 """
 import jax
 import numpy as np
+import pytest
 import torch
 
 from hnumo_tpu.config import Config as JaxConfig
@@ -101,3 +102,15 @@ def sumfact_scatter(psiq, dpsiq, a_ksi, a_eta, s=None):
         t1 = t1 + np.einsum("...JI,iI->...Ji", sq(s), psiq)
     r = np.einsum("...Ji,jJ->...ji", t1, psiq) + np.einsum("...Ji,jJ->...ji", t2, dpsiq)
     return r.reshape(r.shape[:-2] + (ngl * ngl,))
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """A port step on the CPU is thousands of operations on small tensors:
+    one intra-op thread runs it several times faster than many, and the
+    suite's workers share the machine's cores. Applies to every test of a
+    module that imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -13,23 +13,12 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from hnumo_tpu_torch.config import Config as TorchConfig
 from hnumo_tpu_torch.model import Model
 from hnumo_tpu_torch.tools import goldens
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 from tools.freeze_goldens import bump_config, dgyre_config
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """A step here is thousands of operations on small tensors: one intra-op
-    thread runs it several times faster than many, and the suite's workers
-    share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_config(jax_cfg) -> TorchConfig:

@@ -22,7 +22,14 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+hnumo_tpu(\s|\.|$
                                     "hnumo_tpu_torch.core.btp",
                                     "hnumo_tpu_torch.io.diagnostics",
                                     "hnumo_tpu_torch.tools.goldens",
-                                    "hnumo_tpu_torch.tools.dgyre_campaign"])
+                                    "hnumo_tpu_torch.tools.dgyre_campaign",
+                                    "hnumo_tpu_torch.config",
+                                    "hnumo_tpu_torch.driver",
+                                    "hnumo_tpu_torch.__main__",
+                                    "hnumo_tpu_torch.io.snapshots",
+                                    "hnumo_tpu_torch.io.vtk",
+                                    "hnumo_tpu_torch.mesh.gmsh",
+                                    "hnumo_tpu_torch.mesh.bcinp"])
 def test_import_pulls_in_no_jax(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -106,3 +113,23 @@ def test_unported_options_raise(over, match):
                            ydims=(0.0, 2e6), test_case="double_gyre"), **over})
     with pytest.raises(NotImplementedError, match=match):
         Model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(x_boundary=(3, 3)), "periodic"),
+    (dict(y_boundary=(4, 3)), "periodic"),
+    (dict(ti_method_btp="lsrk"), "ti_method_btp"),
+    (dict(method_visc=1, visc_mlswe=10.0), "method_visc"),
+    (dict(ad_mlswe=1e-3), "ad_mlswe"),
+])
+def test_check_ported_refuses_what_stays_unported(over, match):
+    """The external inputs are ported now; with them switched on, what is
+    still not ported is refused all the same."""
+    from hnumo_tpu_torch.config import Config
+    from hnumo_tpu_torch.core.init import check_ported
+
+    external = dict(lread_external_grid=True, mesh_file="m.msh",
+                    lread_external_bathy=True, lread_bc=True)
+    check_ported(Config(**external))
+    with pytest.raises(NotImplementedError, match=match):
+        check_ported(Config(**{**external, **over}))
