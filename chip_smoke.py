@@ -11,7 +11,9 @@ megakernel on both of its routes), and drives the port's main
 paths through `Model.run` on the double-gyre configuration (f32, p=4,
 2 layers, SSP(5,3), N_btp=20): 32x32 elements through the whole-solve
 megakernel (two launches per step, its resident route), 64x64 and a short run at 256x256
-through the per-stage path with the volume kernel, and the same two grids
+through the per-stage path with the volume kernel (at 256x256, above 8192
+elements, with the per-direction face pipeline that `batched_faces="auto"`
+chooses there), and the same two grids
 through the fused path (`mega="off", fused_tail="on"`: the uniform-geometry
 volume kernel, the all-faces kernel and the update kernel, 200 launches of
 each per step). `Model` steps through a captured CUDA graph by default: the
@@ -28,9 +30,22 @@ snapshot and held against the straight run, in f32 and f64; and a deformed
 32x32 grid read from an MSH file with its $BC and $Bathy sections, whose
 metric varies from node to node, stepped through the general volume kernel
 (200 launches per step), which is held against its plain version on that
-metric. Any failure raises and the run exits non-zero; there is no CPU path.
+metric. Then the options off the main path, each at the full width of the
+double gyre, graphed, with its launches counted in a replay's trace, its
+kernels held against their plain versions on the operands of that path,
+and f64 steps at 12x12 or 6x5 against another path: the quad-family LDG
+viscosity (method_visc=1) at 64x64, which takes kernel 1 and the
+per-direction faces (phase 22); the two face pipelines of the per-stage
+path at 128x128 timed in turns (23); LSRK with 5 and 14 stages at 64x64,
+and lsrk_ref through the fused path at 32x32 (24); periodic boundaries at
+64x64 through the fused and the per-stage path, and at 32x32 off the
+megakernel (25); the vertical shear stress through the megakernel and
+quadratic bottom drag (botfr=2) through the megakernel and the fused path
+(26). Any failure raises and the run exits non-zero; there is no CPU path.
 
-Output: one line per phase, then a `{"kernels": [...]}` line (five kernels), the card's
+Output: one line per phase, then a `{"kernels": [...]}` line (five kernels; each
+entry that a phase from 22 on launched carries that phase's readings under
+a key of its own), the card's
 name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
@@ -88,17 +103,18 @@ SHEAR_VISC = 1e12
 
 
 def main_path_config(nel: int, dtype: str, nop: int = 4, mega: str = "auto", **over):
-    """The double-gyre basin of the JAX package's bench.py (same dt scaling)."""
+    """The double-gyre basin of the JAX package's bench.py (same dt
+    scaling); `over` replaces any of its fields."""
     from hnumo_tpu_torch.config import Config
 
     scale = (25.0 / nel) * (4.0 / nop) ** 2
-    return Config(
-        nelx=nel, nely=nel, nopx=nop, nopy=nop,
-        xdims=(0.0, 2.0e6), ydims=(0.0, 2.0e6), nlayers=2,
-        dt=500.0 * scale, dt_btp=25.0 * scale, time_final=1e9,
-        test_case="double_gyre", f0=9.3e-5, beta=2.0e-11,
-        botfr=1, cd_mlswe=1.0e-7, method_visc=2, visc_mlswe=100.0,
-        dtype=dtype, mega=mega, **over)
+    kw = dict(nelx=nel, nely=nel, nopx=nop, nopy=nop,
+              xdims=(0.0, 2.0e6), ydims=(0.0, 2.0e6), nlayers=2,
+              dt=500.0 * scale, dt_btp=25.0 * scale, time_final=1e9,
+              test_case="double_gyre", f0=9.3e-5, beta=2.0e-11,
+              botfr=1, cd_mlswe=1.0e-7, method_visc=2, visc_mlswe=100.0,
+              dtype=dtype, mega=mega)
+    return Config(**{**kw, **over})
 
 
 def fused_config(nel: int, dtype: str):
@@ -131,13 +147,14 @@ def small_config(nelx: int, nely: int, dtype: str, botfr: int, mega: str = "off"
     return Config(**{**kw, **over})
 
 
-def perturbed_inputs(m, seed: int):
-    """A state off the rest state (so nothing is all zeros) and its coupling."""
+def perturbed_inputs(m, seed: int, state=None):
+    """A state off `state` (default the rest state, so nothing is all zeros)
+    and its coupling."""
     from hnumo_tpu_torch.core.bcl import extract_qprime_faces
     from hnumo_tpu_torch.core.coupling import btp_bcl_coeffs
 
     rng = np.random.default_rng(seed)
-    s = m.state0
+    s = m.state0 if state is None else state
 
     def noise(t, amp, positive=False):
         r = rng.normal(size=tuple(t.shape))
@@ -512,12 +529,23 @@ def check_fused_kernels(nelx, nely, dtype, botfr, visc=True, test_case="double_g
 
     m = Model(small_config(nelx, nely, dtype, botfr, visc=visc, fused_tail="on",
                            test_case=test_case, nop=nop))
-    if not m.static.fused_tail or m.static.mega or m.tail_ops is None:
-        raise AssertionError("this configuration must take the fused path")
     if m.static.flat_bottom != (test_case == "double_gyre"):
         raise AssertionError(f"flat_bottom={m.static.flat_bottom} for {test_case}")
-    op = fused_stage_operands(m, seed=17 + botfr)
-    w = update_weights(m)
+    return compare_fused_kernels(m, seed=17 + botfr,
+                                 what=f"botfr={botfr} visc={visc} {test_case} "
+                                      f"E={nelx * nely} p={nop}")
+
+
+def compare_fused_kernels(m, seed, what, w=None):
+    """Kernels A, F and U of model `m` (on the fused path) against their
+    plain versions on one stage's operands of this model, at the tolerance
+    of its dtype, the update stage with the weights `w` (default
+    `update_weights`); returns {kernel: (max error/scale, max abs error)}."""
+    if not m.static.fused_tail or m.static.mega or m.tail_ops is None:
+        raise AssertionError("this configuration must take the fused path")
+    dtype = m.cfg.dtype
+    op = fused_stage_operands(m, seed=seed)
+    w = update_weights(m) if w is None else w
     got, want = fused_stage(m, op, "kernel", w), fused_stage(m, op, "plain", w)
     tol = F64_TOL if dtype == "float64" else F32_TOL
     worst = {}
@@ -531,8 +559,8 @@ def check_fused_kernels(nelx, nely, dtype, botfr, visc=True, test_case="double_g
             err = float((a - b).abs().max())
             if not err <= tol * scale:
                 raise AssertionError(
-                    f"{kname} kernel != plain: {name} {dtype} botfr={botfr} visc={visc} "
-                    f"{test_case} E={nelx * nely} p={nop}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+                    f"{kname} kernel != plain: {name} {dtype} {what}: "
+                    f"max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
             ws, wa = max(ws, err / scale), max(wa, err)
         worst[kname] = (ws, wa)
     return worst
@@ -1536,13 +1564,320 @@ def check_curvilinear(tmp):
     return {"run": run, "replay": replay, "metric_spread": spread, "errs": errs,
             "step_err": step, "timing": timing, "bound": bound, "timing_brick": timing_brick}
 
+# ---- the options off the main path (phases 22-26) ---------------------------
+
+X_PERIODIC = dict(x_boundary=(3, 3), y_boundary=(4, 4))
+Y_PERIODIC = dict(x_boundary=(4, 4), y_boundary=(3, 3))
+SHEAR_AD = 1e-3       # ad_mlswe of phase 26
+
+
+def nonzero(counts: dict) -> str:
+    """The entries of `counts` that are not 0, as JSON."""
+    return json.dumps({k: v for k, v in counts.items() if v})
+
+
+def check_path(m, what, mega=False, fused=False, flat=None):
+    """Raise unless graphed model `m` takes the barotropic path described
+    (`flat`: the per-stage path's face pipeline, when given), with the
+    general volume kernel on the per-stage path."""
+    st = m.static
+    got = dict(mega=st.mega, fused=st.fused_tail, uni=st.uni_volume, graph=m.step_impl)
+    want = dict(mega=mega, fused=fused, uni=False, graph="graph")
+    if flat is not None:
+        got["flat"], want["flat"] = st.batched_faces, flat
+    impls = (st.mega_impl, st.volume_impl, st.tail_impl)
+    if got != want or impls != ("kernel",) * 3:
+        raise AssertionError(f"{what}: expected {want} with the kernels, got {got} {impls}")
+
+
+def gates(m, state, state0=None):
+    """ok, finite fields and the relative total-mass change from `state0`
+    (default the initial state) to `state`, which must stay within MASS_TOL."""
+    if not bool(state.ok):
+        raise AssertionError("state.ok is False")
+    for name in ("qb_df", "q_df", "qprime_df"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"non-finite values in {name}")
+    m0 = total_mass(m, m.state0 if state0 is None else state0)
+    drift = abs(total_mass(m, state) - m0) / m0
+    if not drift <= MASS_TOL:
+        raise AssertionError(f"relative total-mass change {drift:.3e} > {MASS_TOL}")
+    return drift
+
+
+def graph_and_replay(cfg, steps, what, timed=3, profile=None, **path):
+    """check_graph_vs_eager over `steps` steps on the path described, a step
+    of the graphed model under the sync debug mode, `timed` more replayed
+    steps timed, the gates of the last state (the mass over all
+    steps + 1 + timed) and a replay's trace (its table appended to
+    `profile` when given); returns the readings and the graphed model with
+    its last state."""
+    me, se, mg, sg, at_capture = check_graph_vs_eager(cfg, steps)
+    del me, se
+    check_path(mg, what, **path)
+    sg = sync_free_step(mg, sg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg = mg.run(sg, timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drift = gates(mg, sg)
+    replay = replay_profile(mg, sg, profile, f"{what} f32, one replayed step")
+    nq = mg.g.psiq.shape[1]
+    gp = cfg.nelx * cfg.nely * nq * nq * cfg.nlayers
+    return {"steps_bitwise": steps, "steps": steps + 1 + timed,
+            "ms_per_step": wall / timed * 1e3, "gp_steps_per_s": gp * timed / wall,
+            "launches_at_capture": at_capture, "mass_drift": drift, **replay}, mg, sg
+
+
+def step_kernel_vs_plain(cfg, steps, tol, what):
+    """`steps` f64 steps of `cfg` with every kernel against every plain
+    version (eager); returns {field: max error / scale}."""
+    from hnumo_tpu_torch.model import Model
+
+    mk = Model(cfg, step_impl="eager")
+    mp = Model(cfg, volume_impl="plain", mega_impl="plain", tail_impl="plain",
+               step_impl="eager")
+    out = compare_states(mk.run(mk.state0, steps, check_ok=False),
+                         mp.run(mp.state0, steps, check_ok=False), tol, what)
+    torch.cuda.synchronize()
+    return out
+
+
+def eager_steps(cfg, steps):
+    """(static, state after `steps` eager steps of `cfg` on the path its
+    dispatch takes)."""
+    from hnumo_tpu_torch.model import Model
+
+    m = Model(cfg, step_impl="eager")
+    return m.static, m.run(m.state0, steps)
+
+
+def step_paths(cfg_a, cfg_b, steps, tol, what, b=None):
+    """`steps` f64 steps of two configurations, each on the path its
+    dispatch takes, one against the other (`b`: eager_steps of cfg_b, when
+    already taken); returns ({field: max error / scale}, (static a, static
+    b))."""
+    sa, a = eager_steps(cfg_a, steps)
+    sb, b = eager_steps(cfg_b, steps) if b is None else b
+    out = compare_states(a, b, tol, what)
+    torch.cuda.synchronize()
+    return out, (sa, sb)
+
+
+def check_quad_family(profile=None):
+    """Phase 22: the double gyre at 64x64 with the quad-family LDG viscosity
+    (method_visc=1): per stage kernel 1 and the per-direction faces, the
+    only face pipeline of that family."""
+    from hnumo_tpu_torch.model import Model
+
+    cfg = main_path_config(64, "float32", method_visc=1)
+    # the mass gate over 6 steps: 2 against eager, 1 sync-free, 3 timed
+    rg, m, s = graph_and_replay(cfg, 2, "quad family 64x64", timed=3, profile=profile,
+                                flat=False)
+    errs = {"float32": compare_volume_kernel(m, m.vol_ops, 41, "quad family 64x64")}
+    m64 = Model(main_path_config(64, "float64", method_visc=1))
+    errs["float64"] = compare_volume_kernel(m64, m64.vol_ops, 41, "quad family 64x64")
+    del m64, m, s
+    step = step_kernel_vs_plain(small_config(12, 12, "float64", 1, method_visc=1), 2,
+                                SOLVE_TOL, "quad family f64 12x12, kernel vs plain version")
+    torch.cuda.empty_cache()
+    return {"graph": rg, "errs": errs, "step_err": step}
+
+
+def check_face_paths(steps=2, profile=None):
+    """Phase 23: the 128x128 per-stage path with both face pipelines,
+    batched_faces="auto" (above 8192 elements: one per direction) and "on"
+    (the flat axis): graphed ms/step in turns auto, on, on, auto; both
+    launch kernel 1 200 times a step. And two f64 steps at 6x5 with a copy
+    side, one face path against the other."""
+    from hnumo_tpu_torch.model import Model
+
+    cfgs = {"auto": main_path_config(128, "float32"),
+            "on": main_path_config(128, "float32", batched_faces="on")}
+    models, runs, replays = {}, {}, {}
+    for k, cfg in cfgs.items():
+        m = Model(cfg)
+        check_path(m, f"128x128 batched_faces={k!r}", flat=(k == "on"))
+        runs[k], s = drive(m, warm=1, steps=steps)
+        replays[k] = replay_profile(
+            m, s, profile, f"128x128 f32 per-stage, batched_faces={k!r}, one replayed step")
+        models[k] = (m, s)
+    ms = {k: [] for k in cfgs}
+    for k in ("auto", "on", "on", "auto"):
+        m, s = models[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run(s, steps)
+        torch.cuda.synchronize()
+        ms[k].append((time.perf_counter() - t0) / steps * 1e3)
+    del models
+    torch.cuda.empty_cache()
+    step, statics = step_paths(
+        small_config(6, 5, "float64", 1, walls=OTHER_WALLS, batched_faces="off"),
+        small_config(6, 5, "float64", 1, walls=OTHER_WALLS, batched_faces="on"), 2,
+        SOLVE_TOL, "f64 6x5, per-direction faces vs the flat axis")
+    if [st.batched_faces for st in statics] != [False, True]:
+        raise AssertionError("6x5: expected one model on each face path")
+    return {"runs": runs, "replays": replays, "ms_turns": ms, "step_err": step}
+
+
+def check_lsrk():
+    """Phase 24: the 64x64 per-stage path with lsrk at kstages 5 and 14 (200
+    and 560 launches of kernel 1 a step), graphed against eager; lsrk_ref,
+    the reference's SSP update on the LSRK tables, at 32x32 through the
+    fused path for one step (it diverges by design within a few), its
+    warning, and one f64 step at 12x12 with A, F, U against their plain
+    versions."""
+    import warnings
+
+    from hnumo_tpu_torch.model import Model
+
+    out = {}
+    for k, steps in ((5, 2), (14, 1)):
+        cfg = main_path_config(64, "float32", ti_method_btp="lsrk", kstages=k)
+        out[f"lsrk{k}"], mg, sg = graph_and_replay(cfg, steps, f"lsrk kstages={k} 64x64")
+        del mg, sg
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        m = Model(main_path_config(32, "float32", mega="off", fused_tail="on",
+                                   ti_method_btp="lsrk_ref"))
+    if not any("lsrk_ref" in str(w.message) and "DIVERGES" in str(w.message) for w in rec):
+        raise AssertionError("lsrk_ref must warn that it diverges")
+    check_path(m, "lsrk_ref 32x32", fused=True)
+    wrappers = zero_counts()
+    s = m.step(m.state0)
+    torch.cuda.synchronize()
+    at_capture = {k: fn.launches for k, fn in wrappers.items()}
+    want = {k: 2 * path_launches_per_step(m).get(k, 0) for k in wrappers}
+    if at_capture != want:
+        raise AssertionError(f"lsrk_ref: the first step launched {at_capture}, expected {want}")
+    replay = replay_profile(m, m.state0)
+    a, beta = m.static.ssprk_a, m.static.ssprk_beta
+    # kernel U with a stage's LSRK weights (negative A, the other two 0)
+    w = (a[2][0], a[2][1], a[2][2], m.static.dt_btp * beta[2])
+    errs = {"float32": compare_fused_kernels(m, 43, "lsrk_ref 32x32", w=w)}
+    out["lsrk_ref"] = {"launches_at_capture": at_capture, **replay, "ok": bool(s.ok),
+                       "finite": bool(torch.isfinite(s.qb_df).all()), "errs": errs,
+                       "update_weights": w}
+    del m, s
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m64 = Model(main_path_config(32, "float64", mega="off", fused_tail="on",
+                                     ti_method_btp="lsrk_ref"))
+        errs["float64"] = compare_fused_kernels(m64, 43, "lsrk_ref 32x32", w=w)
+        del m64
+        out["lsrk_ref"]["step_err"] = step_kernel_vs_plain(
+            small_config(12, 12, "float64", 1, fused_tail="on", ti_method_btp="lsrk_ref"),
+            1, SOLVE_TOL, "lsrk_ref f64 12x12 fused, kernels vs plain versions")
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_periodic():
+    """Phase 25: the double gyre at 64x64, periodic in x with free-slip
+    walls in y, through the fused and the per-stage path, and periodic in y
+    with walls in x through the fused path: each graphed with its gates and
+    a replay's trace; kernels A, F, U (fused) and 1 (per stage) against
+    their plain versions on the model's own wrapped operands, f32 and f64.
+    A 32x32 periodic grid under mega="auto" stays off the megakernel."""
+    from hnumo_tpu_torch.model import Model
+
+    cases = {"x_fused": (dict(mega="off", fused_tail="on", **X_PERIODIC), True),
+             "x_per_stage": (X_PERIODIC, False),
+             "y_fused": (dict(mega="off", fused_tail="on", **Y_PERIODIC), True)}
+    out = {}
+    for name, (over, fused) in cases.items():
+        m = Model(main_path_config(64, "float32", **over))
+        check_path(m, f"periodic {name} 64x64", fused=fused)
+        run, s = drive(m, warm=1, steps=3)
+        entry = {"run": run, "replay": replay_profile(m, s), "errs": {}}
+        m64 = Model(main_path_config(64, "float64", **over))
+        for mm in (m, m64):
+            what = f"periodic {name} 64x64"
+            entry["errs"][mm.cfg.dtype] = (compare_fused_kernels(mm, 47, what) if fused else
+                                           {"btp_volume": compare_volume_kernel(
+                                               mm, mm.vol_ops, 47, what)})
+        out[name] = entry
+        del m, m64, s
+        torch.cuda.empty_cache()
+    m = Model(main_path_config(32, "float32", **X_PERIODIC))
+    check_path(m, "periodic 32x32 mega='auto'")
+    run, s = drive(m, warm=1, steps=2)
+    out["x_32_auto"] = {"run": run, "replay": replay_profile(m, s)}
+    return out
+
+
+def stepped_inputs(m, seed):
+    """`perturbed_inputs` around the model's state after two steps (its
+    primes and coupling carry what the model's own options did to them)."""
+    return perturbed_inputs(m, seed, state=m.run(m.state0, 2))
+
+
+def check_shear_and_botfr2():
+    """Phase 26: the vertical shear stress (ad_mlswe) at 32x32 through the
+    megakernel, graphed against eager, the megakernel against its plain
+    version on a solve from that model's stepped state, and the term's
+    effect against the same model without it; quadratic bottom drag
+    (botfr=2) at 32x32 (megakernel) and 64x64 (fused), graphed, and two f64
+    steps at 12x12 of both paths against the per-stage path."""
+    from hnumo_tpu_torch.model import Model
+
+    out = {}
+    cfg = main_path_config(32, "float32", ad_mlswe=SHEAR_AD)
+    out["shear"], mg, sg = graph_and_replay(cfg, 2, "shear 32x32", mega=True)
+    del mg
+    # the term's effect: the layer momenta against the same model without
+    # it, in f32 after the graphed run's steps and in f64 after 2 (in f64 the
+    # difference is the term's own, not the rounding it sets off; it must
+    # not be 0)
+    for dtype, n in (("float32", out["shear"]["steps"]), ("float64", 2)):
+        s1 = sg
+        if dtype == "float64":
+            m1 = Model(main_path_config(32, dtype, ad_mlswe=SHEAR_AD))
+            s1 = m1.run(m1.state0, n)
+        m0 = Model(main_path_config(32, dtype))
+        s0 = m0.run(m0.state0, n)
+        du = float((s1.q_df[1:] - s0.q_df[1:]).abs().max())
+        out["shear"][f"du_max_{dtype}"] = du
+        out["shear"][f"du_over_scale_{dtype}"] = du / float(s0.q_df[1:].abs().max())
+    if not out["shear"]["du_max_float64"] > 0.0:
+        raise AssertionError("the shear stress did not change the layer momenta")
+    del sg, s0, s1, m0, m1
+    w, wa, _, route = check_mega_vs_plain(cfg, F32_MEGA_TOL, seed=53, inputs=stepped_inputs)
+    out["shear"]["mega_vs_plain"] = {"max_err_over_scale": w, "max_abs_err": wa, "route": route}
+    for name, over, path in (("botfr2_mega_32", dict(botfr=2), dict(mega=True)),
+                             ("botfr2_fused_64", dict(botfr=2, mega="off", fused_tail="on"),
+                              dict(fused=True))):
+        nel = 32 if path.get("mega") else 64
+        m = Model(main_path_config(nel, "float32", **over))
+        check_path(m, name, **path)
+        run, s = drive(m, warm=1, steps=3)
+        out[name] = {"run": run, "replay": replay_profile(m, s)}
+        del m, s
+    torch.cuda.empty_cache()
+    per_stage = small_config(12, 12, "float64", 2)
+    ref = eager_steps(per_stage, 2)
+    out["botfr2_vs_per_stage_f64"] = {}
+    for name, other in (("mega", small_config(12, 12, "float64", 2, mega="on")),
+                        ("fused", small_config(12, 12, "float64", 2, fused_tail="on"))):
+        err, statics = step_paths(other, per_stage, 2, STEP_TOL,
+                                  f"botfr=2 f64 12x12, {name} vs per-stage path", b=ref)
+        if (statics[0].mega, statics[0].fused_tail) != (name == "mega", name == "fused"):
+            raise AssertionError(f"botfr=2 12x12: expected the {name} path")
+        out["botfr2_vs_per_stage_f64"][name] = err
+    return out
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="FILE", default=None,
                     help="also write torch.profiler tables of one 64x64 step and one "
-                         "barotropic solve on the per-stage and on the fused path, and "
-                         "of one 32x32 step, to FILE")
+                         "barotropic solve on the per-stage and on the fused path, of "
+                         "one 32x32 step, and of replayed steps of the quad family "
+                         "(64x64) and of both face paths (128x128), to FILE")
     args = ap.parse_args()
 
     # ---- phase 1: device ---------------------------------------------------
@@ -1674,12 +2009,14 @@ def main() -> int:
 
     # ---- phase 6: 256x256 f32 -------------------------------------------------
     m256 = Model(main_path_config(256, "float32"))
-    if m256.static.mega:
-        raise AssertionError("256x256 must stay on the per-stage path under 'auto'")
+    if m256.static.mega or m256.static.batched_faces:
+        raise AssertionError("256x256 must stay on the per-stage path under 'auto', with "
+                             "the per-direction faces above 8192 elements")
     run256, _ = drive(m256, warm=1, steps=2)
     tv256 = time_volume_stage(m256, n=20, nsets=2)
     b256 = volume_bound(m256)
-    print(f"phase 6 256x256 p=4 L=2 f32: {run256['ms_per_step']:.1f} ms/step "
+    print(f"phase 6 256x256 p=4 L=2 f32 (per-direction faces): "
+          f"{run256['ms_per_step']:.1f} ms/step "
           f"({run256['step_impl']}), "
           f"{run256['gp_steps_per_s']:.4g} gp-steps/s, ok, finite, mass drift "
           f"{run256['mass_drift']:.2e}; volume kernel {tv256['ms']:.4f} ms/launch on the "
@@ -2031,7 +2368,106 @@ def main() -> int:
           f"{ct['plain_ms']:.4f}, bound {cb['bound_ms']:.4f} ms by {cb['bound_by']}; on the "
           f"32x32 brick {curv['timing_brick']['ms']:.4f}")
 
-    # ---- phase 22: the kernels line ------------------------------------------
+    # ---- phase 22: the quad-family LDG viscosity, 64x64 -------------------------
+    t_phase = time.perf_counter()
+    quad = check_quad_family(args.profile)
+    secs_22 = time.perf_counter() - t_phase
+    qg = quad["graph"]
+    print(f"phase 22 ({secs_22:.1f} s) quad-family LDG (method_visc=1) 64x64 f32, "
+          f"per-direction faces: "
+          f"graphed == eager bitwise over {qg['steps_bitwise']} steps; one replayed step "
+          f"{nonzero(qg['replay_kernels'])}, "
+          f"{qg['replay_device_activities']} device activities, "
+          f"{qg['replay_device_busy_ms']:.2f} ms busy; {qg['ms_per_step']:.2f} ms/step "
+          f"(graph), {qg['gp_steps_per_s']:.4g} gp-steps/s, mass drift over {qg['steps']} "
+          f"steps {qg['mass_drift']:.2e} (limit {MASS_TOL:g}); kernel 1 vs plain on this "
+          f"model's operands f64 / f32 {quad['errs']['float64'][0]:.3e} / "
+          f"{quad['errs']['float32'][0]:.3e} (tol {F64_TOL:g} / {F32_TOL:g}); f64 12x12 two "
+          f"steps kernel vs plain " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                               quad["step_err"].items())
+          + f" (tol {SOLVE_TOL:g})")
+
+    # ---- phase 23: the two face paths of the per-stage path, 128x128 -------------
+    t_phase = time.perf_counter()
+    faces = check_face_paths(profile=args.profile)
+    secs_23 = time.perf_counter() - t_phase
+    fms, fru = faces["ms_turns"], faces["runs"]
+    print(f"phase 23 ({secs_23:.1f} s) 128x128 f32 per-stage path, ms/step graphed in "
+          f"turns auto "
+          f"(per-direction faces), on (flat axis), on, auto: {fms['auto'][0]:.2f}, "
+          f"{fms['on'][0]:.2f}, {fms['on'][1]:.2f}, {fms['auto'][1]:.2f}; one replayed step "
+          + "; ".join(f"{k}: {nonzero(r['replay_kernels'])}"
+                      f", {r['replay_device_activities']} device activities, "
+                      f"{r['replay_device_busy_ms']:.2f} ms busy"
+                      for k, r in faces["replays"].items())
+          + "; mass drift " + ", ".join(f"{k} {r['mass_drift']:.2e}" for k, r in fru.items())
+          + "; f64 6x5 copy/no-slip walls, two steps per-direction vs flat "
+          + ", ".join(f"{k} {v:.2e}" for k, v in faces["step_err"].items())
+          + f" (tol {SOLVE_TOL:g})")
+
+    # ---- phase 24: LSRK, 64x64; lsrk_ref through the fused path, 32x32 -----------
+    t_phase = time.perf_counter()
+    lsrk = check_lsrk()
+    secs_24 = time.perf_counter() - t_phase
+    lr = lsrk["lsrk_ref"]
+    print(f"phase 24 ({secs_24:.1f} s) lsrk 64x64 f32 per-stage path: " + "; ".join(
+              f"kstages {k[4:]}: graphed == eager bitwise over {v['steps_bitwise']} steps, "
+              f"one replayed step {nonzero(v['replay_kernels'])}, "
+              f"{v['replay_device_busy_ms']:.2f} ms busy, {v['ms_per_step']:.2f} ms/step, "
+              f"mass drift {v['mass_drift']:.2e} over {v['steps']} steps"
+              for k, v in lsrk.items() if k != "lsrk_ref")
+          + f"; lsrk_ref 32x32 f32 fused (warned): one replayed step "
+          f"{nonzero(lr['replay_kernels'])}, ok {lr['ok']}, "
+          f"finite {lr['finite']}; A, F, U vs plain with U on LSRK weights "
+          f"{tuple(round(x, 6) for x in lr['update_weights'])}, f64 / f32: " + "; ".join(
+              f"{k} {lr['errs']['float64'][k][0]:.3e} / {lr['errs']['float32'][k][0]:.3e}"
+              for k in lr["errs"]["float32"])
+          + "; f64 12x12 one step kernels vs plain " + ", ".join(
+              f"{k} {v:.2e}" for k, v in lr["step_err"].items()) + f" (tol {SOLVE_TOL:g})")
+
+    # ---- phase 25: periodic boundaries, 64x64 ------------------------------------
+    t_phase = time.perf_counter()
+    per = check_periodic()
+    secs_25 = time.perf_counter() - t_phase
+    print(f"phase 25 ({secs_25:.1f} s) periodic double gyre 64x64 f32 (x: "
+          "x_boundary=(3,3), free-slip y "
+          "walls; y: y_boundary=(3,3), free-slip x walls): " + "; ".join(
+              f"{k}: {v['run']['ms_per_step']:.2f} ms/step ({v['run']['step_impl']}), one "
+              f"replayed step {nonzero(v['replay']['replay_kernels'])}, "
+              f"mass drift {v['run']['mass_drift']:.2e}, kernels vs plain on its wrapped "
+              f"operands f64 / f32 " + ", ".join(
+                  f"{kn} {v['errs']['float64'][kn][0]:.3e} / {v['errs']['float32'][kn][0]:.3e}"
+                  for kn in v["errs"]["float32"])
+              for k, v in per.items() if k != "x_32_auto")
+          + f" (tol {F64_TOL:g} / {F32_TOL:g}); 32x32 periodic under mega='auto': one "
+          f"replayed step {nonzero(per['x_32_auto']['replay']['replay_kernels'])}")
+
+    # ---- phase 26: the shear stress and quadratic bottom drag ---------------------
+    t_phase = time.perf_counter()
+    sb = check_shear_and_botfr2()
+    secs_26 = time.perf_counter() - t_phase
+    sh = sb["shear"]
+    print(f"phase 26 ({secs_26:.1f} s) shear stress ad_mlswe={SHEAR_AD:g} 32x32 f32 "
+          f"megakernel: graphed == "
+          f"eager bitwise over {sh['steps_bitwise']} steps, one replayed step "
+          f"{nonzero(sh['replay_kernels'])}, {sh['ms_per_step']:.2f} ms/step, mass drift "
+          f"{sh['mass_drift']:.2e}; max|du| of the layer momenta against ad_mlswe=0, f32 "
+          f"after {sh['steps']} steps {sh['du_max_float32']:.3e} "
+          f"({sh['du_over_scale_float32']:.2e} of their max), f64 after 2 "
+          f"{sh['du_max_float64']:.3e} ({sh['du_over_scale_float64']:.2e}); "
+          f"megakernel vs plain on a "
+          f"solve from its stepped state ({sh['mega_vs_plain']['route']} route) "
+          f"{sh['mega_vs_plain']['max_err_over_scale']:.3e} (tol {F32_MEGA_TOL:g}); botfr=2: "
+          + "; ".join(f"{k} {v['run']['ms_per_step']:.2f} ms/step, one replayed step "
+                      f"{nonzero(v['replay']['replay_kernels'])}, "
+                      f"mass drift {v['run']['mass_drift']:.2e}"
+                      for k, v in sb.items() if k in ("botfr2_mega_32", "botfr2_fused_64"))
+          + "; f64 12x12 two steps against the per-stage path: " + "; ".join(
+              f"{k} " + ", ".join(f"{f} {e:.2e}" for f, e in v.items())
+              for k, v in sb["botfr2_vs_per_stage_f64"].items())
+          + f" (tol {STEP_TOL:g})")
+
+    # ---- the kernels line -----------------------------------------------------------
     replaces = {"btp_volume_uni": "hnumo_tpu/ops/pallas_btp.py:287",
                 "btp_faces": "hnumo_tpu/ops/pallas_btp_tail.py:158",
                 "btp_update": "hnumo_tpu/ops/pallas_btp_tail.py:362"}
@@ -2066,6 +2502,27 @@ def main() -> int:
         **ablated_extras(k, tf64[k], tf256[k]),
         "graph": graph_extras("64x64 fused", "64x64 fused"),
         "graph_256": graph_extras("64x64 fused", "256x256 fused"),
+        "periodic": {
+            case: {"replay_launches_per_step": per[case]["replay"]["replay_kernels"][k],
+                   "launches_at_capture": per[case]["run"]["counts"][k],
+                   "max_err_over_scale": per[case]["errs"]["float32"][k][0],
+                   "max_abs_err": per[case]["errs"]["float32"][k][1],
+                   "max_err_over_scale_f64": per[case]["errs"]["float64"][k][0],
+                   "step_ms": per[case]["run"]["ms_per_step"],
+                   "mass_drift": per[case]["run"]["mass_drift"]}
+            for case in ("x_fused", "y_fused")},
+        "lsrk_ref_32": {
+            "replay_launches_per_step": lr["replay_kernels"][k],
+            "launches_at_capture": lr["launches_at_capture"][k],
+            "max_err_over_scale": lr["errs"]["float32"][k][0],
+            "max_abs_err": lr["errs"]["float32"][k][1],
+            "max_err_over_scale_f64": lr["errs"]["float64"][k][0],
+            "step_err_f64_kernels_vs_plain": lr["step_err"]},
+        "botfr2_64": {
+            "replay_launches_per_step": sb["botfr2_fused_64"]["replay"]["replay_kernels"][k],
+            "step_ms": sb["botfr2_fused_64"]["run"]["ms_per_step"],
+            "mass_drift": sb["botfr2_fused_64"]["run"]["mass_drift"],
+            "step_err_f64_vs_per_stage": sb["botfr2_vs_per_stage_f64"]["fused"]},
     } for k in names]
     kernels = [{
         "name": "btp_volume", "route": "cuda",
@@ -2099,6 +2556,45 @@ def main() -> int:
             "plain_ms_brick_32": curv["timing_brick"]["plain_ms"],
             "metric_spread": curv["metric_spread"], "step_ms": cr["ms_per_step"],
             "gp_steps_per_s": cr["gp_steps_per_s"], "mass_drift": cr["mass_drift"]},
+        "quad_family_64": {
+            "replay_launches_per_step": qg["replay_kernels"]["btp_volume"],
+            "launches_at_capture": qg["launches_at_capture"]["btp_volume"],
+            "max_err_over_scale": quad["errs"]["float32"][0],
+            "max_abs_err": quad["errs"]["float32"][1],
+            "max_err_over_scale_f64": quad["errs"]["float64"][0],
+            "step_err_f64_kernel_vs_plain": quad["step_err"],
+            "step_ms": qg["ms_per_step"], "gp_steps_per_s": qg["gp_steps_per_s"],
+            "mass_drift": qg["mass_drift"], "replay_device_busy_ms": qg["replay_device_busy_ms"]},
+        "face_paths_128": {
+            "replay_launches_per_step": {k: r["replay_kernels"]["btp_volume"]
+                                         for k, r in faces["replays"].items()},
+            "step_ms_graph_turns": fms,
+            "replay_device_busy_ms": {k: r["replay_device_busy_ms"]
+                                      for k, r in faces["replays"].items()},
+            "replay_device_activities": {k: r["replay_device_activities"]
+                                         for k, r in faces["replays"].items()},
+            "step_err_f64_per_direction_vs_flat": faces["step_err"]},
+        "lsrk_64": {
+            k: {"replay_launches_per_step": v["replay_kernels"]["btp_volume"],
+                "launches_at_capture": v["launches_at_capture"]["btp_volume"],
+                "replay_device_busy_ms": v["replay_device_busy_ms"],
+                "step_ms": v["ms_per_step"], "mass_drift": v["mass_drift"]}
+            for k, v in lsrk.items() if k != "lsrk_ref"},
+        "periodic": {
+            "x_per_stage_64": {
+                "replay_launches_per_step":
+                    per["x_per_stage"]["replay"]["replay_kernels"]["btp_volume"],
+                "max_err_over_scale": per["x_per_stage"]["errs"]["float32"]["btp_volume"][0],
+                "max_abs_err": per["x_per_stage"]["errs"]["float32"]["btp_volume"][1],
+                "max_err_over_scale_f64":
+                    per["x_per_stage"]["errs"]["float64"]["btp_volume"][0],
+                "step_ms": per["x_per_stage"]["run"]["ms_per_step"],
+                "mass_drift": per["x_per_stage"]["run"]["mass_drift"]},
+            "x_32_mega_auto": {
+                "replay_launches_per_step":
+                    per["x_32_auto"]["replay"]["replay_kernels"]["btp_volume"],
+                "replay_megakernel_launches":
+                    per["x_32_auto"]["replay"]["replay_kernels"]["btp_mega"]}},
     }, {
         "name": "btp_mega", "route": "cuda",
         "source": "hnumo_tpu_torch/ops/csrc/btp_mega.cu",
@@ -2143,6 +2639,25 @@ def main() -> int:
                        "restored_pb_prime_err", "pb_ulp", "restored_ulps",
                        "restart_vs_straight", "restart_tol", "final_pb_prime_err")},
                    "ms_per_step_turns": turns_cli},
+        "shear_32": {
+            "ad_mlswe": SHEAR_AD,
+            "replay_launches_per_step": sh["replay_kernels"]["btp_mega"],
+            "launches_at_capture": sh["launches_at_capture"]["btp_mega"],
+            "steps_graph_equals_eager": sh["steps_bitwise"], "mass_drift": sh["mass_drift"],
+            "step_ms": sh["ms_per_step"],
+            "du_max_vs_ad0": sh["du_max_float32"],
+            "du_over_scale_vs_ad0": sh["du_over_scale_float32"],
+            "du_max_vs_ad0_f64": sh["du_max_float64"],
+            "du_over_scale_vs_ad0_f64": sh["du_over_scale_float64"],
+            "max_err_over_scale": sh["mega_vs_plain"]["max_err_over_scale"],
+            "max_abs_err": sh["mega_vs_plain"]["max_abs_err"],
+            "mega_route": sh["mega_vs_plain"]["route"]},
+        "botfr2_32": {
+            "replay_launches_per_step":
+                sb["botfr2_mega_32"]["replay"]["replay_kernels"]["btp_mega"],
+            "step_ms": sb["botfr2_mega_32"]["run"]["ms_per_step"],
+            "mass_drift": sb["botfr2_mega_32"]["run"]["mass_drift"],
+            "step_err_f64_vs_per_stage": sb["botfr2_vs_per_stage_f64"]["mega"]},
     }] + fused_entries
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,10 +5,10 @@ with the same defaults (reference src/mod_input.F90:118-269), so a
 configuration written for one package describes the same run in the other,
 and the same namelist parser (reference src/mod_input.F90:97-480), so one
 `numo3d.in` drives both. Of the JAX package's backend knobs `mega`,
-`fused_tail`, `uni_volume` and `debug_checks` are carried over, with the
-same meaning and the same defaults; use_pallas, pallas_interpret,
-scan_stages, mega_precision and batched_faces have no counterpart here (one
-precision, full f32; kernel or plain version is chosen by
+`fused_tail`, `uni_volume`, `batched_faces` and `debug_checks` are carried
+over, with the same meaning and the same defaults; use_pallas,
+pallas_interpret, scan_stages and mega_precision have no counterpart here
+(one precision, full f32; kernel or plain version is chosen by
 `Model(..., volume_impl=, mega_impl=, tail_impl=)`): a namelist that sets
 them is read with a warning that they have no effect.
 """
@@ -23,6 +23,10 @@ from pathlib import Path
 
 MEGA_MODES = ("auto", "on", "off")
 ON_OFF = ("on", "off")
+# barotropic integrators: the SSP family (rk35 and ssprk name the same
+# tables), the low-storage Carpenter-Kennedy scheme, and the reference's
+# verbatim LSRK (its SSP update fed the LSRK tables; divergent, A/B only)
+TI_METHODS_BTP = ("rk35", "ssprk", "lsrk", "lsrk_ref")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,12 +93,22 @@ class Config:
     # stage (uniform-geometry volume stage with the velocity gradient, all-
     # faces flux, edge scatter + viscosity + SSPRK update; ops/btp_volume_uni
     # and ops/btp_tail) around a plain-PyTorch trace exchange. Envelope:
-    # uniform brick, SSP integrator, nodal/no viscosity; "on" raises outside
-    # it. `mega` is asked first: under 1024 elements say mega="off" too.
+    # uniform brick (periodic sides too), an SSP update (not lsrk; lsrk_ref
+    # runs the SSP update on the LSRK tables), nodal/no viscosity; "on"
+    # raises outside it. `mega` is asked first: under 1024 elements say
+    # mega="off" too.
     fused_tail: str = "off"
     # Uniform-geometry volume kernel (ops/btp_volume_uni) in place of the
     # general one in the per-stage path ("on" | "off"); uniform brick only.
     uni_volume: str = "off"
+    # Both face directions of the per-stage barotropic path batched on one
+    # flat face axis ("auto" | "on" | "off"), else one pipeline per direction
+    # (the same formulas; results differ by summation order). "auto": the
+    # flat axis up to 8192 elements, per direction above — the JAX package's
+    # default, kept until a benchmark of the port moves it. The quad-family
+    # viscosity (method_visc=1) and the fused path always take their own
+    # face pipelines (core/init.StaticConfig.batched_faces).
+    batched_faces: str = "auto"
     # Reproduce the reference's wind/bottom-stress vertical distribution
     # verbatim, including its indexing slip (see core/bcl.py).
     compat_reference_stress: bool = False
@@ -111,8 +125,13 @@ class Config:
             object.__setattr__(self, "y_boundary", (3, 3))
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be 'float32' or 'float64', got {self.dtype!r}")
-        if self.mega not in MEGA_MODES:
-            raise ValueError(f"mega must be one of {MEGA_MODES}, got {self.mega!r}")
+        for name in ("mega", "batched_faces"):
+            if getattr(self, name) not in MEGA_MODES:
+                raise ValueError(
+                    f"{name} must be one of {MEGA_MODES}, got {getattr(self, name)!r}")
+        if self.ti_method_btp not in TI_METHODS_BTP:
+            raise ValueError(f"ti_method_btp must be one of {TI_METHODS_BTP}, "
+                             f"got {self.ti_method_btp!r}")
         for name in ("fused_tail", "uni_volume"):
             if getattr(self, name) not in ON_OFF:
                 raise ValueError(
@@ -223,7 +242,7 @@ _INERT_REFERENCE_KEYS = frozenset("""
 # The JAX package's backend switches that have no counterpart here: read
 # with a warning, so that one namelist drives both packages.
 _JAX_BACKEND_KEYS = frozenset(("use_pallas", "pallas_interpret", "scan_stages",
-                               "mega_precision", "batched_faces"))
+                               "mega_precision"))
 
 
 def config_from_namelist(path: str | Path, **overrides) -> Config:

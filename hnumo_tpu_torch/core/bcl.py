@@ -1,7 +1,7 @@
 """Baroclinic (layer) RHS operators.
 
-Counterpart of hnumo_tpu/core/bcl.py; the vertical shear-stress solve
-(rhs_layer_shear_stress, ad_mlswe > 0) is not ported yet.
+Counterpart of hnumo_tpu/core/bcl.py, with the vertical shear-stress
+solve (rhs_layer_shear_stress, ad_mlswe > 0).
 Reference: src/mod_create_rhs_mlswe.F90 (volume/flux kernels), src/mod_layer_terms.F90 (face extraction, velocity
 splitting/recombination, consistency faces).
 
@@ -19,7 +19,7 @@ from .faces import (BCs, extract_faces, extract_faces_multi, face_n2q,
                     face_quad_scatter,
                     scatter_face_x, scatter_face_y)
 from .types import BtpAverages, Pair, Precomputed
-from .viscosity import bcl_nodal_laplacian
+from .viscosity import bcl_nodal_laplacian, bcl_quad_laplacian
 
 _EPS1 = 1.0e-20  # reference eps1, prevents division by zero (:309)
 
@@ -464,8 +464,10 @@ def layer_momentum_rhs(static, P, g, bc, avg, coup, qprime_df, q_df, qprime_face
     the rhs_momentum viscosity dispatch (src/mod_splitting.F90:289-322).
     """
     if static.use_visc:
-        # nodal LDG family only (init.check_ported refuses method_visc == 1)
-        rhs_visc = bcl_nodal_laplacian(static, P, g, bc, coup, avg)
+        if static.method_visc == 1:
+            rhs_visc = bcl_quad_laplacian(static, P, g, bc, coup, qprime_df, avg)
+        else:
+            rhs_visc = bcl_nodal_laplacian(static, P, g, bc, coup, avg)
     else:
         rhs_visc = 0.0
 
@@ -474,6 +476,63 @@ def layer_momentum_rhs(static, P, g, bc, avg, coup, qprime_df, q_df, qprime_face
     # static reference terms dropped by the δ-form kernels (docs/float32.md)
     rhs_mom = rhs_mom + P.bcl_rhs_ref
     return g.massinv * rhs_mom + rhs_visc
+
+
+# ---------------------------------------------------------------------------
+# vertical shear stress (implicit tridiagonal solve)
+# ---------------------------------------------------------------------------
+
+def rhs_layer_shear_stress(static, P: Precomputed, g: DeviceGeom, q_df):
+    """Implicit vertical shear-stress forcing via a per-column Thomas solve.
+
+    Reference rhs_layer_shear_stress (src/mod_create_rhs_mlswe.F90:146-279),
+    including its asymmetric sub/super-diagonal scaling (a=-coeff vs
+    c=-gravity*dt*coeff, :210-221) which is replicated verbatim.
+    Returns rhs_stress (2, L, nodal) WITHOUT massinv (applied by caller).
+    """
+    grav = static.gravity
+    L = static.nlayers
+    dp = P.dpp_ref_q + interp_n2q(g, q_df[0])   # q_df[0] carries δdp
+    udp = interp_n2q(g, q_df[1])
+    vdp = interp_n2q(g, q_df[2])
+
+    a1 = P.alpha[0]
+    coeff = torch.maximum(torch.sqrt(0.5 * P.coriolis_quad * static.ad_mlswe) / a1,
+                          static.ad_mlswe / (a1 * static.max_shear_dz))
+    coeff1 = grav * static.dt * coeff
+
+    # tridiagonal system per quad column (Thomas over layers, unrolled)
+    a = [-coeff] * L
+    b = [dp[k] + 2.0 * coeff1 for k in range(L)]
+    c = [-coeff1] * L
+    b[0] = dp[0] + coeff1
+    b[L - 1] = dp[L - 1] + coeff1
+    r_u = [udp[k] / dp[k] for k in range(L)]
+    r_v = [vdp[k] / dp[k] for k in range(L)]
+    for k in range(1, L):
+        mult = a[k] / b[k - 1]
+        b[k] = b[k] - mult * c[k - 1]
+        r_u[k] = r_u[k] - mult * r_u[k - 1]
+        r_v[k] = r_v[k] - mult * r_v[k - 1]
+    u = [None] * L
+    v = [None] * L
+    u[L - 1] = r_u[L - 1] / b[L - 1]
+    v[L - 1] = r_v[L - 1] / b[L - 1]
+    for k in range(L - 2, -1, -1):
+        u[k] = (r_u[k] - c[k] * u[k + 1]) / b[k]
+        v[k] = (r_v[k] - c[k] * v[k + 1]) / b[k]
+
+    # interface stresses tau_k = coeff*(u_{k-1}-u_k); layer forcing
+    # g*(tau_k - tau_{k+1}) (reference :246-259)
+    zero = torch.zeros_like(dp[0])
+    tau_u = [zero] + [coeff * (u[k - 1] - u[k]) for k in range(1, L)] + [zero]
+    tau_v = [zero] + [coeff * (v[k - 1] - v[k]) for k in range(1, L)] + [zero]
+    F_u = torch.stack([grav * (tau_u[k] - tau_u[k + 1]) for k in range(L)])
+    F_v = torch.stack([grav * (tau_v[k] - tau_v[k + 1]) for k in range(L)])
+
+    rhs_u = scatter_volume(g, Fs=F_u)
+    rhs_v = scatter_volume(g, Fs=F_v)
+    return torch.stack([rhs_u, rhs_v])
 
 
 # ---------------------------------------------------------------------------

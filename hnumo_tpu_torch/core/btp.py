@@ -7,14 +7,18 @@ launch of ops/mega; else under StaticConfig.fused_tail the fused path runs,
 three kernels per stage (ops/btp_volume_uni, ops/btp_tail) around a
 plain-PyTorch trace exchange; otherwise the per-stage path below: one fused
 volume kernel per stage (ops/btp_volume, or ops/btp_volume_uni under
-StaticConfig.uni_volume) plus the flat-axis face path in plain PyTorch.
+StaticConfig.uni_volume) plus the face path in plain PyTorch, both
+directions on one flat axis or one pipeline per direction
+(StaticConfig.batched_faces; the quad viscosity family takes the latter),
+and the SSPRK combine or the LSRK 2N-register update.
 Reference: src/mod_rhs_btp.F90 (create_rhs_btp, create_rhs_btp_volume_qdf,
 creat_btp_fluxes_qdf), src/mod_rk_mlswe.F90 (ti_barotropic_ssprk_mlswe),
 src/mod_barotropic_terms.F90 (btp_extract_df, btp_mom_boundary_df).
 
 This is the innermost hot loop (N_btp * kstages evaluations per dt). The
-sub-cycling is a Python loop; the 23 running averages are carried as five
-stacked accumulators. The volume/nodal accumulators are flat (C, E, m²)
+sub-cycling is a Python loop; the 23 running averages are carried as
+stacked accumulators, one per family (the face families flat or per
+direction, as the face path). The volume/nodal accumulators are flat (C, E, m²)
 and updated IN PLACE by the volume stage (they are allocated inside
 barotropic_solve, so no caller's tensor is touched); the face and gradient
 accumulators are out-of-place adds.
@@ -41,6 +45,7 @@ from .faces import (BCs, apply_wall_projection, extract_faces_from_slabs,
                     face_quad_scatter, face_views_x, face_views_y,
                     scatter_face_x, scatter_face_y, wall_projection_masks)
 from .types import BtpAverages, BtpFaceAvg, CouplingFields, Pair, Precomputed
+from .viscosity import btp_quad_laplacian
 
 
 # stacked-accumulator channel orders (one tensor per family, so each stage
@@ -190,6 +195,125 @@ def _face_flux_core(fg, Qe_uu, Qe_uv, Qe_vv, dHe, qblq, qbrq, pbl, pbr,
                        muL * (2.0 + muL), muR * (2.0 + muR),
                        flux_edge_x, flux_edge_y, mue2, ul, ur, vl, vr])
     return S, inc
+
+
+def _face_flux_dir(static, fg, Qe_uu, Qe_uv, Qe_vv, dHe, traces, psiq):
+    """Per-direction wrapper of _face_flux_core (the structured face path).
+
+    traces: list of 4 (L, R) nodal trace pairs."""
+    qblq = face_n2q(psiq, torch.stack([t[0] for t in traces]))
+    qbrq = face_n2q(psiq, torch.stack([t[1] for t in traces]))
+    # one-sided reference pb' interpolated from nodal face values (:257-258)
+    pbl = face_n2q(psiq, fg.pbprime_df_face_L)
+    pbr = face_n2q(psiq, fg.pbprime_df_face_R)
+    return _face_flux_core(fg, Qe_uu, Qe_uv, Qe_vv, dHe, qblq, qbrq,
+                           pbl, pbr, psiq)
+
+
+def btp_nodal_laplacian(static, P: Precomputed, g: DeviceGeom, bc: BCs,
+                        coup: CouplingFields, qb_df: Tensor):
+    """Nodal-family LDG barotropic viscosity (method_visc != 1), one face
+    pipeline per direction.
+
+    Reference btp_create_laplacian (src/mod_laplacian_quad.F90:32-121).
+    Returns (rhs_lap (2, nodal), graduv (4, nodal), graduv_face Pair of
+    (4, 2, F, ngl)) — the latter two feed the graduvb averages.
+    """
+    Uk_u = qb_df[2] / qb_df[0]
+    Uk_v = qb_df[3] / qb_df[0]
+    gux, guy = grad_nodal(g, Uk_u)
+    gvx, gvy = grad_nodal(g, Uk_v)
+    graduv = torch.stack([gux, guy, gvx, gvy])
+
+    fg = extract_faces_multi(graduv, bc, vec_pairs=((0, 1), (2, 3)))
+    gface_x = torch.stack([torch.stack([f.xl for f in fg]),
+                           torch.stack([f.xr for f in fg])], dim=1)
+    gface_y = torch.stack([torch.stack([f.yl for f in fg]),
+                           torch.stack([f.yr for f in fg])], dim=1)
+
+    # volume (reference btp_compute_laplacian :357-390): note the MINUS sign
+    qq = coup.pbprime_visc[None] * graduv + coup.btp_dpp_graduv
+    lap_u = -scatter_volume_nodal(g, qq[0], qq[1])
+    lap_v = -scatter_volume_nodal(g, qq[2], qq[3])
+
+    # face flux (reference create_rhs_laplacian_flux :427-519): nodal-resolution
+    # faces, psi = identity, flip-flop central flux; L gets +, R gets -
+    def face_dir(gface, bgf, nx_df, ny_df, jac_df):
+        # gface: (4, 2, F, ngl); bgf: (5, 2, F, ngl)
+        fl = bgf[4, 0] * gface[:, 0] + bgf[:4, 0]   # (4, F, ngl)
+        fr = bgf[4, 1] * gface[:, 1] + bgf[:4, 1]
+        qmean = 0.5 * (fl + fr)
+        flux_qu = (qmean[0] - fl[0] * nx_df) + (qmean[1] - fl[1] * ny_df)
+        flux_qv = (qmean[2] - fl[2] * nx_df) + (qmean[3] - fl[3] * ny_df)
+        return jac_df * flux_qu, jac_df * flux_qv
+
+    fgx, fgy = P.faces.x, P.faces.y
+    SxU, SxV = face_dir(gface_x, coup.btp_graduv_dpp_face.x, fgx.nx_df, fgx.ny_df, fgx.jac_df)
+    SyU, SyV = face_dir(gface_y, coup.btp_graduv_dpp_face.y, fgy.nx_df, fgy.ny_df, fgy.jac_df)
+
+    lap_u = scatter_face_x(lap_u, -SxU, bc)
+    lap_u = scatter_face_y(lap_u, -SyU, bc)
+    lap_v = scatter_face_x(lap_v, -SxV, bc)
+    lap_v = scatter_face_y(lap_v, -SyV, bc)
+
+    rhs_lap = static.visc_mlswe * g.massinv * torch.stack([lap_u, lap_v])
+    return rhs_lap, graduv, Pair(gface_x, gface_y)
+
+
+def _btp_faces_visc(static, P: Precomputed, g: DeviceGeom, bc: BCs,
+                    coup: CouplingFields, qb_df: Tensor, qprime_df: Tensor,
+                    rhs: Tensor):
+    """Face fluxes + static δ-form terms + massinv + viscosity — everything
+    in a barotropic RHS evaluation except the volume stage (reference
+    create_rhs_btp, src/mod_rhs_btp.F90:38-57) — one face pipeline per
+    direction. The viscosity is either LDG family: the quad family
+    (method_visc == 1) takes only this pipeline.
+    Returns (rhs, inc_x (16, Fx, nq), inc_y, graduv (4, nodal),
+    gface Pair of (4, 2, F, ngl))."""
+    traces = btp_extract_df(bc, qb_df)
+
+    fx = P.faces.x
+    fy = P.faces.y
+    Sx, inc_x = _face_flux_dir(static, fx, coup.Q_uu_dp_edge.x, coup.Q_uv_dp_edge.x,
+                               coup.Q_vv_dp_edge.x, coup.dH_bcl_edge.x,
+                               [(t.xl, t.xr) for t in traces], g.psiq)
+    Sy, inc_y = _face_flux_dir(static, fy, coup.Q_uu_dp_edge.y, coup.Q_uv_dp_edge.y,
+                               coup.Q_vv_dp_edge.y, coup.dH_bcl_edge.y,
+                               [(t.yl, t.yr) for t in traces], g.psiq)
+    rhs = scatter_face_x(rhs, Sx, bc)
+    rhs = scatter_face_y(rhs, Sy, bc)
+    rhs = rhs + P.btp_rhs_ref          # static reference terms (δ-form)
+    rhs = g.massinv * rhs
+
+    if static.use_visc:
+        if static.method_visc == 1:
+            rhs_visc, graduv, gface = btp_quad_laplacian(static, P, g, bc, coup,
+                                                         qb_df, qprime_df)
+        else:
+            rhs_visc, graduv, gface = btp_nodal_laplacian(static, P, g, bc, coup, qb_df)
+        rhs = torch.cat([rhs[:1], rhs[1:] + rhs_visc])
+    else:
+        opts = dict(dtype=qb_df.dtype, device=qb_df.device)
+        graduv = torch.zeros((4,) + qb_df.shape[1:], **opts)
+        gface = Pair(torch.zeros((4, 2) + traces[0].xl.shape, **opts),
+                     torch.zeros((4, 2) + traces[0].yl.shape, **opts))
+
+    return rhs, inc_x, inc_y, graduv, gface
+
+
+def create_rhs_btp(static, P: Precomputed, g: DeviceGeom, bc: BCs,
+                   coup: CouplingFields, qb_df: Tensor, qprime_df: Tensor):
+    """One barotropic RHS evaluation in the structured layout, faces per
+    direction (reference create_rhs_btp, src/mod_rhs_btp.F90:28-59).
+    Returns (rhs (3, nodal), volume increments (12, quad), inc_x, inc_y,
+    graduv, gface). The solver runs the volume stage through ops/btp_volume
+    (or ops/btp_volume_uni) instead; this form is what the stage functions
+    are held against."""
+    qpl_q = interp_n2q(g, qprime_df[:, -1])
+    rhs, vol_inc = btp_volume_rhs(static, P, g, coup, qb_df, qpl_q)
+    rhs, inc_x, inc_y, graduv, gface = _btp_faces_visc(
+        static, P, g, bc, coup, qb_df, qprime_df, rhs)
+    return rhs, vol_inc, inc_x, inc_y, graduv, gface
 
 
 class _FlatFaceGeom(NamedTuple):
@@ -538,8 +662,10 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     Otherwise each stage is one fused volume stage — the CUDA kernel when
     static.volume_impl == "kernel", its plain version when "plain"; the
     uniform-geometry stage under `static.uni_volume` — which also updates
-    the flat volume/nodal accumulators in place, followed by the flat-axis
-    face path in plain PyTorch and the SSPRK combine.
+    the flat volume/nodal accumulators in place, followed by the face path
+    in plain PyTorch (flat axis under `static.batched_faces`, else per
+    direction) and the SSPRK combine, or under ti_method_btp == "lsrk" the
+    2N-register update (lsrk_ref is the SSPRK combine on the LSRK tables).
     Returns (qb_df at t+dt, normalized BtpAverages); `qb_df` is not mutated.
     """
     if static.mega and mega_ops is not None:
@@ -559,6 +685,8 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     Fx = ney * (nex + 1)
     F = Fx + (ney + 1) * nex
     kstages, n_btp = static.kstages, static.n_btp
+    batched = static.batched_faces
+    lsrk = static.ti_method_btp == "lsrk"
 
     kernel = static.volume_impl == "kernel"
     if static.uni_volume:
@@ -572,11 +700,18 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     # fresh per solve: the volume stage mutates these two
     accv = torch.zeros((12, E, nq * nq), **opts)
     accn = torch.zeros((3, E, ngl * ngl), **opts)
-    aff = torch.zeros((16, F, nq), **opts)              # all faces
-    agf = torch.zeros((2, 4, F, ngl), **opts)           # graduv L/R
+    if batched:      # one flat face accumulator per family, both directions
+        aff = torch.zeros((16, F, nq), **opts)
+        agf = torch.zeros((2, 4, F, ngl), **opts)            # graduv L/R
+    else:            # the structured per-direction view
+        afx = torch.zeros((16, ney, nex + 1, nq), **opts)
+        afy = torch.zeros((16, ney + 1, nex, nq), **opts)
+        agx = torch.zeros((2, 4, ney, nex + 1, ngl), **opts)
+        agy = torch.zeros((2, 4, ney + 1, nex, ngl), **opts)
     agrad = torch.zeros((4, ney, nex, ngl, ngl), **opts)  # graduvb nodal
 
-    # SSPRK tables as Python floats, made at build: no device read in a solve
+    # SSPRK (or LSRK) tables as Python floats, made at build: no device read
+    # in a solve
     a, beta = static.ssprk_a, static.ssprk_beta
 
     # constant over the whole solve: bottom-layer primes (nodal for the
@@ -590,10 +725,10 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
                              eflat(coup.Q_uv_dp.contiguous()),
                              eflat(coup.Q_vv_dp.contiguous()),
                              eflat(coup.dH_bcl.contiguous())])
-    flat = _build_flat_faces(static, P, g, coup)
+    flat = _build_flat_faces(static, P, g, coup) if batched else None
 
     qb1 = qb_df
-    qb2 = torch.zeros_like(qb_df)
+    qb2 = torch.zeros_like(qb_df)     # SSP: third register; lsrk: the dq register
     for _ in range(n_btp):
         qb0 = qb1            # register 0 of THIS sub-step
         for ik in range(kstages):
@@ -607,29 +742,57 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
                 rhs_f, accv, accn = volume(ops, qbf, qplq_flat, coup_flat, accv,
                                            accn, **vol_kw)
             rhs = rhs_f.view(3, ney, nex, ngl, ngl)
-            rhs, inc, graduv, gface_flat = _btp_faces_visc_flat(
-                static, P, g, bc, coup, flat, qb1, rhs)
-            aff = aff + inc
-            agf = agf + gface_flat.transpose(0, 1)
+            if batched:
+                rhs, inc, graduv, gface_flat = _btp_faces_visc_flat(
+                    static, P, g, bc, coup, flat, qb1, rhs)
+                aff = aff + inc
+                agf = agf + gface_flat.transpose(0, 1)
+            else:
+                rhs, inc_x, inc_y, graduv, gface = _btp_faces_visc(
+                    static, P, g, bc, coup, qb1, qprime_df, rhs)
+                afx = afx + inc_x
+                afy = afy + inc_y
+                agx = agx + gface.x.transpose(0, 1)
+                agy = agy + gface.y.transpose(0, 1)
             agrad = agrad + graduv
 
-            dtt = static.dt_btp * beta[ik]
-            new234 = (a[ik][0] * qb0[1:4] + a[ik][1] * qb1[1:4]
-                      + a[ik][2] * qb2[1:4] + dtt * rhs)
+            if lsrk:
+                # 2N-register low-storage RK (Carpenter & Kennedy 1994):
+                # dq = A_k dq + dt f(q); q += B_k dq. qb2 carries dq in its
+                # thickness and momentum rows. (The reference's own LSRK
+                # branch feeds these tables through its SSP update,
+                # src/mod_rk_mlswe.F90:99-106, and diverges: that is
+                # 'lsrk_ref', which takes the branch below.)
+                dq = a[ik][0] * qb2[1:4] + static.dt_btp * rhs
+                new234 = qb1[1:4] + beta[ik] * dq
+                qb2 = torch.cat([torch.zeros_like(dq[:1]), dq])
+            else:
+                dtt = static.dt_btp * beta[ik]
+                new234 = (a[ik][0] * qb0[1:4] + a[ik][1] * qb1[1:4]
+                          + a[ik][2] * qb2[1:4] + dtt * rhs)
             pb = new234[0] + P.pbprime_df
             qu, qv = apply_wall_projection(new234[1], new234[2], bc)
             qb1 = torch.stack([pb, new234[0], qu, qv])
-            if kstages == 5 and ik == 1:
+            if not lsrk and kstages == 5 and ik == 1:
                 # SSP(5,3) snapshots the stage-2 state into the third register
                 qb2 = qb1
+        if lsrk:
+            # the dq register restarts at zero every barotropic step, as in
+            # the reference (A_0 = 0 already drops it from the first stage's
+            # update; the reset also keeps a non-finite dq from carrying over)
+            qb2 = torch.zeros_like(qb2)
 
     n_inv = 1.0 / (kstages * n_btp)
     vol = (accv * n_inv).view(12, ney, nex, nq, nq)
     nod = (accn * n_inv).view(3, ney, nex, ngl, ngl)
-    aff, agf, agrad = aff * n_inv, agf * n_inv, agrad * n_inv
-    # split the flat face accumulators back to the structured view
-    afx = aff[:, :Fx].reshape(16, ney, nex + 1, nq)
-    afy = aff[:, Fx:].reshape(16, ney + 1, nex, nq)
-    agx = agf[:, :, :Fx].reshape(2, 4, ney, nex + 1, ngl)
-    agy = agf[:, :, Fx:].reshape(2, 4, ney + 1, nex, ngl)
+    agrad = agrad * n_inv
+    if batched:
+        aff, agf = aff * n_inv, agf * n_inv
+        # split the flat face accumulators back to the structured view
+        afx = aff[:, :Fx].reshape(16, ney, nex + 1, nq)
+        afy = aff[:, Fx:].reshape(16, ney + 1, nex, nq)
+        agx = agf[:, :, :Fx].reshape(2, 4, ney, nex + 1, ngl)
+        agy = agf[:, :, Fx:].reshape(2, 4, ney + 1, nex, ngl)
+    else:
+        afx, afy, agx, agy = (acc * n_inv for acc in (afx, afy, agx, agy))
     return qb1, _averages_view(static, vol, nod, afx, afy, agx, agy, agrad)

@@ -14,6 +14,7 @@ from its own results are recomputed there with the port's own operators
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -35,6 +36,11 @@ TAIL_IMPLS = ("kernel", "plain")
 # that both packages take the same path at the same size.
 MEGA_AUTO_MAX_ELEMENTS = 1024
 MEGA_MAX_NOP = 7
+# batched_faces="auto" batches both face directions up to this many
+# elements, per direction above: the JAX package's cut-over (there a
+# measured crossover of its own), kept so the two packages take the same
+# face path at the same size until a benchmark of the port moves it
+BATCHED_FACES_AUTO_MAX_ELEMENTS = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,9 +49,10 @@ class StaticConfig:
 
     The physics fields of the JAX package's StaticConfig; its backend flags
     are replaced by `mega_on` (the whole-solve megakernel path was asked
-    for and the size allows it; `mega` adds the envelope), `fused_tail_on`
-    and `uni_volume_on` (asked for; `fused_tail` and `uni_volume` add the
-    envelopes) and three implementation switches: `volume_impl` ("kernel"
+    for and the size allows it; `mega` adds the envelope), `fused_tail_on`,
+    `uni_volume_on` and `batched_faces_on` (asked for, or for the flat face
+    axis the size allows it; `fused_tail`, `uni_volume` and `batched_faces`
+    add the envelopes) and three implementation switches: `volume_impl` ("kernel"
     runs the barotropic volume stage — the general one of the per-stage
     path, ops/btp_volume, and the uniform-geometry one, ops/btp_volume_uni —
     through its CUDA kernel, "plain" through its plain PyTorch version),
@@ -72,16 +79,21 @@ class StaticConfig:
     uniform_geom: bool = False    # affine brick mesh with constant metrics
     periodic: bool = False        # any periodic boundary
     flat_bottom: bool = False     # grad(z_bot) == 0 everywhere
-    ti_method_btp: str = "rk35"   # barotropic integrator (SSP only so far)
+    ti_method_btp: str = "rk35"   # barotropic integrator: rk35/ssprk |
+    #                               lsrk (2N low-storage) | lsrk_ref
+    #                               (the reference's, divergent)
     volume_impl: str = "plain"    # "kernel" | "plain"
     mega_on: bool = False         # whole-solve megakernel path (ops/mega)
     mega_impl: str = "plain"      # "kernel" | "plain"
     fused_tail_on: bool = False   # opt-in whole-stage fused path (config)
     uni_volume_on: bool = False   # opt-in uniform-geometry volume kernel
+    batched_faces_on: bool = False  # both face directions on one flat axis
     tail_impl: str = "plain"      # "kernel" | "plain"
-    # SSPRK tables (reference src/mod_initial_mlswe.F90:582-681) as Python
-    # floats rounded to the compute dtype — the values of P.ssprk_a /
-    # P.ssprk_beta — so that a solve reads no device tensor on the host
+    # SSPRK tables (reference src/mod_initial_mlswe.F90:582-681; the LSRK
+    # ones under lsrk and lsrk_ref, column 0 the A and beta the B
+    # coefficients) as Python floats rounded to the compute dtype — the
+    # values of P.ssprk_a / P.ssprk_beta — so that a solve reads no device
+    # tensor on the host
     ssprk_a: tuple = ()           # kstages rows of 3
     ssprk_beta: tuple = ()        # kstages
 
@@ -117,6 +129,16 @@ class StaticConfig:
         return self.visc_mlswe != 0.0
 
     @property
+    def batched_faces(self) -> bool:
+        """The per-stage path batches both face directions on one flat face
+        axis (core/btp._btp_faces_visc_flat); else one pipeline per
+        direction (core/btp._btp_faces_visc). Never under the fused path,
+        whose face kernel has its own layout, nor in the quad viscosity
+        family, which keeps the per-direction pipeline."""
+        return (self.batched_faces_on and not self.fused_tail
+                and (not self.use_visc or self.method_visc != 1))
+
+    @property
     def uni_volume(self) -> bool:
         """The per-stage path runs the uniform-geometry volume kernel
         (ops/btp_volume_uni) in place of the general one. Needs the uniform
@@ -127,9 +149,11 @@ class StaticConfig:
     def fused_tail(self) -> bool:
         """Whole-stage fused path (core/btp._barotropic_solve_fused): volume
         stage with the velocity gradient, all-faces flux and update as three
-        kernels. Needs the uniform-geometry operators, the SSP combine (lsrk
-        carries a dq register with a different update) and the nodal
-        viscosity family or none. `mega` is asked before it."""
+        kernels. Needs the uniform-geometry operators (periodic sides
+        included), the SSP combine (lsrk carries a dq register with a
+        different update; lsrk_ref is the SSP combine on the LSRK tables)
+        and the nodal viscosity family or none. `mega` is asked before
+        it."""
         return (self.fused_tail_on and self.uniform_geom
                 and self.ti_method_btp != "lsrk"
                 and (not self.use_visc or self.method_visc != 1))
@@ -306,18 +330,10 @@ def _face_traces_np(u, geom: Geometry, bc: BCs):
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for the options of the JAX package that are not ported yet."""
+    """Raise for what the JAX package refuses too (hnumo_tpu/model.py:47):
+    a polynomial order that differs between x and y."""
     if cfg.nopy != cfg.nopx:
         raise NotImplementedError("anisotropic polynomial order not supported yet")
-    if 3 in cfg.x_boundary or 3 in cfg.y_boundary:
-        raise NotImplementedError("periodic boundaries are not ported yet")
-    if cfg.ti_method_btp not in ("rk35", "ssprk"):
-        raise NotImplementedError(
-            f"ti_method_btp={cfg.ti_method_btp!r} is not ported yet (SSP only)")
-    if cfg.visc_mlswe != 0.0 and cfg.method_visc == 1:
-        raise NotImplementedError("quad-family viscosity (method_visc=1) is not ported yet")
-    if cfg.ad_mlswe > 0.0:
-        raise NotImplementedError("vertical shear stress (ad_mlswe>0) is not ported yet")
 
 
 def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
@@ -360,7 +376,9 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
     a_bcl = 1.0 / (1.0 + fdt2**2)
     b_bcl = fdt2 / (1.0 + fdt2**2)
 
-    ssprk_a, ssprk_beta = ssprk_coefficients(cfg.kstages, "ssprk")
+    ssprk_a, ssprk_beta = ssprk_coefficients(
+        cfg.kstages,
+        "lsrk" if cfg.ti_method_btp in ("lsrk", "lsrk_ref") else "ssprk")
 
     # ---- reference-state (rest) tables for the f32 δ-formulation --------
     # (docs/float32.md). Reference = the t=0 rest profile: dp'_ref is the
@@ -633,6 +651,9 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
         mega_impl=mega_impl,
         fused_tail_on=cfg.fused_tail == "on",
         uni_volume_on=cfg.uni_volume == "on",
+        batched_faces_on=(cfg.batched_faces == "on"
+                          or (cfg.batched_faces == "auto"
+                              and cfg.nelx * cfg.nely <= BATCHED_FACES_AUTO_MAX_ELEMENTS)),
         tail_impl=tail_impl,
         ssprk_a=tuple(map(tuple, P.ssprk_a.tolist())),
         ssprk_beta=tuple(P.ssprk_beta.tolist()),
@@ -649,11 +670,20 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
                         ("uni_volume", static.uni_volume)):
         if getattr(cfg, name) == "on" and not taken:
             raise ValueError(
-                f"{name}='on' is outside its envelope (uniform brick"
-                + ("; SSP integrator, method_visc != 1" if name == "fused_tail" else "")
+                f"{name}='on' is outside its envelope (uniform brick, periodic "
+                "sides included"
+                + ("; ti_method_btp other than 'lsrk' (lsrk_ref is inside), "
+                   "method_visc != 1" if name == "fused_tail" else "")
                 + f"): got uniform_geom={uniform_geom}, "
                 f"ti_method_btp={cfg.ti_method_btp!r}, "
                 f"method_visc={cfg.method_visc}; use {name}='off'")
+    if cfg.ti_method_btp == "lsrk_ref":
+        warnings.warn(
+            "ti_method_btp='lsrk_ref' reproduces the reference VERBATIM "
+            "(src/mod_rk_mlswe.F90:99-106 applies its 3-register SSP update "
+            "to the LSRK tables), which is formally inconsistent and "
+            "DIVERGES within a few steps — for A/B comparison only. Use "
+            "'lsrk' for the correct low-storage Carpenter-Kennedy scheme.")
     if cfg.compat_reference_stress and L > 3:
         # the reference expression reads qp(k) for k>3 out of bounds
         raise ValueError("compat_reference_stress only defined for nlayers<=3")

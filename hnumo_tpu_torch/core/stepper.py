@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.dg import DeviceGeom
+from ..ops.dg import DeviceGeom, interp_n2q
 from .bcl import (apply_consistency, evaluate_bcl, evaluate_bcl_v1,
-                  extract_qprime_faces, layer_mass_rhs, layer_momentum_rhs)
+                  extract_qprime_faces, layer_mass_rhs, layer_momentum_rhs,
+                  rhs_layer_shear_stress, velocity_df)
 from .btp import barotropic_solve
 from .coupling import btp_bcl_coeffs
 from .faces import BCs, apply_wall_projection
@@ -35,15 +36,25 @@ def _coriolis_rotation(P: Precomputed, q_df_temp_u, q_df_temp_v, q_df):
     return qu, qv
 
 
-def _momentum_update(static, P, g, bc, avg, coup, q_df, qprime_df, qprime_faces):
+def _momentum_update(static, P, g, bc, avg, coup, q_df, qprime_df, qprime_faces, qb_df):
     """Shared momentum update of momentum()/momentum_mass()
-    (reference src/mod_splitting.F90:128-175, 239-282), without the
-    vertical shear-stress branch (ad_mlswe > 0, not ported yet).
-    Returns a new q_df with updated momentum (thickness untouched)."""
+    (reference src/mod_splitting.F90:128-175, 239-282). `qb_df`: the
+    barotropic state the shear-stress branch smooths the velocities
+    against. Returns a new q_df with updated momentum (thickness
+    untouched)."""
     rhs_mom = layer_momentum_rhs(static, P, g, bc, avg, coup,
                                  qprime_df, q_df, qprime_faces)
     qu_t = q_df[1] + static.dt * rhs_mom[0]
     qv_t = q_df[2] + static.dt * rhs_mom[1]
+
+    if static.ad_mlswe > 0.0:
+        # rotate, smooth velocities, implicit shear solve (reference :140-163)
+        qu3, qv3 = _coriolis_rotation(P, qu_t, qv_t, q_df)
+        q_df3 = velocity_df(P, torch.stack([q_df[0], qu3, qv3]), qb_df)
+        rhs_stress = rhs_layer_shear_stress(static, P, g, q_df3)
+        qu_t = qu_t + static.dt * (g.massinv[None] * rhs_stress[0])
+        qv_t = qv_t + static.dt * (g.massinv[None] * rhs_stress[1])
+
     qu, qv = _coriolis_rotation(P, qu_t, qv_t, q_df)
     qu, qv = apply_wall_projection(qu, qv, bc)
     return torch.stack([q_df[0], qu, qv])
@@ -76,7 +87,7 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
     Model builds when `static.fused_tail`; None rebuilds them per solve."""
     q_df, qb_df, qprime_df = state.q_df, state.qb_df, state.qprime_df
     # the quad-resolution viscosity weight belongs to the quad LDG family
-    # (method_visc == 1, not ported yet); the nodal family never reads it
+    # (method_visc == 1); the nodal family never reads it
     zq = torch.zeros(qprime_df.shape[1:-2] + g.wjac.shape[-2:],
                      dtype=qprime_df.dtype, device=qprime_df.device)
 
@@ -84,8 +95,9 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
     qprime_faces = extract_qprime_faces(bc, qprime_df)
 
     dpprime_visc = qprime_df[0]
+    dpprime_visc_q = interp_n2q(g, dpprime_visc) if static.method_visc == 1 else zq
     coup = btp_bcl_coeffs(static, P, g, bc, qprime_df, qprime_faces,
-                          dpprime_visc, zq)
+                          dpprime_visc, dpprime_visc_q)
     qbp_df, avg = barotropic_solve(static, P, g, bc, coup, qb_df, qprime_df,
                                    vol_ops=vol_ops, mega_ops=mega_ops,
                                    tail_ops=tail_ops)
@@ -93,7 +105,7 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
     # momentum_mass (predictor): mass + momentum + recombination
     q_df2, ok1 = _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces)
     q_df2 = _momentum_update(static, P, g, bc, avg, coup,
-                             q_df2, qprime_df, qprime_faces)
+                             q_df2, qprime_df, qprime_faces, qbp_df)
     q_df2, qprime_df2, qprime_faces2 = evaluate_bcl(static, P, bc, q_df2, qprime_df, qbp_df)
 
     # ==================== corrector =====================================
@@ -103,8 +115,9 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
         for f1, f2 in zip(qprime_faces, qprime_faces2)
     )
     dpprime_visc = P.dpp_ref_df + qprime_half[0]
+    dpprime_visc_q = interp_n2q(g, dpprime_visc) if static.method_visc == 1 else zq
     coup = btp_bcl_coeffs(static, P, g, bc, qprime_half, qprime_faces_half,
-                          dpprime_visc, zq)
+                          dpprime_visc, dpprime_visc_q)
     qb_new, avg = barotropic_solve(static, P, g, bc, coup, qb_df,
                                    qprime_half, vol_ops=vol_ops,
                                    mega_ops=mega_ops, tail_ops=tail_ops)
@@ -127,7 +140,7 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
     qprime_faces_mom = (fdp_half, qprime_faces_half[1], qprime_faces_half[2])
 
     q_df = _momentum_update(static, P, g, bc, avg, coup,
-                            q_df, qprime_mom, qprime_faces_mom)
+                            q_df, qprime_mom, qprime_faces_mom, qb_new)
     q_df, qprime_mom = evaluate_bcl_v1(P, q_df, qprime_mom, qb_new)
 
     qprime_out = torch.stack([dpprime_new, qprime_mom[1], qprime_mom[2]])

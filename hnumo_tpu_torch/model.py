@@ -83,7 +83,8 @@ class Model:
         and update stages of the fused path; default on CUDA) or "plain"
         (its plain PyTorch version; default on the CPU). Which barotropic
         path runs is `cfg.mega`, then `cfg.fused_tail` (see
-        StaticConfig.mega, .fused_tail, .uni_volume). `step_impl`: "graph"
+        StaticConfig.mega, .fused_tail, .uni_volume; the per-stage path's
+        face pipeline, .batched_faces). `step_impl`: "graph"
         (the step captured once as a CUDA graph and replayed; default on
         CUDA) or "eager" (dispatched op by op; default on the CPU)."""
         self.device = _resolve_device(device)

@@ -130,6 +130,7 @@ def btp_volume_plain(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
     coup_q: (4, E, nqq) coupling fields (Quu, Quv, Qvv, dH_bcl);
     accv: (12, E, nqq); accn: (3, E, npts) — both updated in place.
     Returns (rhs (3, E, npts) without massinv, accv, accn).
+    `btp_volume_plain.calls` counts the calls.
     """
     _check_operands(ops, qb_n, qpl_q, coup_q, accv, accn, botfr)
     K, DkT, DeT = ops.K, ops.DkT, ops.DeT
@@ -186,7 +187,11 @@ def btp_volume_plain(ops: BtpVolOperators, qb_n: Tensor, qpl_q: Tensor,
     t_df = qb_n[1] * ops.pbp_df
     inv_pb = 1.0 / qb_n[0]
     accn += torch.stack([t_df * (2.0 + t_df), qb_n[2] * inv_pb, qb_n[3] * inv_pb])
+    btp_volume_plain.calls += 1
     return rhs, accv, accn
+
+
+btp_volume_plain.calls = 0
 
 
 def _library() -> ctypes.CDLL:

@@ -459,13 +459,18 @@ def barotropic_solve_mega_plain(static, P, g, bc, coup, qb_df: Tensor,
     arithmetic, stage by stage, on the same operands.
 
     Same contract as core/btp.barotropic_solve: returns (qb at t+dt
-    (4, ney, nex, ngl, ngl), BtpAverages); `qb_df` is not mutated."""
+    (4, ney, nex, ngl, ngl), BtpAverages); `qb_df` is not mutated.
+    `barotropic_solve_mega_plain.calls` counts the calls."""
     E, ngl, nq = _check_static(static, mops, qb_df)
     op = solve_operands(static, g, coup, qb_df, qprime_df, mops)
     acc = new_accumulators(E, ngl, nq, dtype=qb_df.dtype, device=qb_df.device)
     qb = _mega_stages_plain(static, mops, op, acc)
+    barotropic_solve_mega_plain.calls += 1
     return (qb.view(4, mops.ney, mops.nex, ngl, ngl),
             averages_from_accumulators(static, mops, *acc))
+
+
+barotropic_solve_mega_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------

@@ -64,6 +64,18 @@ def assert_close(got, want, rel, name=""):
                                err_msg=name)
 
 
+def counting(monkeypatch, module, name):
+    """Replace module.name by a wrapper that counts its calls; returns the
+    list that grows by one per call."""
+    fn, seen = getattr(module, name), []
+
+    def wrapper(*args, **kw):
+        seen.append(1)
+        return fn(*args, **kw)
+    monkeypatch.setattr(module, name, wrapper)
+    return seen
+
+
 def leaves(tree, prefix=""):
     """(dotted name, leaf) pairs of nested NamedTuples / tuples."""
     if hasattr(tree, "_fields"):
@@ -114,3 +126,108 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ---- whole steps of the options off the main path ---------------------------
+
+SHEAR = dict(ad_mlswe=1e-3, max_shear_dz=5.0)
+PERIODIC = {"x": dict(x_boundary=(3, 3), y_boundary=(2, 0)),
+            "y": dict(x_boundary=(0, 4), y_boundary=(3, 3)),
+            "xy": dict(x_boundary=(3, 3), y_boundary=(3, 3))}
+
+# (id, config overrides, dtype, steps, barotropic path of both packages)
+STEP_CASES_FACES_LSRK = [
+    ("per_dir", dict(batched_faces="off"), "float64", 2, "per_stage"),
+    ("per_dir-visc0-k3", dict(batched_faces="off", visc_mlswe=0.0, kstages=3),
+     "float64", 2, "per_stage"),
+    ("quad", dict(method_visc=1), "float64", 2, "per_stage"),
+    ("lsrk5", dict(ti_method_btp="lsrk"), "float64", 2, "per_stage"),
+    ("lsrk14", dict(ti_method_btp="lsrk", kstages=14), "float64", 2, "per_stage"),
+    ("lsrk_ref", dict(ti_method_btp="lsrk_ref"), "float64", 1, "per_stage"),
+    ("lsrk_ref-fused", dict(ti_method_btp="lsrk_ref", fused_tail="on"), "float64", 1, "fused"),
+    ("f32-per_dir", dict(batched_faces="off"), "float32", 2, "per_stage"),
+    ("f32-quad", dict(method_visc=1), "float32", 2, "per_stage"),
+    ("f32-lsrk5", dict(ti_method_btp="lsrk"), "float32", 2, "per_stage"),
+]
+STEP_CASES_DRAG = [
+    ("shear", SHEAR, "float64", 2, "per_stage"),
+    ("shear-compat", dict(compat_reference_stress=True, **SHEAR), "float64", 2, "per_stage"),
+    ("shear-mega", dict(mega="on", **SHEAR), "float64", 2, "mega"),
+    ("botfr2-per_stage", dict(botfr=2), "float64", 2, "per_stage"),
+    ("botfr2-fused", dict(botfr=2, fused_tail="on"), "float64", 2, "fused"),
+    ("botfr2-mega", dict(botfr=2, mega="on"), "float64", 2, "mega"),
+    ("f32-shear", SHEAR, "float32", 2, "per_stage"),
+    ("f32-botfr2", dict(botfr=2), "float32", 2, "per_stage"),
+]
+STEP_CASES_PERIODIC = [
+    (f"periodic_{d}-{path}", dict(**PERIODIC[d], **({"fused_tail": "on"} if path == "fused"
+                                                  else {})), "float64", 2, path)
+    for d in ("x", "y", "xy") for path in ("per_stage", "fused")
+]
+# f32 with walls in y, the chip's periodic configuration. Doubly periodic,
+# qprime's max is small enough that both packages' f32 runs lie ~8.4e-5 of
+# it from the f64 solution (the port's no further than the JAX package's),
+# so their difference is no test of the port there: f64 gates it.
+STEP_CASES_PERIODIC.append(("f32-periodic_x-fused", dict(fused_tail="on", **PERIODIC["x"]),
+                            "float32", 2, "fused"))
+
+STEP_REL = {"float64": 1e-11, "float32": 1e-4}
+
+
+def check_steps_against_jax(over, dtype, nsteps, path, monkeypatch):
+    """`nsteps` steps of the JAX Model and of the port's Model (own tables)
+    from the initial state of the configuration `over`: each channel of
+    each state field (f32: each field) within STEP_REL of its max; the
+    port's path proved by the plain versions' counters and by counting its
+    face pipeline."""
+    from hnumo_tpu.model import Model as JaxModel
+    from hnumo_tpu_torch.core import btp
+    from hnumo_tpu_torch.model import Model as TorchModel
+    from hnumo_tpu_torch.ops import btp_tail, btp_volume, btp_volume_uni, mega
+
+    jm = JaxModel(jax_config(dtype=dtype, **over))
+    assert jm.static.use_pallas
+    assert (jm.static.mega, jm.static.fused_tail) == (path == "mega", path == "fused")
+    s = jm.state0
+    for _ in range(nsteps):
+        s = jm.step(s)
+    want = to_np(s)
+
+    tm = TorchModel(torch_config(dtype=dtype, **over), device="cpu")
+    st = tm.static
+    assert (st.mega, st.fused_tail) == (path == "mega", path == "fused")
+    assert st.batched_faces == jm.static.batched_faces
+    counters = {"volume": btp_volume.btp_volume_plain,
+                "volume_uni": btp_volume_uni.btp_volume_uni_plain,
+                "faces": btp_tail.btp_faces_plain, "update": btp_tail.btp_update_plain,
+                "mega": mega.barotropic_solve_mega_plain}
+    before = {k: f.calls for k, f in counters.items()}
+    seen = {name: counting(monkeypatch, btp, name)
+            for name in ("_btp_faces_visc", "_btp_faces_visc_flat")}
+    got = tm.run(tm.state0, nsteps, check_ok=False)
+
+    nsub = 2 * nsteps * st.n_btp * st.kstages
+    calls = {k: f.calls - before[k] for k, f in counters.items()}
+    expect = dict.fromkeys(counters, 0)
+    if path == "mega":
+        expect["mega"] = 2 * nsteps
+    elif path == "fused":
+        expect.update(volume_uni=nsub, faces=nsub, update=nsub)
+    else:
+        expect["volume"] = nsub
+    assert calls == expect
+    per_stage = path == "per_stage"
+    assert (len(seen["_btp_faces_visc"]), len(seen["_btp_faces_visc_flat"])) == (
+        (0 if st.batched_faces else nsub, nsub if st.batched_faces else 0) if per_stage
+        else (0, 0))
+
+    assert bool(got.ok) and bool(want.ok)
+    for name in ("qb_df", "q_df", "qprime_df"):
+        if dtype == "float32":
+            # over each field's max, as tests/test_torch_step.py: a channel
+            # that holds a perturbation (δdp, pb') carries the rounding of
+            # the full variable it was formed from
+            assert_close(getattr(got, name), getattr(want, name), STEP_REL[dtype], name)
+            continue
+        for c, w in enumerate(getattr(want, name)):
+            assert_close(getattr(got, name)[c], w, STEP_REL[dtype], f"{name}[{c}]")

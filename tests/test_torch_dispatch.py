@@ -209,8 +209,17 @@ def test_solve_with_both_flags_up_runs_the_megakernel_path():
     dict(method_visc=1, visc_mlswe=10.0),
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_fused_options_on_outside_what_is_ported_raise(option, over):
-    with pytest.raises((ValueError, NotImplementedError)):
-        Model(Config(**{**SMALL, **over}, mega="off", **{option: "on"}), device="cpu")
+    """Each of these options is ported now; `on` raises where the option is
+    outside the path's envelope (the fused path takes neither lsrk's dq
+    register nor the quad viscosity family) and takes the path elsewhere
+    (periodic sides: both; uni_volume: any integrator and family)."""
+    cfg = Config(**{**SMALL, **over}, mega="off", **{option: "on"})
+    if option == "fused_tail" and "x_boundary" not in over:
+        with pytest.raises(ValueError, match="envelope"):
+            Model(cfg, device="cpu")
+        return
+    m = Model(cfg, device="cpu")
+    assert getattr(m.static, option) and not m.static.mega
 
 
 @pytest.mark.parametrize("option", ["fused_tail", "uni_volume"])

@@ -20,7 +20,7 @@ from hnumo_tpu.model import Model as JaxModel
 from hnumo_tpu_torch.core import btp
 from hnumo_tpu_torch.core.types import State
 from hnumo_tpu_torch.model import Model
-from test_torch_common import jax_config, torch_config
+from test_torch_common import counting, jax_config, torch_config
 
 HOST_READS = ("__bool__", "item", "tolist", "__float__", "__int__", "numpy", "cpu")
 
@@ -34,17 +34,6 @@ def no_host_reads(monkeypatch):
                 raise AssertionError(f"Tensor.{_name} called inside the step")
             mp.setattr(torch.Tensor, name, refuse)
         yield
-
-
-def counting(monkeypatch, module, name):
-    """Replace module.name by a wrapper that counts its calls."""
-    fn, seen = getattr(module, name), []
-
-    def wrapper(*args, **kw):
-        seen.append(1)
-        return fn(*args, **kw)
-    monkeypatch.setattr(module, name, wrapper)
-    return seen
 
 
 # (path, config overrides, the function of core/btp that only that path calls)
@@ -71,6 +60,45 @@ def test_a_step_reads_nothing_back_from_the_device(monkeypatch, path, over, mark
         assert torch.isfinite(getattr(s3, name)).all()
 
 
+# the options off the main path: (path, config overrides, the function of
+# core/btp that shows the path ran). A step of each, from the initial state
+# (lsrk_ref diverges by design within three steps), after one unpatched
+# step that builds the lazy caches.
+NEW_PATHS = [
+    ("per_direction_faces", dict(batched_faces="off"), "_btp_faces_visc"),
+    ("quad_family", dict(method_visc=1), "btp_quad_laplacian"),
+    ("lsrk", dict(ti_method_btp="lsrk"), "btp_volume_plain"),
+    ("lsrk14", dict(ti_method_btp="lsrk", kstages=14), "btp_volume_plain"),
+    ("lsrk_ref_fused", dict(ti_method_btp="lsrk_ref", fused_tail="on"),
+     "_barotropic_solve_fused"),
+    ("periodic_per_stage", dict(x_boundary=(3, 3), y_boundary=(3, 3)), "btp_volume_plain"),
+    ("periodic_fused", dict(x_boundary=(3, 3), y_boundary=(2, 0), fused_tail="on"),
+     "_barotropic_solve_fused"),
+    ("shear_megakernel", dict(mega="on", ad_mlswe=1e-3, max_shear_dz=5.0),
+     "barotropic_solve_mega_plain"),
+    ("botfr2_fused", dict(botfr=2, fused_tail="on"), "_barotropic_solve_fused"),
+]
+
+
+@pytest.mark.filterwarnings("ignore:ti_method_btp='lsrk_ref'")
+@pytest.mark.parametrize("path,over,marker", NEW_PATHS, ids=[p[0] for p in NEW_PATHS])
+def test_a_step_of_each_option_reads_nothing_back(monkeypatch, path, over, marker):
+    """The LSRK register reset, the per-direction accumulators, the quad
+    viscosity, the periodic exchange and the shear solve read no device
+    value on the host: a step of each runs with the host reads patched to
+    raise."""
+    m = Model(torch_config(**over), device="cpu")
+    seen = counting(monkeypatch, btp, marker)
+    m.step(m.state0)
+    n = len(seen)
+    with no_host_reads(monkeypatch):
+        s = m.step(m.state0)
+    assert n > 0 and len(seen) == 2 * n, f"the {path} path did not run"
+    assert bool(s.ok) and float(s.t) == pytest.approx(m.cfg.dt)
+    for name in ("qb_df", "q_df", "qprime_df"):
+        assert torch.isfinite(getattr(s, name)).all()
+
+
 def test_the_ssprk_tables_are_floats_of_the_compute_dtype():
     for dtype in ("float64", "float32"):
         m = Model(torch_config(dtype=dtype), device="cpu")
@@ -78,6 +106,24 @@ def test_the_ssprk_tables_are_floats_of_the_compute_dtype():
         assert [list(r) for r in m.static.ssprk_a] == m.P.ssprk_a.tolist()
         assert list(m.static.ssprk_beta) == m.P.ssprk_beta.tolist()
         assert m.mega_ops is None or m.mega_ops.a_tab == m.static.ssprk_a
+
+
+@pytest.mark.filterwarnings("ignore:ti_method_btp='lsrk_ref'")
+@pytest.mark.parametrize("method,kstages", [("lsrk", 5), ("lsrk", 14), ("lsrk_ref", 5)])
+def test_the_lsrk_tables_are_floats_of_the_compute_dtype(method, kstages):
+    """Under lsrk and lsrk_ref the host tables are the LSRK ones (A in
+    column 0, B in beta), as P's."""
+    from hnumo_tpu_torch.basis.ssprk import ssprk_coefficients
+
+    a64, b64 = ssprk_coefficients(kstages, "lsrk")
+    for dtype in ("float64", "float32"):
+        m = Model(torch_config(dtype=dtype, ti_method_btp=method, kstages=kstages),
+                  device="cpu")
+        assert all(type(v) is float for row in m.static.ssprk_a for v in row)
+        assert [list(r) for r in m.static.ssprk_a] == m.P.ssprk_a.tolist()
+        assert list(m.static.ssprk_beta) == m.P.ssprk_beta.tolist()
+        assert [r[0] for r in m.static.ssprk_a] == pytest.approx(list(a64[:, 0]), rel=1e-7)
+        assert list(m.static.ssprk_beta) == pytest.approx(list(b64), rel=1e-7)
 
 
 @pytest.mark.parametrize("impl,match", [

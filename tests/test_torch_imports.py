@@ -6,6 +6,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "hnumo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -105,14 +106,25 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (dict(ad_mlswe=1e-3), "ad_mlswe"),
     (dict(nopy=3), "anisotropic"),
 ])
-def test_unported_options_raise(over, match):
+def test_ported_options_build_and_step(over, match):
+    """The options that were refused before they were ported build a 2x2
+    model on the CPU that takes one step with `ok`; an order that differs
+    between x and y is refused, as the JAX package refuses it
+    (`match`: what the option is about)."""
     from hnumo_tpu_torch.config import Config
     from hnumo_tpu_torch.model import Model
 
     cfg = Config(**{**dict(nelx=2, nely=2, nlayers=2, xdims=(0.0, 2e6),
                            ydims=(0.0, 2e6), test_case="double_gyre"), **over})
-    with pytest.raises(NotImplementedError, match=match):
-        Model(cfg, device="cpu")
+    if match == "anisotropic":
+        with pytest.raises(NotImplementedError, match=match):
+            Model(cfg, device="cpu")
+        return
+    m = Model(cfg, device="cpu")
+    s = m.step(m.state0)
+    assert bool(s.ok) and float(s.t) == cfg.dt
+    for name in ("qb_df", "q_df", "qprime_df"):
+        assert bool(torch.isfinite(getattr(s, name)).all()), (match, name)
 
 
 @pytest.mark.parametrize("over,match", [
@@ -122,14 +134,15 @@ def test_unported_options_raise(over, match):
     (dict(method_visc=1, visc_mlswe=10.0), "method_visc"),
     (dict(ad_mlswe=1e-3), "ad_mlswe"),
 ])
-def test_check_ported_refuses_what_stays_unported(over, match):
-    """The external inputs are ported now; with them switched on, what is
-    still not ported is refused all the same."""
+def test_check_ported_accepts_what_is_now_ported(over, match):
+    """With the external inputs switched on too, check_ported accepts each
+    option that is ported now, and refuses an anisotropic order only."""
     from hnumo_tpu_torch.config import Config
     from hnumo_tpu_torch.core.init import check_ported
 
     external = dict(lread_external_grid=True, mesh_file="m.msh",
                     lread_external_bathy=True, lread_bc=True)
     check_ported(Config(**external))
-    with pytest.raises(NotImplementedError, match=match):
-        check_ported(Config(**{**external, **over}))
+    check_ported(Config(**{**external, **over}))
+    with pytest.raises(NotImplementedError, match="anisotropic"):
+        check_ported(Config(**{**external, **over, "nopy": 3}))

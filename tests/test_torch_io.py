@@ -123,23 +123,41 @@ def test_namelist_parses_as_in_jax(tmp_path):
 
 def test_namelist_warnings(tmp_path):
     """An unknown key warns, as in the JAX package; a backend switch of the
-    JAX package is read with a warning that it has no effect here."""
+    JAX package is read with a warning that it has no effect here, and
+    `batched_faces`, which the port honours, is read without one."""
     nml = write_namelist(tmp_path / "numo3d.in",
-                         "vis_mlswe = 10.0\n use_pallas = 'on'\n batched_faces = 'auto'")
+                         "vis_mlswe = 10.0\n use_pallas = 'on'\n scan_stages = 'auto'\n"
+                         " batched_faces = 'off'")
     with pytest.warns(UserWarning) as rec:
         cfg = config_from_namelist(nml)
     msgs = [str(w.message) for w in rec]
     assert sum("unrecognized namelist key 'vis_mlswe'" in m for m in msgs) == 1
-    for key in ("use_pallas", "batched_faces"):
+    for key in ("use_pallas", "scan_stages"):
         assert sum(f"{key!r} is a switch of the JAX package and has no effect" in m
                    for m in msgs) == 1
+    assert not any("batched_faces" in m for m in msgs)
     assert cfg.visc_mlswe == 0.0
     with pytest.warns(UserWarning, match="vis_mlswe"):
         jax_from_namelist(nml)
 
 
+@pytest.mark.parametrize("value,flat", [("'off'", False), ("'on'", True), ("'auto'", True)])
+def test_namelist_batched_faces_takes_effect(tmp_path, value, flat):
+    """A namelist's batched_faces reaches the port's face path as it
+    reaches the JAX package's: "auto" on a grid under 8192 elements, and
+    "on", batch both face directions on one axis; "off" keeps one pipeline
+    per direction."""
+    nml = write_namelist(tmp_path / "numo3d.in", f"batched_faces = {value}")
+    cfg = config_from_namelist(nml)
+    assert cfg.batched_faces == value.strip("'") == jax_from_namelist(nml).batched_faces
+    m = TorchModel(cfg, device="cpu")
+    assert m.static.batched_faces is flat
+
+
 @pytest.mark.parametrize("key,value", [("mega", "'maybe'"), ("fused_tail", "'auto'"),
-                                       ("uni_volume", "'yes'"), ("dtype", "'float16'")])
+                                       ("uni_volume", "'yes'"), ("dtype", "'float16'"),
+                                       ("batched_faces", "'of'"),
+                                       ("ti_method_btp", "'rk4'")])
 def test_port_switches_reject_unknown_values(tmp_path, key, value):
     nml = write_namelist(tmp_path / "numo3d.in", f"{key} = {value}")
     with pytest.raises(ValueError, match=key):
