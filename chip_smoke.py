@@ -41,7 +41,16 @@ and lsrk_ref through the fused path at 32x32 (24); periodic boundaries at
 64x64 through the fused and the per-stage path, and at 32x32 off the
 megakernel (25); the vertical shear stress through the megakernel and
 quadratic bottom drag (botfr=2) through the megakernel and the fused path
-(26). Any failure raises and the run exits non-zero; there is no CPU path.
+(26). Then the domain decomposition (27): the 128x128 f32 configuration and
+a 32x32 f64 one with a no-slip and a copy wall, each split 2x2 over four
+ranks that share the card over gloo (halos staged through host memory),
+eager, on the per-stage and the fused path, against the serial model, with
+every rank's launches counted; over NCCL with a GPU per rank where the
+machine has two or more (27b; otherwise a line says it was not run); and
+the native C++ mesh front end (28): phase 21's MSH file read through it,
+its geometry bitwise the Python path's, and the CLI decomposed 2x2 against
+the serial CLI. Any failure raises and the run exits non-zero; there is no
+CPU path.
 
 Output: one line per phase, then a `{"kernels": [...]}` line (five kernels; each
 entry that a phase from 22 on launched carries that phase's readings under
@@ -1871,6 +1880,232 @@ def check_shear_and_botfr2():
 
 
 
+# ---- domain decomposition (phases 27, 27b) and the native front end (28) -----
+
+DECOMP_SHAPE = (2, 2)
+DECOMP_STEPS = 2      # eager steps of each decomposed case (the second is timed)
+# split vs serial on the card, each field over its max (a channel that holds a
+# perturbation, pb' or δdp, carries the rounding of the full variable it was
+# formed from, as in the option tests' f32 gate); the per-channel errors are
+# printed beside. f32: the option tests' f32 gate; f64: the CPU tests'
+# per-channel gate of a split run (they measure 0: bitwise)
+DECOMP_F32_TOL = 1e-4
+DECOMP_F64_TOL = 1e-12
+DECOMP_TIMEOUT = 900.0
+CLI_MESH_STEPS = 3    # steps of phase 28's decomposed CLI run
+
+
+def decomposed_cases():
+    """(name, config, tolerance): the bench configuration at full width,
+    128x128 f32 (64x64 a block at 2x2: each block takes the flat face axis,
+    the whole grid the per-direction faces), on the per-stage and on the
+    fused path; and 32x32 f64 with a no-slip west and a copy east side (the
+    wall masks of kernel U are per block; walls hide signs)."""
+    import dataclasses
+
+    big = main_path_config(128, "float32", mega="off")
+    small = main_path_config(32, "float64", mega="off", x_boundary=(2, 0))
+    return [("128_f32_per_stage", big, DECOMP_F32_TOL),
+            ("128_f32_fused", dataclasses.replace(big, fused_tail="on"), DECOMP_F32_TOL),
+            ("32_f64_walls20_per_stage", small, DECOMP_F64_TOL),
+            ("32_f64_walls20_fused", dataclasses.replace(small, fused_tail="on"),
+             DECOMP_F64_TOL)]
+
+
+def decomposed_ranks(dec, cases, steps):
+    """A rank of phase 27: each case's model on this rank's block, eager;
+    the launch counters zeroed just before its first step and read after its
+    last; the last step timed (all ranks start it together). Returns per
+    case this rank's counts, its expected counts, its ms/step, its share of
+    the mass before and after, its exchange calls per step, and on rank 0
+    the gathered final state (CPU tensors)."""
+    from hnumo_tpu_torch.model import Model
+
+    out = {}
+    for name, cfg, _ in cases:
+        m = Model(cfg, decomp=dec)
+        if m.step_impl != "eager" or m.static.mega or m.static.volume_impl != "kernel":
+            raise AssertionError(f"{name}: rank {dec.rank} is not on the eager kernel path")
+        s = m.state0
+        mass0 = total_mass(m, s)      # this block's share: the shares add up
+        calls0 = dec.exchange_calls
+        wrappers = zero_counts()
+        s = m.run(s, steps - 1)
+        torch.cuda.synchronize()
+        dec.barrier()
+        t0 = time.perf_counter()
+        s = m.run(s, 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        want = {k: steps * v for k, v in path_launches_per_step(m).items()}
+        finite = all(bool(torch.isfinite(getattr(s, f)).all())
+                     for f in ("qb_df", "q_df", "qprime_df"))
+        whole = m.gather(s)
+        out[name] = dict(
+            counts=counts, want=want, ms_per_step=ms, mass0=mass0,
+            mass=total_mass(m, s), finite=finite, ok=bool(s.ok),
+            exchange_calls_per_step=(dec.exchange_calls - calls0) / steps,
+            block=tuple(m.g.wjac.shape[:2]), transport=dec.transport,
+            batched_faces=m.static.batched_faces, fused=m.static.fused_tail,
+            state=None if whole is None else {f: getattr(whole, f) for f in
+                                              ("qb_df", "q_df", "qprime_df")})
+        del m, s, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def serial_references(cases, steps):
+    """The same cases on one model over the whole grid, eager on the card:
+    (final states, ms of the last step, path facts)."""
+    from hnumo_tpu_torch.model import Model
+
+    refs = {}
+    for name, cfg, _ in cases:
+        m = Model(cfg, step_impl="eager")
+        run, s = drive(m, warm=steps - 1, steps=1)
+        refs[name] = dict(state=s, ms_per_step=run["ms_per_step"],
+                          batched_faces=m.static.batched_faces, counts=run["counts"])
+        del m
+        torch.cuda.empty_cache()
+    return refs
+
+
+def check_decomposed(cases, refs, shape, backend, nranks_gpu):
+    """Phase 27 (27b): run the cases split `shape` over `backend` ranks and
+    hold each against its serial reference: per channel within the case's
+    tolerance of its max, mass change within MASS_TOL, finite, `ok`, and on
+    every rank the launches of its path (kernel 1, or A, F and U, 200 a step
+    each; never the megakernel)."""
+    from hnumo_tpu_torch.parallel.launch import start_function
+
+    t0 = time.perf_counter()
+    run = start_function("chip_smoke:decomposed_ranks", shape, backend, device="cuda",
+                         kwargs=dict(cases=cases, steps=DECOMP_STEPS),
+                         pythonpath=[pathlib.Path(__file__).resolve().parent])
+    ranks = run.result(DECOMP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    out = {}
+    for name, cfg, tol in cases:
+        per_rank = [r[name] for r in ranks]
+        for k, r in enumerate(per_rank):
+            if r["counts"] != {n: r["want"].get(n, 0) for n in r["counts"]}:
+                raise AssertionError(f"{name}: rank {k} launched {r['counts']}, expected "
+                                     f"{r['want']}")
+            if r["counts"]["btp_mega"] or not (r["finite"] and r["ok"]):
+                raise AssertionError(f"{name}: rank {k}: megakernel, non-finite or not ok")
+        mass0 = sum(r["mass0"] for r in per_rank)
+        drift = abs(sum(r["mass"] for r in per_rank) - mass0) / mass0
+        if not drift <= MASS_TOL:
+            raise AssertionError(f"{name}: mass change {drift:.3e} > {MASS_TOL}")
+        got = per_rank[0]["state"]
+        want = refs[name]["state"]
+        got = type(want)(**got, t=want.t, ok=want.ok)
+        want = type(want)(*[t.cpu() for t in want])
+        errs = compare_states(got, want, tol, f"{name} split {shape} vs serial")
+        per_channel = compare_states(got, want, float("inf"), "", per_channel=True)
+        steps = DECOMP_STEPS
+        out[name] = dict(
+            errs=errs, max_err=max(errs.values()), tol=tol, mass_drift=drift,
+            max_err_per_channel=max(per_channel.values()),
+            launches_per_rank_per_step={k: v // steps for k, v in
+                                        per_rank[0]["counts"].items() if v},
+            ms_per_step_ranks=[r["ms_per_step"] for r in per_rank],
+            ms_per_step_serial=refs[name]["ms_per_step"],
+            exchange_calls_per_step=per_rank[0]["exchange_calls_per_step"],
+            block=per_rank[0]["block"], transport=per_rank[0]["transport"],
+            fused=per_rank[0]["fused"],
+            batched_faces_block=per_rank[0]["batched_faces"],
+            batched_faces_serial=refs[name]["batched_faces"])
+    return {"cases": out, "wall_s": wall, "ranks": shape[0] * shape[1],
+            "gpus": nranks_gpu, "backend": backend}
+
+
+def decomposition_text(d):
+    def faces(v):
+        if v["fused"]:
+            return "faces in kernel F"
+        return (f"faces {'flat' if v['batched_faces_block'] else 'per direction'}; whole "
+                f"grid {'flat' if v['batched_faces_serial'] else 'per direction'}")
+
+    return "; ".join(
+        f"{k}: block {v['block'][0]}x{v['block'][1]} ({faces(v)}), launches per rank "
+        f"per step {json.dumps(v['launches_per_rank_per_step'])}, exchange calls per "
+        f"step {v['exchange_calls_per_step']:.0f}, vs serial max per field "
+        f"{v['max_err']:.2e} (tol {v['tol']:g}; per channel "
+        f"{v['max_err_per_channel']:.2e}), mass change {v['mass_drift']:.2e}, "
+        f"ms/step ranks {', '.join(f'{t:.0f}' for t in v['ms_per_step_ranks'])} "
+        f"against serial eager {v['ms_per_step_serial']:.1f}"
+        for k, v in d["cases"].items())
+
+
+def _fin_numbers(path) -> list[float]:
+    import re
+
+    nums = []
+    for line in pathlib.Path(path).read_text().splitlines():
+        if "Max/Min" in line:
+            nums += [float(x) for x in re.findall(r"-?0\.\d+E[+-]\d+", line)]
+    return nums
+
+
+def check_native_and_cli_mesh(tmp, native_calls):
+    """Phase 28: the native C++ front end (mesh/_native.py) took phase 21's
+    MSH file (`native_calls`: its calls during phases 20-21), and its
+    geometry is bitwise the pure-Python path's on the same file; then the
+    CLI decomposed 2x2 at 32x32 f64 (four ranks over gloo on the card's
+    GPUs, halos staged through host memory where they share one) against
+    the serial CLI on the same namelist: the FIN file's values, and the
+    final snapshot's, to 1e-9 of their scale."""
+    from hnumo_tpu_torch.mesh import _native, gmsh
+    from hnumo_tpu_torch.mesh.grid import Geometry
+
+    import dataclasses
+
+    if not _native.available():
+        raise AssertionError("the native mesh front end is off (HNUMO_NATIVE=0 or no g++)")
+    if native_calls["read_msh"] < 1 or native_calls["infer_structured_layout"] < 1:
+        raise AssertionError(f"phase 21 read its mesh without the native path: {native_calls}")
+    length = main_path_config(32, "float32").xdims[1]
+    msh = write_msh(tmp / "basin.msh", 32, length, CURV_DEFORM, lambda x, y: -9928.0 + 0 * x)
+    gn, zn = gmsh.geometry_from_msh(msh, 4, native=True)
+    gp, zp = gmsh.geometry_from_msh(msh, 4, native=False)
+    for f in dataclasses.fields(Geometry):
+        a, b = getattr(gn, f.name), getattr(gp, f.name)
+        if isinstance(a, np.ndarray) and not np.array_equal(a, b):
+            raise AssertionError(f"native and Python geometry differ in {f.name}")
+    if not np.array_equal(zn, zp):
+        raise AssertionError("native and Python bathymetry differ")
+
+    cfg = main_path_config(32, "float64", mega="off")
+    nml = write_namelist(tmp / "mesh.in", cfg, time_final=CLI_MESH_STEPS * cfg.dt,
+                         time_restart=CLI_MESH_STEPS * cfg.dt)
+    walls = {}
+    for name, extra in (("serial", []), ("mesh", ["--mesh", "2x2", "--backend", "gloo"])):
+        out = tmp / name
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "hnumo_tpu_torch", str(nml), "--outdir",
+                            str(out), "--quiet", *extra], capture_output=True, text=True,
+                           timeout=600)
+        walls[name] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"CLI {name} exited {r.returncode}:\n{r.stdout[-3000:]}"
+                                 f"{r.stderr[-3000:]}")
+    fin = {k: np.array(_fin_numbers(tmp / k / "mlswe_FIN.txt")) for k in walls}
+    if fin["serial"].shape != fin["mesh"].shape or fin["serial"].size == 0:
+        raise AssertionError("the two FIN files hold different fields")
+    fin_err = float(np.abs(fin["mesh"] - fin["serial"]).max() / np.abs(fin["serial"]).max())
+    last = f"mlswe{CLI_MESH_STEPS:04d}"
+    snaps = {k: np.loadtxt(tmp / k / last, skiprows=2) for k in walls}
+    snap_err = float(np.abs(snaps["mesh"] - snaps["serial"]).max()
+                     / np.abs(snaps["serial"]).max())
+    if not (fin_err <= 1e-9 and snap_err <= 1e-9):
+        raise AssertionError(f"CLI --mesh 2x2 vs serial: FIN {fin_err:.3e}, snapshot "
+                             f"{snap_err:.3e} (limit 1e-9)")
+    return dict(native_calls=native_calls, geometry_bitwise=True, fin_err=fin_err,
+                snapshot_err=snap_err, wall_s=walls, library=str(_native.library_path().name))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="FILE", default=None,
@@ -2314,6 +2549,9 @@ def main() -> int:
                 "peak_gib_eager": t["peak_gib_eager"], "peak_gib_graph": t["peak_gib_graph"]}
 
     # ---- phase 20: the run layer: the CLI at full width, restart included -------
+    from hnumo_tpu_torch.mesh import _native
+
+    native_before = dict(_native.calls)
     with tempfile.TemporaryDirectory() as tmp:
         cli = check_cli(pathlib.Path(tmp))
     c32, c64 = cli["f32"], cli["f64"]
@@ -2351,6 +2589,7 @@ def main() -> int:
     # ---- phase 21: kernel 1 on a curvilinear grid read from an MSH file --------
     with tempfile.TemporaryDirectory() as tmp:
         curv = check_curvilinear(pathlib.Path(tmp))
+    native_calls = {k: v - native_before[k] for k, v in _native.calls.items()}
     cr, ct, cb = curv["run"], curv["timing"], curv["bound"]
     print(f"phase 21 curvilinear 32x32 (deformed by {CURV_DEFORM:g} of a cell, $BC, "
           f"$Bathy seamount; metric spread {curv['metric_spread']:.3f} of its max) f32: "
@@ -2467,6 +2706,64 @@ def main() -> int:
               for k, v in sb["botfr2_vs_per_stage_f64"].items())
           + f" (tol {STEP_TOL:g})")
 
+    # ---- phase 27: domain decomposition on the card ---------------------------------
+    t_phase = time.perf_counter()
+    dcases = decomposed_cases()
+    drefs = serial_references(dcases, DECOMP_STEPS)
+    ngpu = torch.cuda.device_count()
+    dec27 = check_decomposed(dcases, drefs, DECOMP_SHAPE, "gloo", min(ngpu, 4))
+    secs_27 = time.perf_counter() - t_phase
+    print(f"phase 27 ({secs_27:.1f} s) domain decomposition {DECOMP_SHAPE[0]}x"
+          f"{DECOMP_SHAPE[1]}, {dec27['ranks']} ranks sharing cuda:0 over gloo with "
+          f"host-staged halos ({dec27['cases']['128_f32_per_stage']['transport']}), "
+          f"{DECOMP_STEPS} eager steps a case, the last timed: a correctness run, not a "
+          f"scaling number; " + decomposition_text(dec27))
+
+    # ---- phase 27b: the NCCL transport (one GPU per rank) -----------------------------
+    dec27b = None
+    if ngpu >= 2:
+        shape_b = (2, 2) if ngpu >= 4 else (1, 2)
+        t_phase = time.perf_counter()
+        dec27b = check_decomposed(dcases, drefs, shape_b, "nccl", shape_b[0] * shape_b[1])
+        print(f"phase 27b ({time.perf_counter() - t_phase:.1f} s) NCCL {shape_b[0]}x"
+              f"{shape_b[1]}, one GPU per rank: " + decomposition_text(dec27b))
+    else:
+        print(f"phase 27b NCCL transport: not run: this machine shows {ngpu} CUDA device "
+              f"and NCCL takes one GPU per rank (two ranks on one device are refused); "
+              f"not counted as passed")
+    del drefs
+    torch.cuda.empty_cache()
+
+    # ---- phase 28: the native mesh front end; the CLI decomposed ----------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        nat = check_native_and_cli_mesh(pathlib.Path(tmp), native_calls)
+    secs_28 = time.perf_counter() - t_phase
+    print(f"phase 28 ({secs_28:.1f} s) native mesh front end ({nat['library']}, built "
+          f"from hnumo_tpu_torch/mesh/csrc/qmesh.cpp): native calls in phases 20-21 "
+          f"{json.dumps({k: v for k, v in nat['native_calls'].items() if v})}; geometry "
+          f"of phase 21's deformed 32x32 MSH through the native path == the Python "
+          f"path's, bitwise; python -m hnumo_tpu_torch numo3d.in --mesh 2x2 --backend "
+          f"gloo, 32x32 f64 {CLI_MESH_STEPS} steps ({nat['wall_s']['mesh']:.1f} s; serial "
+          f"CLI {nat['wall_s']['serial']:.1f} s): FIN values vs serial "
+          f"{nat['fin_err']:.2e}, final snapshot {nat['snapshot_err']:.2e} of their "
+          f"scale (limit 1e-9)")
+
+    def decomposed_entry(name):
+        """A kernel's readings in phase 27 (27b), per case of its path."""
+        def cases(d):
+            return {k: {"launches_per_rank_per_step": v["launches_per_rank_per_step"].get(
+                            name, 0),
+                        "max_err_over_scale": v["max_err"], "mass_drift": v["mass_drift"],
+                        "ms_per_step_ranks": v["ms_per_step_ranks"],
+                        "ms_per_step_serial": v["ms_per_step_serial"]}
+                    for k, v in d["cases"].items()
+                    if v["launches_per_rank_per_step"].get(name, 0)}
+        out = {"gloo_2x2_shared_gpu": cases(dec27)}
+        if dec27b is not None:
+            out["nccl"] = cases(dec27b)
+        return out
+
     # ---- the kernels line -----------------------------------------------------------
     replaces = {"btp_volume_uni": "hnumo_tpu/ops/pallas_btp.py:287",
                 "btp_faces": "hnumo_tpu/ops/pallas_btp_tail.py:158",
@@ -2518,6 +2815,7 @@ def main() -> int:
             "max_abs_err": lr["errs"]["float32"][k][1],
             "max_err_over_scale_f64": lr["errs"]["float64"][k][0],
             "step_err_f64_kernels_vs_plain": lr["step_err"]},
+        "decomposed": decomposed_entry(k),
         "botfr2_64": {
             "replay_launches_per_step": sb["botfr2_fused_64"]["replay"]["replay_kernels"][k],
             "step_ms": sb["botfr2_fused_64"]["run"]["ms_per_step"],
@@ -2542,6 +2840,7 @@ def main() -> int:
         "step_ms": run64["ms_per_step"], "gp_steps_per_s": run64["gp_steps_per_s"],
         **big, **extra,
         "graph": graph_extras("64x64 per-stage", "64x64 per-stage"),
+        "decomposed": decomposed_entry("btp_volume"),
         "curvilinear_32": {
             "launches_at_capture": cr["counts"]["btp_volume"],
             "replay_launches_per_step": curv["replay"]["replay_kernels"]["btp_volume"],

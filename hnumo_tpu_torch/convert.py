@@ -7,6 +7,11 @@ type — and returns the port's containers as tensors on one device. Fields
 are matched by name where names are given and by position otherwise; the
 two packages keep their fields in the same order.
 
+`block_from_numpy` does the same for one block of a domain decomposition:
+it takes the JAX package's whole-grid arrays (what its `to_host` gathers)
+to a rank's block, cut as `parallel/sharding.local_tables` cuts the port's
+own, so that a decomposed model of each package steps on the same tables.
+
 `mega_tables_from_padded` brings the element and face tables of the JAX
 package's megakernel operands (rows padded to lane blocks) into the layout
 of this package's `ops/mega.MegaStatic`, so that a test can compare the
@@ -69,6 +74,22 @@ def from_numpy_tables(P_np, g_np, state_np, device, dtype: torch.dtype):
                   ok=torch.tensor(np.asarray(sf["ok"]), dtype=torch.bool,
                                      device=device))
     return P, g, state
+
+
+def block_from_numpy(P_np, g_np, state_np, block, device, dtype: torch.dtype):
+    """from_numpy_tables for one block: (Precomputed, DeviceGeom, State) of
+    the block `block` (a parallel/sharding.Decomposition, or ((py, px),
+    (iy, ix))) out of the JAX package's whole-grid tables and state."""
+    from .parallel.sharding import local_state, local_tables
+
+    P, g, state = from_numpy_tables(P_np, g_np, state_np, "cpu", dtype)
+    g, P = local_tables(g, P, block)
+    state = local_state(state, block)
+
+    def dev(tree):
+        return type(tree)(*[dev(t) if isinstance(t, tuple) else t.to(device)
+                            for t in tree])
+    return dev(P), dev(g), dev(state)
 
 
 # lane blocks of the JAX package's megakernel side tables

@@ -465,15 +465,15 @@ def _averages_view(static, vol, nod, fxa, fya, gvx, gvy, graduvb) -> BtpAverages
                        faces=Pair(face(fxa, gvx), face(fya, gvy)))
 
 
-def build_vol_operators(static, g: DeviceGeom, P: Precomputed):
+def build_vol_operators(static, g: DeviceGeom, P: Precomputed, cell=None):
     """Flat volume operator tables of the per-stage path (state-independent):
     the uniform-geometry ones under `static.uni_volume`, else the general.
 
     Everything here depends only on geometry and precomputed physics
     tables, so callers evaluate it once at model build and pass the result
-    through `barotropic_solve(vol_ops=...)`."""
+    through `barotropic_solve(vol_ops=...)`. `cell`: see operators_uniform."""
     if static.uni_volume:
-        return operators_uniform(g, P, static.flat_bottom)
+        return operators_uniform(g, P, static.flat_bottom, cell=cell)
     return operators_from_tables(g, P)
 
 
@@ -486,17 +486,20 @@ class FusedOps(NamedTuple):
     mask: Tensor          # (2, E, npts) wall projection of (pbub, pbvb)
 
 
-def build_fused_operators(static, g: DeviceGeom, P: Precomputed, bc: BCs) -> FusedOps:
+def build_fused_operators(static, g: DeviceGeom, P: Precomputed, bc: BCs,
+                          cell=None) -> FusedOps:
     """The fused path's operator tables; callers evaluate them once at model
-    build and pass the result through `barotropic_solve(tail_ops=...)`."""
+    build and pass the result through `barotropic_solve(tail_ops=...)`.
+    `cell`: see ops/btp_volume_uni.operators_uniform. The wall masks are this
+    block's: ones on the edges of a block that owns no wall."""
     ney, nex = g.wjac.shape[0], g.wjac.shape[1]
     ngl = g.wjac_df.shape[-1]
     mu_w, mv_w = wall_projection_masks((ney, nex, ngl, ngl), bc, g.wjac.dtype,
                                        g.wjac.device)
     return FusedOps(
         vol=operators_uniform(g, P, static.flat_bottom, fold_massinv=True,
-                              with_grad=static.use_visc),
-        upd=build_update_ops(static, P, g),
+                              with_grad=static.use_visc, cell=cell),
+        upd=build_update_ops(static, P, g, cell=cell),
         face_rows=static_face_rows(P),
         mask=torch.stack([eflat(mu_w), eflat(mv_w)]))
 

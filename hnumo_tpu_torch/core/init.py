@@ -336,6 +336,19 @@ def check_ported(cfg: Config) -> None:
         raise NotImplementedError("anisotropic polynomial order not supported yet")
 
 
+def static_for_blocks(static: StaticConfig, cfg: Config, nblocks: int) -> StaticConfig:
+    """The StaticConfig of one block of a domain decomposition into `nblocks`
+    blocks, as the JAX package sets it under a mesh (hnumo_tpu/model.py:
+    127-146): the whole-solve megakernel is off (its in-kernel exchange has
+    no counterpart between processes; `mega="on"` is turned off as there,
+    without a word), and `batched_faces="auto"` is resolved on the elements
+    of one block, which set the launch-latency regime, not the whole grid's."""
+    per_block = (cfg.nelx * cfg.nely) // nblocks
+    batched = (static.batched_faces_on if cfg.batched_faces != "auto"
+               else per_block <= BATCHED_FACES_AUTO_MAX_ELEMENTS)
+    return dataclasses.replace(static, mega_on=False, batched_faces_on=batched)
+
+
 def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
                       volume_impl: str = "plain", mega_impl: str = "plain",
                       tail_impl: str = "plain", zbot_ext=None

@@ -6,7 +6,9 @@ Reference: src/ti_rk_bcl.F90:9-87 (outer step), src/mod_splitting.F90
 
 The negative-thickness abort (reference src/mod_splitting.F90:74-77) is
 carried as a boolean `ok` tensor in the state and read by Model.run between
-steps, so the step itself never waits for the device. The caller's State is
+steps, so the step itself never waits for the device (under a domain
+decomposition the flag is and-reduced over the blocks, one all-reduce per
+thickness update). The caller's State is
 never mutated: every update builds new tensors.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .bcl import (apply_consistency, evaluate_bcl, evaluate_bcl_v1,
                   rhs_layer_shear_stress, velocity_df)
 from .btp import barotropic_solve
 from .coupling import btp_bcl_coeffs
-from .faces import BCs, apply_wall_projection
+from .faces import BCs, all_shards_and, apply_wall_projection
 from .types import Precomputed, State
 
 
@@ -68,8 +70,8 @@ def _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces):
         static, P, g, bc, avg, qprime_df, qprime_faces)
     q_df = torch.cat([(q_df[0] + static.dt * dp_advec)[None], q_df[1:]])
     # q_df[0] stores δdp; the abort checks the FULL thickness (reference
-    # src/mod_splitting.F90:74-77)
-    ok = torch.all(P.dpp_ref_df + q_df[0] >= 0.0)
+    # src/mod_splitting.F90:74-77), on every block of a decomposition
+    ok = all_shards_and(torch.all(P.dpp_ref_df + q_df[0] >= 0.0), bc)
     q_df = apply_consistency(static, P, g, bc, avg, q_df, slmf, slmf_face)
     return q_df, ok
 

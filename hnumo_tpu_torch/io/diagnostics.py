@@ -7,7 +7,9 @@ mlswe_FIN.txt — the CI golden-file contract, CI/bump/check.F90:41-83),
 src/courant.F90:34-127, src/mod_time_loop.F90:153-163 with
 src/compute_conserved.F90:7-44 (mass). Every function reads the state back
 from the device and works on float64 numpy arrays in the JAX package's
-layout.
+layout, on the whole grid: under a domain decomposition the caller passes
+the gathered state (Model.gather, on rank 0), and the tables are read
+through Model.global_table.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ def derived_fields(model, state) -> np.ndarray:
     h = alpha[:, None, None, None, None] / grav * dp
     u = q[1] / dp
     v = q[2] / dp
-    zbot = _host(model.P.zbot_df).astype(np.float64)
+    zbot = _host(model.global_table("zbot_df")).astype(np.float64)
     elev = np.empty((L + 1,) + zbot.shape, np.float64)
     elev[L] = zbot
     for k in range(L - 1, -1, -1):
@@ -53,7 +55,7 @@ def compute_mass(model, state) -> np.ndarray:
     q = _host(state.q_df)
     alpha = _host(model.P.alpha).astype(np.float64)
     h = alpha[:, None, None, None, None] / model.static.gravity * _full_thickness(model, q)
-    wj = _host(model.g.wjac_df).astype(np.float64)
+    wj = _host(model.global_table("wjac_df")).astype(np.float64)
     return (wj[None] * h).sum(axis=(1, 2, 3, 4))
 
 

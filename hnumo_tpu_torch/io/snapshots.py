@@ -15,6 +15,10 @@ Writers read the state back from the device; readers give float64 numpy
 arrays, and `restore_state` / `load_checkpoint` build a State on the
 model's device (and, for `restore_state`, in its dtype), shaped as its
 initial state, so that a restored state can enter a captured step.
+
+Under a domain decomposition the writers take the gathered state
+(Model.gather) on rank 0, the only rank that writes; every rank reads a
+restart file and keeps its own block of it (Model.block).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ def snapshot_arrays(model, state) -> dict:
         "pb": qb[0].ravel(), "pbub": qb[2].ravel(), "pbvb": qb[3].ravel(),
         "h": q5[0].reshape(L, npoin), "u": q5[1].reshape(L, npoin),
         "v": q5[2].reshape(L, npoin), "eta": q5[4].reshape(L, npoin),
-        "zbot": _host(model.P.zbot_df).ravel(),
+        "zbot": _host(model.global_table("zbot_df")).ravel(),
         "dt": model.static.dt, "dt_btp": model.static.dt_btp,
         "nlayers": L, "npoin": npoin, "time": float(state.t),
     }
@@ -150,7 +154,8 @@ def restore_state(model, snap, t=None) -> State:
     float32 that copy is rounded by up to half a unit in the last place of
     pbprime and of the layer thickness (~1-4 Pa at ocean depths), an error
     of the size of the perturbations themselves early in a run. In float64
-    the two are the same numbers.
+    the two are the same numbers. Under a decomposition the State is this
+    process's block.
     """
     pbprime_df = model.init_fields.pbprime_df           # float64
     shp = pbprime_df.shape                               # (ney, nex, ngl, ngl)
@@ -179,21 +184,28 @@ def restore_state(model, snap, t=None) -> State:
                        v - (pbvb / pb)[None]])
 
     t_val = snap.get("time", 0.0) if t is None else t
-    opts = dict(dtype=model.dtype, device=model.device)
-    return State(qb_df=torch.tensor(qb, **opts), q_df=torch.tensor(q, **opts),
-                 qprime_df=torch.tensor(qprime, **opts),
-                 t=torch.tensor(t_val, **opts),
-                 ok=torch.tensor(True, device=model.device))
+    opts = dict(dtype=model.dtype)
+    return model.block(State(
+        qb_df=torch.tensor(qb, **opts), q_df=torch.tensor(q, **opts),
+        qprime_df=torch.tensor(qprime, **opts), t=torch.tensor(t_val, **opts),
+        ok=torch.tensor(True)))
 
 
 # ---------------------------------------------------------------------------
 # native checkpoint (exact-resume): full prognostic state, no derivation
 # ---------------------------------------------------------------------------
 
-def save_checkpoint(path, state, itime):
+def save_checkpoint(path, state, itime, model=None):
     """Exact binary checkpoint of the prognostic state (npz). Unlike the
     reference (whose checkpoints ARE the derived-field snapshots), this
-    round-trips bit-exactly."""
+    round-trips bit-exactly, and across decompositions: the file holds the
+    whole grid. With `model` given, `state` is that model's (a block under a
+    decomposition, which every rank must then pass: it is gathered, and
+    rank 0 writes)."""
+    if model is not None:
+        state = model.gather(state)
+        if not model.is_writer:
+            return
     np.savez_compressed(
         path, qb_df=_host(state.qb_df), q_df=_host(state.q_df),
         qprime_df=_host(state.qprime_df), t=_host(state.t),
@@ -201,12 +213,8 @@ def save_checkpoint(path, state, itime):
 
 
 def load_checkpoint(path, model):
-    """(State on the model's device, itime) from a save_checkpoint file."""
+    """(State on the model's device — its block under a decomposition —,
+    itime) from a save_checkpoint file."""
     z = np.load(path)
-
-    def dev(name):
-        return torch.tensor(z[name], device=model.device)
-
-    state = State(qb_df=dev("qb_df"), q_df=dev("q_df"), qprime_df=dev("qprime_df"),
-                  t=dev("t"), ok=dev("ok"))
-    return state, int(z["itime"][()])
+    state = State(*[torch.tensor(z[name]) for name in State._fields])
+    return model.block(state), int(z["itime"][()])

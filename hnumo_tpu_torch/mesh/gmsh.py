@@ -1,8 +1,9 @@
 """External (GMSH) quadrilateral mesh reader + bathymetry files.
 
-Own copy for the PyTorch package of hnumo_tpu/mesh/gmsh.py, its pure-Python
-path (numpy only); the JAX package's C++ front end (mesh/_native.py) is
-not ported.
+Own copy for the PyTorch package of hnumo_tpu/mesh/gmsh.py. The MSH parse
+and the layout inference go through the native C++ front end
+(mesh/_native.py) when it is available, as in the JAX package; `native=False`
+takes the pure-Python path (numpy only), the parity oracle.
 
 Capability parity with the reference's external-mesh path
 (src/read_gmsh.F90:12-207: MSH 2.x ASCII with a trailing `$BC` section;
@@ -38,7 +39,18 @@ class GmshMesh:
     node_ids: np.ndarray | None = None  # (nnodes,) original gmsh node ids
 
 
-def read_msh(path) -> GmshMesh:
+def _take_native(native: bool | None) -> bool:
+    """`native`: None = the native path when it is available (a failed build
+    raises, see mesh/_native.py), True = the native path or raise, False =
+    the pure-Python path."""
+    if native is False:
+        return False
+    from . import _native
+
+    return True if native else _native.available()
+
+
+def read_msh(path, native: bool | None = None) -> GmshMesh:
     """Parse an MSH 2.x ASCII file (the reference's supported format).
 
     Element types used (gmsh spec): 1 = 2-node line (boundary edge),
@@ -46,7 +58,23 @@ def read_msh(path) -> GmshMesh:
     The optional `$BC` section maps physical tags to h-NUMO BC codes
     (src/read_gmsh.F90:163-176 reads `nbc` pairs).
 
+    Uses the native C++ parser (mesh/csrc/qmesh.cpp) when available;
+    `native=False` forces the pure-Python path (the parity oracle).
     """
+    if _take_native(native):
+        from . import _native
+
+        nodes, node_ids, quads, bedges, bc_map = _native.read_msh(path)
+        bathy = None
+        # stream-scan for the section marker (don't slurp the whole file the
+        # native parser exists to handle efficiently)
+        with open(path) as f:
+            has_bathy = any(ln.strip() == "$Bathy" for ln in f)
+        if has_bathy:
+            id_to_idx = {int(v): k for k, v in enumerate(node_ids)}
+            bathy = read_bathy(path, len(nodes), id_to_idx)
+        return GmshMesh(nodes=nodes, quads=quads, boundary_edges=bedges,
+                        bc_map=bc_map, bathy=bathy, node_ids=node_ids)
     with open(path) as f:
         lines = [ln.strip() for ln in f.read().splitlines()]
 
@@ -147,7 +175,7 @@ def read_bathy(path, nnodes, id_to_idx=None) -> np.ndarray:
 _EDGES = ((0, 1), (1, 2), (2, 3), (3, 0))  # S, E, N, W of a canonical quad
 
 
-def infer_structured_layout(quads: np.ndarray):
+def infer_structured_layout(quads: np.ndarray, native: bool | None = None):
     """Map quads of a logically-structured mesh onto an (nely, nelx) grid.
 
     Returns (nely, nelx, elem_of (nely, nelx) int, rot (nelem,) int) where
@@ -155,7 +183,14 @@ def infer_structured_layout(quads: np.ndarray):
     nodes in canonical order (node 0 = SW corner, CCW). Raises ValueError
     for non-quad-grid topology.
 
+    Dispatches to the native C++ implementation (hashed BFS,
+    mesh/csrc/qmesh.cpp) when available; `native=False` forces the
+    pure-Python path.
     """
+    if _take_native(native):
+        from . import _native
+
+        return _native.infer_structured_layout(quads)
     nelem = len(quads)
     # edge -> (elem, local_edge) adjacency
     edge_owner: dict[tuple[int, int], list[tuple[int, int]]] = {}
@@ -226,12 +261,13 @@ def infer_structured_layout(quads: np.ndarray):
     return nely, nelx, elem_of, rot
 
 
-def structured_corner_coords(mesh: GmshMesh):
+def structured_corner_coords(mesh: GmshMesh, native: bool | None = None):
     """(nely+1, nelx+1, 2) corner-vertex coordinates + per-corner node index.
 
-    Canonical quad node order after rotation: (SW, SE, NE, NW).
+    Canonical quad node order after rotation: (SW, SE, NE, NW). `native`:
+    the layout inference's path (infer_structured_layout).
     """
-    nely, nelx, elem_of, rot = infer_structured_layout(mesh.quads)
+    nely, nelx, elem_of, rot = infer_structured_layout(mesh.quads, native=native)
     # canonical node c of element e = quads[e, (c + rot[e]) % 4]
     qe = mesh.quads[elem_of]                       # (nely, nelx, 4)
     re = rot[elem_of][..., None]                   # (nely, nelx, 1)
@@ -276,7 +312,8 @@ def boundary_bc_codes(mesh: GmshMesh, corners: np.ndarray) -> tuple[int, int, in
 
 def geometry_from_msh(path, nop: int, exact_integration: bool = True,
                       bc: tuple[int, int, int, int] | None = None,
-                      bathy_path=None, use_bathy: bool = True):
+                      bathy_path=None, use_bathy: bool = True,
+                      native: bool | None = None):
     """Build a curvilinear Geometry (+ optional nodal bathymetry) from a
     gmsh file: bilinear LGL node population (the reference's a-posteriori
     high-order fill, src/read_gmsh.F90:249-330) then isoparametric metrics.
@@ -286,12 +323,13 @@ def geometry_from_msh(path, nop: int, exact_integration: bool = True,
     src/read_gmsh.F90:178-207); an in-file `$Bathy` section also works.
     `use_bathy=False` (lread_external_bathy=.false.) ignores BOTH sources so
     the config flag actually gates the override of the test case's analytic
-    bathymetry. Returns (Geometry, zbot_nodal_or_None).
+    bathymetry. `native`: the path of the parse and of the layout inference
+    (read_msh). Returns (Geometry, zbot_nodal_or_None).
     """
     from .grid import build_geometry_from_corners
 
-    mesh = read_msh(path)
-    cc, corner_idx = structured_corner_coords(mesh)
+    mesh = read_msh(path, native=native)
+    cc, corner_idx = structured_corner_coords(mesh, native=native)
     if bc is None:
         bc = boundary_bc_codes(mesh, corner_idx)
     geom = build_geometry_from_corners(cc, nop, bc=bc,

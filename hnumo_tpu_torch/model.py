@@ -7,6 +7,12 @@ pure function `state -> state`. On a CUDA device it runs as one captured
 CUDA graph, replayed once per step (`step_impl="graph"`, the counterpart of
 the JAX package's jitted step); elsewhere it runs eagerly. Either way a
 caller's State is never mutated or consumed, so it can be stepped again.
+
+Under a domain decomposition (`decomp`, parallel/sharding.Decomposition)
+each process holds a Model of its own block: the tables are built for the
+whole grid, as in a serial run, and cut to the block; the state is the
+block's; the faces on a block boundary are closed by halos exchanged with
+the neighbouring blocks (core/faces.py). Such a model steps eagerly.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ from .config import Config
 from .core.btp import build_fused_operators, build_vol_operators
 from .core.faces import BCs
 from .core.init import (MEGA_IMPLS, TAIL_IMPLS, VOLUME_IMPLS, build_precomputed,
-                        check_ported)
+                        check_ported, static_for_blocks)
 from .core.stepper import ti_rk_bcl
 from .core.types import State
 from .mesh.grid import build_geometry
@@ -75,7 +81,7 @@ def _resolve_impl(name: str, impl, allowed, device: torch.device) -> str:
 class Model:
     def __init__(self, cfg: Config, device=None, volume_impl: str | None = None,
                  mega_impl: str | None = None, tail_impl: str | None = None,
-                 step_impl: str | None = None):
+                 step_impl: str | None = None, decomp=None):
         """`device`: None = the CUDA device (raises without one), or any
         torch device; the tests pass "cpu". `volume_impl` / `mega_impl` /
         `tail_impl`: "kernel" (the CUDA kernel of the volume stage — general
@@ -86,7 +92,25 @@ class Model:
         StaticConfig.mega, .fused_tail, .uni_volume; the per-stage path's
         face pipeline, .batched_faces). `step_impl`: "graph"
         (the step captured once as a CUDA graph and replayed; default on
-        CUDA) or "eager" (dispatched op by op; default on the CPU)."""
+        CUDA) or "eager" (dispatched op by op; default on the CPU).
+        `decomp`: a parallel/sharding.Decomposition; the model is then this
+        process's block of the grid (`device` defaults to the
+        decomposition's, and the step is eager: "graph" raises)."""
+        self.decomp = decomp
+        if decomp is not None:
+            if device is None:
+                device = decomp.device
+            elif torch.device(device) != decomp.device:
+                raise ValueError(f"device {device} is not the decomposition's "
+                                 f"{decomp.device}")
+            if step_impl is None:
+                step_impl = "eager"
+            elif step_impl == "graph":
+                raise NotImplementedError(
+                    "step_impl='graph' under a domain decomposition: the capture "
+                    "of the halo exchange is not ported yet (ROADMAP.md, "
+                    "queue 1, 'the decomposed step as one CUDA graph'); use "
+                    "step_impl='eager'")
         self.device = _resolve_device(device)
         volume_impl = _resolve_impl("volume_impl", volume_impl, VOLUME_IMPLS,
                                     self.device)
@@ -128,16 +152,43 @@ class Model:
         self.P, self._state0, self.static, self.init_fields = build_precomputed(
             cfg, self.geom, self.dtype, self.device, volume_impl=volume_impl,
             mega_impl=mega_impl, tail_impl=tail_impl, zbot_ext=zbot_ext)
+        # the element whose metric the uniform operators fold (None: the
+        # first of `self.g`; a block takes the whole grid's first)
+        self._cell = None
+        if decomp is not None:
+            self._to_block(decomp)
         self._build_operators()
+
+    def _to_block(self, decomp):
+        """Cut the whole grid's tables and initial state to this process's
+        block and close its faces through the decomposition's axes."""
+        from .parallel.sharding import local_state, local_tables
+
+        decomp.bounds(self.cfg.nely, self.cfg.nelx)      # raises unless it divides
+        # the whole grid's tables that the I/O reads (global_table)
+        self._global_tables = {"zbot_df": self.P.zbot_df.cpu(),
+                               "wjac_df": self.g.wjac_df.cpu()}
+        self.static = static_for_blocks(self.static, self.cfg, decomp.size)
+        # the whole grid's first element, as a one-element grid: the uniform
+        # operators of every block fold its metric, which a serial run folds
+        # (each element's metric agrees with it only to rounding: a block's
+        # own first element would make the split differ from the serial run
+        # by rounding, which a copy wall amplifies)
+        nely, nelx = self.cfg.nely, self.cfg.nelx
+        self._cell = local_tables(self.g, self.P, ((nely, nelx), (0, 0)))[0]
+        self.g, self.P = local_tables(self.g, self.P, decomp)
+        self._state0 = local_state(self._state0, decomp)
+        self.bc = BCs(*self.bc[:4], *decomp.axes(self.bc.x_periodic, self.bc.y_periodic))
 
     def _build_operators(self):
         """State-independent operator tables of the barotropic solve, built
         once: the volume stage's, and the megakernel's or the fused path's
         when that is the path."""
-        self.vol_ops = build_vol_operators(self.static, self.g, self.P)
+        self.vol_ops = build_vol_operators(self.static, self.g, self.P, cell=self._cell)
         self.mega_ops = (build_mega_static(self.static, self.g, self.P, self.bc)
                          if self.static.mega else None)
-        self.tail_ops = (build_fused_operators(self.static, self.g, self.P, self.bc)
+        self.tail_ops = (build_fused_operators(self.static, self.g, self.P, self.bc,
+                                               cell=self._cell)
                          if self.static.fused_tail and not self.static.mega else None)
         # a graph holds the addresses of the tables it was captured with
         self._graph = None
@@ -147,27 +198,63 @@ class Model:
                     volume_impl: str | None = None,
                     mega_impl: str | None = None,
                     tail_impl: str | None = None,
-                    step_impl: str | None = None) -> "Model":
-        """A model stepping on given tables (see convert.from_numpy_tables)
-        in place of the ones its own build_precomputed makes — the static
-        parameters still come from `cfg`. Lets a test hold the stepping code
-        against another implementation on identical tables."""
+                    step_impl: str | None = None, decomp=None) -> "Model":
+        """A model stepping on given tables (see convert.from_numpy_tables,
+        and convert.block_from_numpy for a block of a decomposition) in place
+        of the ones its own build_precomputed makes — the static parameters
+        still come from `cfg`. Lets a test hold the stepping code against
+        another implementation on identical tables."""
         m = cls(cfg, device=device, volume_impl=volume_impl, mega_impl=mega_impl,
-                tail_impl=tail_impl, step_impl=step_impl)
+                tail_impl=tail_impl, step_impl=step_impl, decomp=decomp)
         want = (m.dtype, m.device)
         for t in (P.pbprime, g.wjac, state0.qb_df):
             if (t.dtype, t.device) != want:
                 raise ValueError(
                     f"tables are {t.dtype} on {t.device}, the model is "
                     f"{want[0]} on {want[1]}")
+        if g.wjac.shape != m.g.wjac.shape:
+            raise ValueError(f"tables of {tuple(g.wjac.shape[:2])} elements, the "
+                             f"model's block has {tuple(m.g.wjac.shape[:2])}")
         m.P, m.g, m._state0 = P, g, state0
         m._build_operators()
         return m
 
     @property
     def state0(self) -> State:
-        """The initial state (steps never mutate it)."""
+        """The initial state (steps never mutate it); this process's block
+        under a decomposition."""
         return self._state0
+
+    def gather(self, state: State):
+        """The whole grid's `state` where the I/O reads it: under a
+        decomposition on rank 0 (CPU tensors; None on the other ranks, and
+        every rank must call it), else `state` itself."""
+        if self.decomp is None:
+            return state
+        from .parallel.sharding import gather_state
+
+        return gather_state(state, self.decomp)
+
+    def block(self, state: State) -> State:
+        """This process's block of a whole grid's `state` (a restart), on
+        the model's device (the whole of it without a decomposition)."""
+        if self.decomp is not None:
+            from .parallel.sharding import local_state
+
+            state = local_state(state, self.decomp)
+        return State(*[t.to(self.device) for t in state])
+
+    @property
+    def is_writer(self) -> bool:
+        """This process writes the run's files (rank 0, or the only one)."""
+        return self.decomp is None or self.decomp.rank == 0
+
+    def global_table(self, name: str):
+        """A table of the whole grid (`zbot_df` or `wjac_df`) as the I/O
+        reads it, whatever block this process steps."""
+        if self.decomp is None:
+            return getattr(self.P if name == "zbot_df" else self.g, name)
+        return self._global_tables[name]
 
     @property
     def nsteps_total(self) -> int:
@@ -237,7 +324,9 @@ class Model:
     def run(self, state: State, nsteps: int, check_ok: bool = True) -> State:
         for _ in range(nsteps):
             state = self.step(state)
-            # one host read per step, as in the JAX package
+            # one host read per step, as in the JAX package (under a
+            # decomposition `ok` is already and-reduced over the blocks, so
+            # every rank stops together)
             if check_ok and not bool(state.ok):
                 raise RuntimeError(
                     "Negative mass in thickness at some points "

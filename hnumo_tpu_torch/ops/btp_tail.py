@@ -327,14 +327,17 @@ class UpdateOps(NamedTuple):
     visc: float
 
 
-def build_update_ops(static, P, g) -> UpdateOps:
+def build_update_ops(static, P, g, cell=None) -> UpdateOps:
     """Fold inverse mass, viscosity constant and edge placement into static
     operators (uniform affine geometry: massinv identical in every element).
-    State-independent: built once per model."""
+    State-independent: built once per model. `cell`: the DeviceGeom whose
+    first element gives the shared metric (ops/btp_volume_uni.
+    operators_uniform; default `g`)."""
+    cell = g if cell is None else cell
     ngl = g.wjac_df.shape[-1]
     npts = ngl * ngl
     opts = dict(dtype=g.massinv.dtype, device=g.massinv.device)
-    minv = g.massinv[0, 0].reshape(-1).contiguous()     # (npts,)
+    minv = cell.massinv[0, 0].reshape(-1).contiguous()     # (npts,)
 
     E4 = torch.zeros((4 * ngl, npts), **opts)
     j = torch.arange(ngl)
@@ -348,8 +351,8 @@ def build_update_ops(static, P, g) -> UpdateOps:
     # nodal weak d/dx, d/dy scatter (ops/dg.scatter_volume_nodal, uniform):
     # out[(j,i)] = sum_I wjac_df[(j,I)] * kx * F[(j,I)] * dpsi[i,I]   (x)
     #            + sum_J wjac_df[(J,i)] * ey * F[(J,i)] * dpsi[j,J]   (y)
-    wj = g.wjac_df[0, 0]
-    kx, ey = g.ksi_x[0, 0, 0, 0], g.eta_y[0, 0, 0, 0]
+    wj = cell.wjac_df[0, 0]
+    kx, ey = cell.ksi_x[0, 0, 0, 0], cell.eta_y[0, 0, 0, 0]
     eye = torch.eye(ngl, **opts)
     Vx = torch.einsum("JI,Jj,iI->JIji", wj * kx, eye, g.dpsi).reshape(npts, npts)
     Vy = torch.einsum("JI,Ii,jJ->JIji", wj * ey, eye, g.dpsi).reshape(npts, npts)

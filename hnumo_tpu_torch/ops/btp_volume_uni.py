@@ -68,7 +68,7 @@ class BtpVolOpsUni(NamedTuple):
 
 
 def operators_uniform(g, P, flat_bottom: bool, fold_massinv: bool = False,
-                      with_grad: bool = False) -> BtpVolOpsUni:
+                      with_grad: bool = False, cell=None) -> BtpVolOpsUni:
     """Build the folded operators (state-independent: once per model).
 
     fold_massinv: multiply the scatter result by the (uniform) inverse
@@ -76,20 +76,25 @@ def operators_uniform(g, P, flat_bottom: bool, fold_massinv: bool = False,
     applies its face terms pre-folded the same way); without it the stage
     emits rhs and the caller's face path applies massinv. with_grad: also
     build the nodal-gradient matrices of the LDG viscosity aux variable.
+    cell: the DeviceGeom whose first element gives the metric that every
+    element of the uniform grid shares (default `g`); a block of a domain
+    decomposition passes the whole grid's, so that every block folds the
+    numbers a serial run folds (the elements' metrics agree only to rounding).
     """
+    cell = g if cell is None else cell
     ngl, nq = g.psiq.shape
     K = torch.einsum("jJ,iI->jiJI", g.psiq, g.psiq).reshape(ngl**2, nq**2)
     Dk = torch.einsum("jJ,iI->jiJI", g.psiq, g.dpsiq).reshape(K.shape)
     De = torch.einsum("jJ,iI->jiJI", g.dpsiq, g.psiq).reshape(K.shape)
-    wvec = g.wjac[0, 0].reshape(-1)            # (nqq,), the same in every element
-    kx, ey = g.ksiq_x[0, 0, 0, 0], g.etaq_y[0, 0, 0, 0]
+    wvec = cell.wjac[0, 0].reshape(-1)            # (nqq,), the same in every element
+    kx, ey = cell.ksiq_x[0, 0, 0, 0], cell.etaq_y[0, 0, 0, 0]
     wq3 = torch.stack([wvec * kx, wvec * ey, wvec])
     M2 = torch.cat([Dk.T * wq3[0][:, None], De.T * wq3[1][:, None],
                     K.T * wq3[2][:, None]], dim=0)
-    minv = (g.massinv[0, 0].reshape(-1) if fold_massinv
+    minv = (cell.massinv[0, 0].reshape(-1) if fold_massinv
             else torch.ones(ngl * ngl, dtype=K.dtype, device=K.device))
     M2 = M2 * minv[None, :]
-    kx_df, ey_df = float(g.ksi_x[0, 0, 0, 0]), float(g.eta_y[0, 0, 0, 0])
+    kx_df, ey_df = float(cell.ksi_x[0, 0, 0, 0]), float(cell.eta_y[0, 0, 0, 0])
     Gx = Gy = None
     if with_grad:
         eye = torch.eye(ngl, dtype=K.dtype, device=K.device)

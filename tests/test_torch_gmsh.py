@@ -1,7 +1,7 @@
 """External (gmsh) meshes in the port against the JAX package: the MSH 2.x
-reader with its $BC and $Bathy sections, the layout inference (its
-pure-Python path, `native=False`; the C++ front end is not ported), the
-isoparametric geometry, and two float64 steps of a model on a deformed mesh
+reader with its $BC and $Bathy sections, the layout inference (the
+pure-Python path of both packages, `native=False`; tests/test_torch_native.py
+holds the two C++ front ends against each other), the isoparametric geometry, and two float64 steps of a model on a deformed mesh
 with external bathymetry.
 
 Both packages read the same files, written with numpy from a seed
@@ -58,15 +58,16 @@ def write_mesh(tmp_path, name):
 
 @pytest.fixture
 def jax_python_path(monkeypatch):
-    """The JAX package's pure-Python mesh path, the one the port copies
-    (its C++ front end would otherwise be taken where it builds)."""
+    """The pure-Python mesh path of both packages (their C++ front ends
+    would otherwise be taken where they build)."""
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setenv("HNUMO_NATIVE", "0")
 
 
 @pytest.mark.parametrize("name", MESHES)
 def test_reader_layout_and_corners_match_jax(tmp_path, name):
     path = write_mesh(tmp_path, name)
-    jm, tm = jgmsh.read_msh(path, native=False), tgmsh.read_msh(path)
+    jm, tm = jgmsh.read_msh(path, native=False), tgmsh.read_msh(path, native=False)
     for field in ("nodes", "quads", "boundary_edges", "node_ids", "bathy"):
         a, b = getattr(jm, field), getattr(tm, field)
         assert (a is None) == (b is None), field
@@ -76,7 +77,7 @@ def test_reader_layout_and_corners_match_jax(tmp_path, name):
     # the two must reorient the elements identically: the layout, the
     # rotation of every element and the corner tables, not the coordinates only
     jl = jgmsh.infer_structured_layout(jm.quads, native=False)
-    tl = tgmsh.infer_structured_layout(tm.quads)
+    tl = tgmsh.infer_structured_layout(tm.quads, native=False)
     assert jl[:2] == tl[:2]
     assert np.array_equal(jl[2], tl[2]) and np.array_equal(jl[3], tl[3])
 
@@ -148,7 +149,8 @@ def test_irregular_topology_is_rejected(tmp_path):
     msgs = []
     for read, infer in ((lambda p: jgmsh.read_msh(p, native=False),
                          lambda q: jgmsh.infer_structured_layout(q, native=False)),
-                        (tgmsh.read_msh, tgmsh.infer_structured_layout)):
+                        (lambda p: tgmsh.read_msh(p, native=False),
+                         lambda q: tgmsh.infer_structured_layout(q, native=False))):
         with pytest.raises(ValueError, match="logically") as e:
             infer(read(path).quads)
         msgs.append(str(e.value))
@@ -184,7 +186,7 @@ def test_model_config_describes_the_mesh(tmp_path):
     m = TorchModel(cfg, device="cpu")
     assert (m.cfg.nelx, m.cfg.nely) == (6, 5)
     assert (m.cfg.x_boundary, m.cfg.y_boundary) == ((4, 2), (4, 2))
-    assert m.bc == (4, 2, 4, 2)
+    assert m.bc[:4] == (4, 2, 4, 2)
     assert (cfg.nelx, cfg.nely) == (2, 2)      # the caller's Config is not changed
     assert m.g.wjac_df.shape[:2] == (5, 6)
 
@@ -210,7 +212,7 @@ def test_two_steps_on_a_deformed_mesh_with_bathymetry(tmp_path, jax_python_path)
               lread_external_bathy=True, bathymetry_shift=-50.0)
     jm, tm, sj, st = _step_both(kw, 2)
     assert jm.static.uniform_geom is False and tm.static.uniform_geom is False
-    assert not tm.static.mega and tm.bc == (4, 2, 4, 2)
+    assert not tm.static.mega and tm.bc[:4] == (4, 2, 4, 2)
     np.testing.assert_array_equal(tm.P.zbot_df.numpy(), np.asarray(jm.P.zbot_df))
     assert float(tm.P.zbot_df.max()) < -9928.0 + 1500.0 - 50.0 + 1e-6
     assert bool(st.ok) and bool(sj.ok)

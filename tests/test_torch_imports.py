@@ -30,7 +30,10 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+hnumo_tpu(\s|\.|$
                                     "hnumo_tpu_torch.io.snapshots",
                                     "hnumo_tpu_torch.io.vtk",
                                     "hnumo_tpu_torch.mesh.gmsh",
-                                    "hnumo_tpu_torch.mesh.bcinp"])
+                                    "hnumo_tpu_torch.mesh.bcinp",
+                                    "hnumo_tpu_torch.mesh._native",
+                                    "hnumo_tpu_torch.parallel.sharding",
+                                    "hnumo_tpu_torch.parallel.launch"])
 def test_import_pulls_in_no_jax(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -46,6 +49,19 @@ def test_source_names_no_jax(path):
     text = path.read_text()
     assert not FORBIDDEN.search(text), f"{path} imports jax or hnumo_tpu"
     assert "torch.compile" not in text
+
+
+def test_native_front_end_builds_the_ports_own_source():
+    """The port's C++ mesh front end compiles its own copy of the source,
+    hnumo_tpu_torch/mesh/csrc/qmesh.cpp, into hnumo_tpu_torch/_build/; it
+    never reads the JAX package's native/src/."""
+    from hnumo_tpu_torch.mesh import _native
+
+    assert _native.SOURCE == ROOT / "hnumo_tpu_torch" / "mesh" / "csrc" / "qmesh.cpp"
+    assert _native.SOURCE.is_file()
+    assert _native.BUILD_DIR == ROOT / "hnumo_tpu_torch" / "_build"
+    for path in PORT_FILES + [_native.SOURCE]:
+        assert "native/src" not in path.read_text(), path
 
 
 def test_model_needs_cuda_unless_cpu_is_asked_for():

@@ -357,9 +357,12 @@ def test_cli_runs_a_namelist_on_the_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_a_device_mesh(tmp_path):
+    """A mesh that does not split the 6x6 grid into equal blocks is refused
+    before any rank starts, as the JAX package refuses it (a mesh that
+    divides the grid runs: tests/test_torch_decomp_io.py)."""
     nml = write_namelist(tmp_path / "numo3d.in")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        driver.main([str(nml), "--mesh", "2x2", "--cpu", "--outdir", str(tmp_path)])
+    with pytest.raises(ValueError, match="equal blocks"):
+        driver.main([str(nml), "--mesh", "4x4", "--cpu", "--outdir", str(tmp_path)])
     assert not (tmp_path / "mlswe0000").exists()
 
 

@@ -255,7 +255,7 @@ def test_periodic_precomputed_tables(wall):
     initial state and the shared static fields."""
     jm = JaxModel(jax_config(**walls(wall)))
     tm = TorchModel(torch_config(**walls(wall)), device="cpu")
-    assert tm.static.periodic and tm.bc == tuple(jm.bc[:4])
+    assert tm.static.periodic and tm.bc[:4] == tuple(jm.bc[:4])
     for tree_t, tree_j in ((tm.P, jm.P), (tm.g, jm.g)):
         close_trees(tree_t, tree_j, TABLE_REL)
     for name in ("qb_df", "q_df", "qprime_df"):
