@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (hnumo_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything; needs one CUDA device + nvcc
-    python3 chip_smoke.py --profile FILE  # also a torch.profiler table of one step
+    python3 chip_smoke.py --profile [FILE]  # also torch.profiler tables (default
+                                            # chiprun_out/chip_smoke_profile.txt)
+    python3 chip_smoke.py --log FILE  # the whole output (default chiprun_out/chip_smoke.log)
 
 Builds the five CUDA kernels from the sources in this checkout (and, to be
 timed only, two ablated variants of each of the four streaming kernels: the
@@ -49,14 +51,21 @@ every rank's launches counted; over NCCL with a GPU per rank where the
 machine has two or more (27b; otherwise a line says it was not run); and
 the native C++ mesh front end (28): phase 21's MSH file read through it,
 its geometry bitwise the Python path's, and the CLI decomposed 2x2 against
-the serial CLI. Any failure raises and the run exits non-zero; there is no
-CPU path.
+the serial CLI. Last the flat unstructured faces (29): mesh/flatfaces.py's
+tables of the 256x256 brick, its traces and scatter on the card in f32 and
+f64 against the CPU and against the structured path's traces, the adjoint
+identity, and the geometry of the pinwheel and of a deformed 256x256 brick.
+Any failure raises and the run exits non-zero; there is no CPU path.
 
-Output: one line per phase, then a `{"kernels": [...]}` line (five kernels; each
-entry that a phase from 22 on launched carries that phase's readings under
-a key of its own), the card's
-name and power limit, and as the last line
+Output: one line per phase, then a `{"kernels": [...], "flatfaces_256": {...}}`
+line (five kernels; each entry that a phase from 22 on launched carries that
+phase's readings under a key of its own; phase 29's readings beside them:
+the flat faces are library calls, no kernel), the card's name and power
+limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
+Everything written to standard output and standard error also goes, line
+by line, to `--log` (default chiprun_out/chip_smoke.log), so a long or
+failing run keeps every line.
 """
 from __future__ import annotations
 
@@ -1888,7 +1897,12 @@ DECOMP_STEPS = 2      # eager steps of each decomposed case (the second is timed
 # perturbation, pb' or δdp, carries the rounding of the full variable it was
 # formed from, as in the option tests' f32 gate); the per-channel errors are
 # printed beside. f32: the option tests' f32 gate; f64: the CPU tests'
-# per-channel gate of a split run (they measure 0: bitwise)
+# per-channel gate of a split run (they measure 0: bitwise). On the card a
+# split run is bitwise only where the matrix library rounds a block's
+# products as it rounds the whole grid's: the plain PyTorch contractions
+# (torch.einsum, elements in the batch) take other library kernels at other
+# batch sizes (library_slice_check, --split-probe); the port's own kernels
+# give a block bitwise what they give the whole grid.
 DECOMP_F32_TOL = 1e-4
 DECOMP_F64_TOL = 1e-12
 DECOMP_TIMEOUT = 900.0
@@ -2106,14 +2120,505 @@ def check_native_and_cli_mesh(tmp, native_calls):
                 snapshot_err=snap_err, wall_s=walls, library=str(_native.library_path().name))
 
 
+# ---- where a split f32 run leaves the serial one (--split-probe) -----------------
+
+# the port's modules whose functions one step runs: the probe wraps each
+PROBE_MODULES = ("hnumo_tpu_torch.core.stepper", "hnumo_tpu_torch.core.bcl",
+                 "hnumo_tpu_torch.core.btp", "hnumo_tpu_torch.core.coupling",
+                 "hnumo_tpu_torch.core.viscosity", "hnumo_tpu_torch.core.faces",
+                 "hnumo_tpu_torch.ops.dg", "hnumo_tpu_torch.ops.btp_volume",
+                 "hnumo_tpu_torch.ops.btp_volume_uni", "hnumo_tpu_torch.ops.btp_tail")
+
+
+def _tensors(x):
+    """The tensors in a function's result, in order (tuples, NamedTuples,
+    lists and dicts walked)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for k in sorted(x, key=str) for t in _tensors(x[k])]
+    return []
+
+
+class FunctionRecorder:
+    """Wraps every function of PROBE_MODULES (wherever a module of that set
+    holds it) while active. For each function it counts the calls (`calls`)
+    and notes the order of their first returns (`order`). What the first
+    call returned (for a function that returns nothing: its tensor
+    arguments after the call, which it updated in place) is kept in `first`,
+    cloned on the device; or, given `compare`, handed at once to
+    `compare(key, tensors)`, whose answer is kept in `results`."""
+
+    def __init__(self, compare=None):
+        self.calls, self.order, self.compare = {}, [], compare
+        self.first, self.results = {}, {}
+
+    def __enter__(self):
+        import functools
+        import importlib
+
+        mods = [importlib.import_module(n) for n in PROBE_MODULES]
+        wrapped, self._saved = {}, []
+        for mod in mods:
+            for attr, fn in list(vars(mod).items()):
+                if not (callable(fn) and getattr(fn, "__module__", None) in PROBE_MODULES
+                        and type(fn).__name__ == "function"):
+                    continue
+                key = f"{fn.__module__.split('.', 1)[1]}.{fn.__qualname__}"
+                if key not in wrapped:
+                    def make(fn=fn, key=key):
+                        @functools.wraps(fn)
+                        def wrapper(*a, **k):
+                            out = fn(*a, **k)
+                            n = self.calls.get(key, 0)
+                            self.calls[key] = n + 1
+                            if n == 0:
+                                got = _tensors(out) or _tensors(list(a) + list(k.values()))
+                                self.order.append(key)
+                                if self.compare is None:
+                                    self.first[key] = [t.detach().clone() for t in got]
+                                else:
+                                    self.results[key] = self.compare(key, got)
+                            return out
+                        return wrapper
+                    wrapped[key] = make()
+                self._saved.append((mod, attr, fn))
+                setattr(mod, attr, wrapped[key])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def serial_slice(S, B, grid, bounds):
+    """The part of the serial grid's tensor `S` that is the block tensor
+    `B`: the element rows/columns (or x-/y-faces, one more) of this block,
+    found by shape, or a flat element axis (ney*nex) cut likewise. None
+    where no axis matches."""
+    (ny, nx), ((y0, y1), (x0, x1)) = grid, bounds
+    by, bx = y1 - y0, x1 - x0
+    if S.shape == B.shape:
+        return S
+    if S.ndim != B.ndim:
+        return None
+    for k in range(S.ndim - 1):
+        a, b = S.shape[k], S.shape[k + 1]
+        if (a - B.shape[k], b - B.shape[k + 1]) == (ny - by, nx - bx) and \
+                a in (ny, ny + 1) and b in (nx, nx + 1) and \
+                S.shape[:k] == B.shape[:k] and S.shape[k + 2:] == B.shape[k + 2:]:
+            return S[(slice(None),) * k + (slice(y0, y0 + B.shape[k]),
+                                           slice(x0, x0 + B.shape[k + 1]))]
+    # a flat element axis (ney*nex), or the flat face axis: the x-faces
+    # (ney, nex+1) then the y-faces (ney+1, nex), each flattened (core/btp._catf)
+    fx, bfx = ny * (nx + 1), by * (bx + 1)
+    for k in range(S.ndim):
+        if S.shape[:k] != B.shape[:k] or S.shape[k + 1:] != B.shape[k + 1:]:
+            continue
+        lead, rest = S.shape[:k], S.shape[k + 1:]
+
+        def cut(T, rows, cols, r0, c0, nr, nc):
+            view = T.reshape(lead + (rows, cols) + rest)
+            return view[(slice(None),) * k + (slice(r0, r0 + nr), slice(c0, c0 + nc))]
+
+        if S.shape[k] == ny * nx and B.shape[k] == by * bx:
+            return cut(S, ny, nx, y0, x0, by, bx).reshape(B.shape)
+        if S.shape[k] == fx + (ny + 1) * nx and B.shape[k] == bfx + (by + 1) * bx:
+            xs, ys = S.split([fx, S.shape[k] - fx], dim=k)
+            return torch.cat([cut(xs, ny, nx + 1, y0, x0, by, bx + 1).reshape(
+                                  lead + (bfx,) + rest),
+                              cut(ys, ny + 1, nx, y0, x0, by + 1, bx).reshape(
+                                  lead + (B.shape[k] - bfx,) + rest)], dim=k)
+    return None
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def split_stage_ranks(dec, cases):
+    """A rank of the function-by-function probe: per case, this rank's
+    block model takes one eager step with every function recorded (rank 0
+    keeps the first call's results); then rank 0 steps the serial model
+    over the whole grid and holds each function's first result, cut to
+    block 0, against the block's. Returns (rank 0) per case the functions
+    in call order with: calls (serial, block), shapes, bitwise, the largest
+    difference over the cut serial tensor's max."""
+    from hnumo_tpu_torch.model import Model
+
+    out = {}
+    for name, cfg in cases:
+        with FunctionRecorder() as blk:
+            m = Model(cfg, decomp=dec)
+            s = m.step(m.state0)
+            _sync(dec.device)
+        del m, s
+        dec.barrier()
+        if dec.rank != 0:
+            continue
+        grid = (cfg.nely, cfg.nelx)
+        bounds = dec.bounds(*grid)
+
+        def compare(key, serial, blk=blk, grid=grid, bounds=bounds):
+            block = blk.first.get(key)
+            if block is None or len(block) != len(serial):
+                return {"compared": False, "why": "block has no such call" if block is None
+                        else f"{len(serial)} tensors in the serial result, {len(block)} "
+                             "in the block's"}
+            res = []
+            for S, B in zip(serial, block):
+                cut = serial_slice(S, B, grid, bounds)
+                if cut is None or cut.dtype != B.dtype:
+                    res.append({"serial": list(S.shape), "block": list(B.shape),
+                                "compared": False})
+                    continue
+                equal = bool(torch.equal(cut, B))
+                err = 0.0
+                if not equal and cut.is_floating_point():
+                    scale = float(cut.abs().max()) or 1.0
+                    err = float((cut - B).abs().max()) / scale
+                res.append({"serial": list(S.shape), "block": list(B.shape),
+                            "compared": True, "bitwise": equal, "err": err})
+            return {"compared": True, "tensors": res}
+
+        with FunctionRecorder(compare) as ser:
+            m = Model(cfg, device=dec.device, step_impl="eager")
+            s = m.step(m.state0)
+            _sync(dec.device)
+        del m, s
+        rows = []
+        for key in ser.order:
+            r = ser.results[key]
+            tens = r.get("tensors", [])
+            done = [t for t in tens if t["compared"]]
+            rows.append({"function": key, "calls_serial": ser.calls[key],
+                         "calls_block": blk.calls.get(key, 0),
+                         "compared": len(done), "of": len(tens),
+                         "bitwise": all(t["bitwise"] for t in done),
+                         "err": max((t["err"] for t in done), default=0.0),
+                         "shapes": [(t["serial"], t["block"]) for t in tens][:4],
+                         "why": r.get("why")})
+        out[name] = rows
+        del blk, ser
+        if dec.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out if dec.rank == 0 else None
+
+
+def library_slice_check(device="cuda", seed=11):
+    """The products of the plain PyTorch code on one block against the same
+    products over the whole grid, cut to that block: the contraction of
+    `ops/dg.scatter_volume` (a three-operand `torch.einsum`, elements in
+    the batch) and a plain matrix product, on the same random numbers, at
+    the grids of --split-probe (128x128 cut to 64x64, 32x32 to 16x16), in
+    f32 and f64. Returns {case: largest difference over the max}: 0 where
+    the library computes each element alike whatever the batch."""
+    out = {}
+    rng = np.random.default_rng(seed)
+    for dtype in (torch.float32, torch.float64):
+        ops = {k: torch.tensor(rng.normal(size=(5, 9)), dtype=dtype, device=device)
+               for k in ("psiq", "dpsiq")}
+        mat = torch.tensor(rng.normal(size=(9, 9)), dtype=dtype, device=device)
+        for nel in (128, 32):
+            a = torch.tensor(rng.normal(size=(2, nel, nel, 9, 9)), dtype=dtype, device=device)
+            blk = a[:, :nel // 2, :nel // 2].contiguous()
+            for name, fn in (
+                    ("einsum ...JI,jJ,iI->...ji", lambda x: torch.einsum(
+                        "...JI,jJ,iI->...ji", x, ops["psiq"], ops["dpsiq"])),
+                    ("matmul (...,9,9)@(9,9)", lambda x: x @ mat)):
+                whole = fn(a)[:, :nel // 2, :nel // 2]
+                part = fn(blk)
+                err = float((whole - part).abs().max() / whole.abs().max())
+                out[f"{name} {nel}x{nel}->{nel // 2}x{nel // 2} "
+                    f"{str(dtype).split('.')[1]}"] = err
+    return out
+
+
+def split_probe_cases():
+    """(whole-run cases, function-by-function cases) of --split-probe: the
+    bench configuration split 2x2 against the serial model, in both
+    precisions at both sizes, and per stage with the flat face axis on both
+    sides (at 128x128 "auto" gives the blocks the flat axis and the whole
+    grid the per-direction one); then one step function by function, with
+    one face pipeline on both sides."""
+    def case(nel, dtype, **over):
+        return main_path_config(nel, dtype, mega="off", **over)
+
+    whole = [("128_f32_per_stage", case(128, "float32"), DECOMP_F32_TOL),
+             ("128_f32_fused", case(128, "float32", fused_tail="on"), DECOMP_F32_TOL),
+             ("128_f32_per_stage_flat_both", case(128, "float32", batched_faces="on"),
+              DECOMP_F32_TOL),
+             ("128_f64_per_stage", case(128, "float64"), DECOMP_F32_TOL),
+             ("128_f64_fused", case(128, "float64", fused_tail="on"), DECOMP_F32_TOL),
+             ("32_f32_per_stage", case(32, "float32"), DECOMP_F32_TOL),
+             ("32_f32_fused", case(32, "float32", fused_tail="on"), DECOMP_F32_TOL)]
+    by_function = [("128_f32_per_stage_per_direction_both",
+                    case(128, "float32", batched_faces="off")),
+                   ("128_f32_fused", case(128, "float32", fused_tail="on")),
+                   ("128_f64_per_stage_per_direction_both",
+                    case(128, "float64", batched_faces="off"))]
+    return whole, by_function
+
+
+def split_probe():
+    """--split-probe: where a split f32 run leaves the serial one. Prints one
+    line per whole-run case (2 eager steps, each field over its max, the
+    face pipelines each side took) and per function-by-function case the
+    functions whose first result differs (in call order), then returns
+    {"whole": ..., "by_function": ...}."""
+    from hnumo_tpu_torch.parallel.launch import start_function
+
+    lib = library_slice_check()
+    for k, v in lib.items():
+        print(f"split-probe library {k}: block vs whole grid cut to it {v:.3e} of the max")
+    whole, by_function = split_probe_cases()
+    refs = serial_references(whole, DECOMP_STEPS)
+    res = check_decomposed(whole, refs, DECOMP_SHAPE, "gloo", 1)
+    del refs
+    torch.cuda.empty_cache()
+    for k, v in res["cases"].items():
+        print(f"split-probe whole {k}: vs serial max per field {v['max_err']:.3e} "
+              f"({json.dumps({f: float(f'{e:.3e}') for f, e in v['errs'].items()})}); "
+              f"faces block {'flat' if v['batched_faces_block'] else 'per direction'}, "
+              f"serial {'flat' if v['batched_faces_serial'] else 'per direction'}"
+              f"{' (fused: faces in kernel F)' if v['fused'] else ''}")
+    run = start_function("chip_smoke:split_stage_ranks", DECOMP_SHAPE, "gloo", device="cuda",
+                         kwargs=dict(cases=by_function),
+                         pythonpath=[pathlib.Path(__file__).resolve().parent])
+    rows = run.result(DECOMP_TIMEOUT)[0]
+    for name, fns in rows.items():
+        differ = [r for r in fns if r["compared"] and not r["bitwise"]]
+        unmatched = [r["function"] for r in fns if not r["compared"]]
+        print(f"split-probe by function {name}: {len(fns)} functions in the first step, "
+              f"{sum(1 for r in fns if r['compared'])} compared, {len(differ)} differ; "
+              f"not compared: {', '.join(unmatched) or 'none'}")
+        for r in differ[:12]:
+            print(f"split-probe   {r['function']} (calls serial {r['calls_serial']}, block "
+                  f"{r['calls_block']}): {r['err']:.3e} of the max; shapes "
+                  f"{r['shapes']}")
+    return {"library": lib, "whole": res, "by_function": rows}
+
+
+# ---- the flat unstructured faces (phase 29) ------------------------------------
+
+FLAT_NEL = 256         # the bench brick of phases 6 and 13: 65,536 elements
+FLAT_SCATTER_TOL = {torch.float64: 1e-13, torch.float32: 1e-6}  # card vs CPU, of the max
+FLAT_ADJOINT_TOL = {torch.float64: 1e-13, torch.float32: 1e-6}  # of the sum of |terms|
+FLAT_COORD_TOL = 1e-14   # coordinate continuity, of the coordinates' max
+FLAT_DEFORM = 0.3        # of a cell: the deformed brick's interior vertices
+# the structured traces (core/faces) run a side's nodes in ascending i
+# (y-faces) or j (x-faces); the flat tables run them counter-clockwise:
+# the same order on sides 0 (south) and 1 (east), reversed on 2 (north)
+# and 3 (west)
+SIDE_REVERSED = (False, False, True, True)
+
+
+def brick_mesh(nel: int, deform: float = 0.0, seed: int = 0):
+    """An nel x nel brick in cells: vertices (V, 2) and CCW quads (E, 4) in
+    the structured element order e = ey*nel + ex (corners SW, SE, NE, NW);
+    `deform` moves the interior vertices at random by up to that fraction of
+    a cell, from `seed`."""
+    jj, ii = np.meshgrid(np.arange(nel + 1), np.arange(nel + 1), indexing="ij")
+    verts = np.stack([ii, jj], -1).reshape(-1, 2).astype(float)
+    if deform:
+        inner = ((ii > 0) & (ii < nel) & (jj > 0) & (jj < nel)).reshape(-1)
+        verts[inner] += deform * np.random.default_rng(seed).uniform(
+            -1, 1, size=(int(inner.sum()), 2))
+    v = (jj * (nel + 1) + ii)[:-1, :-1].reshape(-1)
+    quads = np.stack([v, v + 1, v + nel + 2, v + nel + 1], -1)
+    return verts, quads
+
+
+def structured_in_flat_order(traces, faces, nelx: int):
+    """The structured traces (xl, xr, yl, yr) of `extract_faces_stacked`
+    gathered into the flat tables' order: (own, other), each (C, F, ngl),
+    own = the trace of (elem_L, side_L), other = the one across that face,
+    in the node order of `SIDE_REVERSED`."""
+    xl, xr, yl, yr = traces
+    dev = xl.device
+    ey = torch.tensor(faces.elem_L // nelx, device=dev, dtype=torch.long)
+    ex = torch.tensor(faces.elem_L % nelx, device=dev, dtype=torch.long)
+    side = torch.tensor(faces.side_L, device=dev, dtype=torch.long)
+    C, m = xl.shape[0], xl.shape[-1]
+    own = torch.empty((C, len(side), m), dtype=xl.dtype, device=dev)
+    other = torch.empty_like(own)
+    # side: (own trace, other trace, y offset, x offset of the face)
+    for s, (a, b, dy, dx) in enumerate(((yr, yl, 0, 0), (xl, xr, 0, 1),
+                                        (yl, yr, 1, 0), (xr, xl, 0, 0))):
+        sel = side == s
+        ia, ib = ey[sel] + dy, ex[sel] + dx
+        ta, tb = a[:, ia, ib], b[:, ia, ib]
+        if SIDE_REVERSED[s]:
+            ta, tb = ta.flip(-1), tb.flip(-1)
+        own[:, sel], other[:, sel] = ta, tb
+    return own, other
+
+
+def check_flat_faces(nel: int = FLAT_NEL, device: str = "cuda"):
+    """Phase 29: hnumo_tpu_torch/mesh/flatfaces.py on the card at the main
+    path's width: the tables of an nel x nel brick built on the host, the
+    fields on the card in f32 and f64 (the main-path model's state0 channels
+    and random channels from a seed). Holds traces bitwise the CPU's,
+    scatter_faces within FLAT_SCATTER_TOL of the CPU's (index_add_ may add
+    into a corner node in another order), the adjoint identity, the flat
+    traces bitwise the structured path's, and on the pinwheel and a deformed
+    brick coordinate continuity (card) and unit normals (host, float64);
+    times one extract_traces and one scatter_faces on the device.
+    `device="cpu"` rehearses the checks on the CPU at a small `nel`, untimed
+    (the "card" side then runs on the CPU as well)."""
+    from hnumo_tpu_torch.basis.lgl import Basis1D
+    from hnumo_tpu_torch.core.faces import BCs, extract_faces_stacked
+    from hnumo_tpu_torch.mesh import flatfaces as ff
+    from hnumo_tpu_torch.model import Model
+
+    t0 = time.perf_counter()
+    _, quads = brick_mesh(nel)
+    b = Basis1D(4)
+    ngl = b.ngl
+    faces = ff.build_flat_faces(quads, ngl)
+    build_s = time.perf_counter() - t0
+    dev, host = faces.to(device), faces.to("cpu")
+    E, F = len(quads), faces.idx_L.shape[0]
+    if faces.n_interior != 2 * nel * (nel - 1) or F - faces.n_interior != 4 * nel:
+        raise AssertionError(f"{nel}x{nel} brick: {faces.n_interior} interior and "
+                             f"{F - faces.n_interior} boundary faces")
+    out = {"elements": E, "faces": F, "interior_faces": faces.n_interior,
+           "tables_build_s": build_s}
+    for dtype in (torch.float32, torch.float64):
+        m = Model(main_path_config(nel, str(dtype).split(".")[1]), device=device)
+        st = m.state0
+        fields = torch.cat([st.qb_df, st.q_df.flatten(0, 1), st.qprime_df.flatten(0, 1)])
+        del m, st
+        rng = np.random.default_rng(29)
+        noise = torch.tensor(rng.normal(size=(4,) + fields.shape[1:]), dtype=dtype,
+                             device=device)
+        q = torch.cat([fields, noise])                   # (C, nel, nel, m, m)
+        C = q.shape[0]
+        u = q.reshape(C, E, ngl, ngl)
+        uL, uR = ff.extract_traces(u, dev)
+        cL, cR = ff.extract_traces(u.cpu(), host)
+        if not (torch.equal(uL.cpu(), cL) and torch.equal(uR.cpu(), cR)):
+            raise AssertionError(f"{dtype}: traces on the card differ from the CPU's")
+        S = torch.tensor(rng.normal(size=(2, C, F, ngl)), dtype=dtype, device=device)
+        SL, SR = S[0], S[1].clone()
+        SR[:, torch.tensor(faces.is_boundary, device=device)] = 0.0
+        rhs = torch.tensor(rng.normal(size=u.shape), dtype=dtype, device=device)
+        rhs0 = rhs.clone()
+        got = ff.scatter_faces(rhs, SL, SR, dev)
+        want = ff.scatter_faces(rhs.cpu(), SL.cpu(), SR.cpu(), host)
+        scatter_err = float((got.cpu() - want).abs().max() / want.abs().max())
+        if not torch.equal(rhs, rhs0):
+            raise AssertionError(f"{dtype}: scatter_faces changed the caller's rhs")
+        if not scatter_err <= FLAT_SCATTER_TOL[dtype]:
+            raise AssertionError(f"{dtype}: scatter_faces card vs CPU {scatter_err:.3e} > "
+                                 f"{FLAT_SCATTER_TOL[dtype]:g} of the max")
+        # <extract(u), S> == <u, scatter(S)>, the terms summed in float64
+        lhs_terms = torch.cat([(uL * SL).reshape(-1), (uR * SR).reshape(-1)]).double()
+        rhs_terms = (u * ff.scatter_faces(torch.zeros_like(u), SL, SR, dev)).reshape(-1).double()
+        adj_err = float((lhs_terms.sum() - rhs_terms.sum()).abs()
+                        / lhs_terms.abs().sum())
+        if not adj_err <= FLAT_ADJOINT_TOL[dtype]:
+            raise AssertionError(f"{dtype}: adjoint identity {adj_err:.3e} > "
+                                 f"{FLAT_ADJOINT_TOL[dtype]:g}")
+        # the structured path's traces, matched face by face
+        own, other = structured_in_flat_order(extract_faces_stacked(q, BCs(4, 4, 4, 4)),
+                                              faces, nel)
+        interior = slice(0, faces.n_interior)
+        if not (torch.equal(uL, own) and torch.equal(uR[:, interior], other[:, interior])
+                and torch.equal(uR[:, faces.n_interior:], uL[:, faces.n_interior:])):
+            raise AssertionError(f"{dtype}: flat traces differ from the structured path's")
+        # device-only times of one call, operands cold (sets beyond the L2)
+        ms_extract = ms_scatter = None
+        if device != "cpu":
+            ms_extract = time_launches(lambda x: ff.extract_traces(x, dev), cold_sets((u,)),
+                                       20, device_only=True)
+            ms_scatter = time_launches(lambda r, a, c: ff.scatter_faces(r, a, c, dev),
+                                       cold_sets((rhs, SL, SR)), 20, device_only=True)
+        es = u.element_size()
+        idx_bytes = 2 * F * ngl * 4
+        # extract: the field read once, both traces written, the tables read;
+        # scatter: rhs and both contributions read, the result written
+        b_extract = (u.numel() * es + 2 * C * F * ngl * es + idx_bytes) / HBM_BYTES_PER_S
+        b_scatter = (2 * u.numel() * es + 2 * C * F * ngl * es + idx_bytes) / HBM_BYTES_PER_S
+        out[str(dtype).split(".")[1]] = dict(
+            channels=C, traces_bitwise_cpu=True, structured_bitwise=True,
+            scatter_err_vs_cpu=scatter_err, scatter_tol=FLAT_SCATTER_TOL[dtype],
+            adjoint_err=adj_err, ms_extract=ms_extract, ms_scatter=ms_scatter,
+            bound_ms_extract=b_extract * 1e3, bound_ms_scatter=b_scatter * 1e3)
+        del q, u, uL, uR, cL, cR, S, SL, SR, rhs, rhs0, got, want, own, other
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    # geometry: coordinates continuous across interior faces (card), unit
+    # normals (host float64, the module's host code); each pinwheel spoke 1 long
+    for name, (verts, quads) in (("pinwheel", ff.pinwheel_mesh()),
+                                 (f"deformed_{nel}", brick_mesh(nel, FLAT_DEFORM, seed=29))):
+        gfaces = ff.build_flat_faces(quads, ngl)
+        coords = ff.bilinear_coords(verts, quads, b.xgl)
+        xy = torch.tensor(np.moveaxis(coords, -1, 0), device=device)
+        cL, cR = ff.extract_traces(xy, gfaces.to(device))
+        n_int = gfaces.n_interior
+        cont = float((cL - cR)[:, :n_int].abs().max() / xy.abs().max())
+        nx, ny, jac = ff.face_geometry(coords, gfaces, b.wgl, b.dpsi.T)
+        unit = float(np.abs(nx * nx + ny * ny - 1.0).max())
+        if not (cont <= FLAT_COORD_TOL and unit <= 1e-12):
+            raise AssertionError(f"{name}: coordinate continuity {cont:.3e}, unit normals "
+                                 f"{unit:.3e}")
+        out[name] = {"coord_continuity": cont, "unit_normal_err": unit}
+        if name == "pinwheel":
+            spoke = float(np.abs(jac[:n_int].sum(-1) - 1.0).max())
+            if not spoke <= 1e-12:
+                raise AssertionError(f"pinwheel spoke length off 1 by {spoke:.3e}")
+            out[name]["spoke_length_err"] = spoke
+    return out
+
+
+OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+
+
+class _Tee:
+    """A text stream that writes to several, and flushes each of them at
+    every line's end: a run that fails leaves every line before the failure
+    in the log."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        if "\n" in text:
+            self.flush()
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", metavar="FILE", default=None,
+    ap.add_argument("--profile", metavar="FILE", nargs="?", default=None,
+                    const=str(OUT_DIR / "chip_smoke_profile.txt"),
                     help="also write torch.profiler tables of one 64x64 step and one "
                          "barotropic solve on the per-stage and on the fused path, of "
                          "one 32x32 step, and of replayed steps of the quad family "
-                         "(64x64) and of both face paths (128x128), to FILE")
+                         "(64x64) and of both face paths (128x128), to FILE (default "
+                         "chiprun_out/chip_smoke_profile.txt)")
+    ap.add_argument("--log", metavar="FILE", default=str(OUT_DIR / "chip_smoke.log"),
+                    help="the whole output, standard output and errors, line by line "
+                         "(default chiprun_out/chip_smoke.log beside this script)")
+    ap.add_argument("--split-probe", action="store_true",
+                    help="only phases 1-2 and the probe of where a split f32 run leaves "
+                         "the serial one (split_probe); its readings to "
+                         "chiprun_out/split_probe.json")
     args = ap.parse_args()
+    pathlib.Path(args.log).parent.mkdir(parents=True, exist_ok=True)
+    log = open(args.log, "w")
+    sys.stdout = _Tee(sys.__stdout__, log)
+    sys.stderr = _Tee(sys.__stderr__, log)
 
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -2181,6 +2686,14 @@ def main() -> int:
               f"resident blocks per SM): " + "; ".join(
                   f"{dt} p={ngl - 1} {json.dumps(layout(getattr(torch, dt), ngl, nq))}"
                   for dt in ("float32", "float64") for ngl, nq in ((5, 9), (9, 17))))
+
+    if args.split_probe:
+        probe = split_probe()
+        (OUT_DIR / "split_probe.json").write_text(json.dumps(probe, default=str))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- phase 3: volume kernel vs plain version -----------------------------
     # E=30 and E=4096 (1024 tiles of 4 for 264 resident blocks: the ring turns
@@ -2749,6 +3262,26 @@ def main() -> int:
           f"{nat['fin_err']:.2e}, final snapshot {nat['snapshot_err']:.2e} of their "
           f"scale (limit 1e-9)")
 
+    # ---- phase 29: the flat unstructured faces on the card ----------------------------
+    t_phase = time.perf_counter()
+    flat = check_flat_faces()
+    secs_29 = time.perf_counter() - t_phase
+    print(f"phase 29 ({secs_29:.1f} s) flat unstructured faces (mesh/flatfaces.py) on the "
+          f"{FLAT_NEL}x{FLAT_NEL} brick ({flat['elements']} elements, {flat['faces']} faces, "
+          f"{flat['interior_faces']} interior; tables built on the host in "
+          f"{flat['tables_build_s']:.1f} s): " + "; ".join(
+              f"{dt} ({v['channels']} channels: state0 + random): traces == CPU and == the "
+              f"structured path's, bitwise; scatter vs CPU {v['scatter_err_vs_cpu']:.2e} of "
+              f"the max (tol {v['scatter_tol']:g}); adjoint {v['adjoint_err']:.2e}; device "
+              f"ms extract_traces {v['ms_extract']:.4f} (bound {v['bound_ms_extract']:.4f}), "
+              f"scatter_faces {v['ms_scatter']:.4f} (bound {v['bound_ms_scatter']:.4f})"
+              for dt, v in flat.items() if dt in ("float32", "float64"))
+          + f"; pinwheel: coordinate continuity {flat['pinwheel']['coord_continuity']:.1e}, "
+          f"unit normals {flat['pinwheel']['unit_normal_err']:.1e}, spoke length "
+          f"{flat['pinwheel']['spoke_length_err']:.1e}; deformed {FLAT_NEL}x{FLAT_NEL}: "
+          f"continuity {flat[f'deformed_{FLAT_NEL}']['coord_continuity']:.1e}, unit normals "
+          f"{flat[f'deformed_{FLAT_NEL}']['unit_normal_err']:.1e} | {smi}")
+
     def decomposed_entry(name):
         """A kernel's readings in phase 27 (27b), per case of its path."""
         def cases(d):
@@ -2958,7 +3491,10 @@ def main() -> int:
             "mass_drift": sb["botfr2_mega_32"]["run"]["mass_drift"],
             "step_err_f64_vs_per_stage": sb["botfr2_vs_per_stage_f64"]["mega"]},
     }] + fused_entries
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "flatfaces_256": {
+        "what": "hnumo_tpu_torch/mesh/flatfaces.py: index_select / index_add_, no kernel "
+                "of its own (the JAX package's is an XLA gather and segment-sum)",
+        "card": smi, **flat}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,11 @@ Two uses:
   through these.
 
 The rendezvous is a file in a directory of the caller's (never a fixed
-port). Every run is joined with a time limit: a rank that fails or hangs
+port). Every run is joined with two time limits: a generous start-up limit
+(`STARTUP_TIMEOUT`) until every rank has joined the group, which each marks
+with a file `ready{rank}` of that directory (`init_decomposition`), and
+the caller's `timeout` from then on, so that the caller's limit never pays
+for importing torch or for a host under load. A rank that fails or hangs
 fails the whole run, and the other ranks, which would wait on it forever,
 are killed. Each rank's output goes to a log file of that directory, whose
 end is quoted in the error.
@@ -32,13 +36,18 @@ import time
 from pathlib import Path
 
 _PACKAGE_ROOT = str(Path(__file__).resolve().parents[2])
+# seconds from the ranks' start until every rank has joined the group
+STARTUP_TIMEOUT = 600.0
+# seconds the other ranks get to end on their own once one has failed
+FAIL_GRACE = 2.0
 
 
 def _rank_env(rank: int, nranks: int, workdir: Path, pythonpath=()) -> dict:
     env = dict(os.environ)
     env.update(RANK=str(rank), WORLD_SIZE=str(nranks), LOCAL_RANK=str(rank),
                LOCAL_WORLD_SIZE=str(nranks),
-               HNUMO_DIST_INIT=f"file://{workdir / 'rendezvous'}")
+               HNUMO_DIST_INIT=f"file://{workdir / 'rendezvous'}",
+               HNUMO_READY_FILE=str(workdir / f"ready{rank}"))
     paths = [_PACKAGE_ROOT, *map(str, pythonpath)]
     if env.get("PYTHONPATH"):
         paths.append(env["PYTHONPATH"])
@@ -46,27 +55,42 @@ def _rank_env(rank: int, nranks: int, workdir: Path, pythonpath=()) -> dict:
     return env
 
 
-def _join(procs, logs, timeout: float) -> None:
-    """Wait for every rank; on a failure or at the time limit kill the rest
-    and raise with the end of the failed rank's log."""
-    deadline = time.monotonic() + timeout
+def _join(procs, logs, ready, timeout: float) -> None:
+    """Wait for every rank; on a failure or at a time limit kill the rest
+    and raise with the end of the failed ranks' logs, the first seen first
+    (after a failure the others get FAIL_GRACE seconds to end on their own,
+    so that each rank that fails with it is quoted too). `ready`: each
+    rank's mark that it joined the group. Until every rank has marked, the
+    limit is STARTUP_TIMEOUT seconds from now; from then, `timeout`."""
+    deadline = time.monotonic() + STARTUP_TIMEOUT
+    joined, failed, fail_by = False, [], None
     try:
         while True:
             codes = [p.poll() for p in procs]
-            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
-            if bad:
-                r = bad[0]
-                raise RuntimeError(
-                    f"rank {r} of {len(procs)} exited with code {codes[r]}:\n"
-                    + _tail(logs[r]))
-            if all(c == 0 for c in codes):
+            failed += [r for r, c in enumerate(codes) if c not in (None, 0)
+                       and r not in failed]
+            if failed:
+                fail_by = fail_by or time.monotonic() + FAIL_GRACE
+                if None not in codes or time.monotonic() > fail_by:
+                    raise RuntimeError("\n".join(
+                        f"rank {r} of {len(procs)} exited with code {codes[r]}:\n"
+                        + _tail(logs[r]) for r in failed))
+            elif all(c == 0 for c in codes):
                 return
-            if time.monotonic() > deadline:
+            elif not joined and all(m.exists() for m in ready):
+                joined = True
+                deadline = time.monotonic() + timeout
+            elif time.monotonic() > deadline:
                 waiting = [r for r, c in enumerate(codes) if c is None]
+                if joined:
+                    what = f"{timeout:.0f} s after every rank joined the group"
+                else:
+                    unjoined = [r for r, m in enumerate(ready) if not m.exists()]
+                    what = (f"after {STARTUP_TIMEOUT:.0f} s of start-up, ranks {unjoined} "
+                            "not joined to the group")
                 raise TimeoutError(
-                    f"ranks {waiting} of {len(procs)} still running after "
-                    f"{timeout:.0f} s; killed. Rank {waiting[0]}:\n"
-                    + _tail(logs[waiting[0]]))
+                    f"ranks {waiting} of {len(procs)} still running {what}; "
+                    f"killed. Rank {waiting[0]}:\n" + _tail(logs[waiting[0]]))
             time.sleep(0.05)
     finally:
         for p in procs:
@@ -82,8 +106,12 @@ def _tail(path: Path, n: int = 4000) -> str:
 
 
 def _start(cmds_envs, workdir: Path):
-    # a file rendezvous must not find a file of an earlier run
+    # a file rendezvous must not find a file of an earlier run, nor the
+    # launcher an earlier run's marks
     (workdir / "rendezvous").unlink(missing_ok=True)
+    ready = [workdir / f"ready{rank}" for rank in range(len(cmds_envs))]
+    for mark in ready:
+        mark.unlink(missing_ok=True)
     procs, logs = [], []
     for rank, (cmd, env) in enumerate(cmds_envs):
         log = workdir / f"rank{rank}.log"
@@ -91,7 +119,7 @@ def _start(cmds_envs, workdir: Path):
             procs.append(subprocess.Popen(cmd, env=env, stdout=f,
                                           stderr=subprocess.STDOUT))
         logs.append(log)
-    return procs, logs
+    return procs, logs, ready
 
 
 class Ranks:
@@ -100,13 +128,14 @@ class Ranks:
 
     def __init__(self, cmds_envs, workdir: Path, tmp=None):
         self.workdir, self._tmp = workdir, tmp
-        self.procs, self.logs = _start(cmds_envs, workdir)
+        self.procs, self.logs, self.ready = _start(cmds_envs, workdir)
 
     def join(self, timeout: float) -> list[str]:
-        """Wait for every rank (raising as `_join`); the logs' texts in rank
+        """Wait for every rank (raising as `_join`: `timeout` counts from
+        the moment every rank has joined the group); the logs' texts in rank
         order."""
         try:
-            _join(self.procs, self.logs, timeout)
+            _join(self.procs, self.logs, self.ready, timeout)
             return [log.read_text(errors="replace") for log in self.logs]
         finally:
             if self._tmp is not None:
@@ -122,7 +151,9 @@ def _workdir(workdir):
 
 def run_command(argv, nranks: int, timeout: float = 3600.0, workdir=None) -> list[str]:
     """Run `python *argv` as `nranks` ranks and wait for them; returns
-    their logs' texts in rank order (rank 0's is the run's output)."""
+    their logs' texts in rank order (rank 0's is the run's output). The
+    command must join the group through `init_decomposition`, which marks
+    the rank as joined."""
     wd, tmp = _workdir(workdir)
     cmd = [sys.executable, *argv]
     ranks = Ranks([(cmd, _rank_env(r, nranks, wd)) for r in range(nranks)], wd, tmp)

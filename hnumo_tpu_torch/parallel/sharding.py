@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -220,7 +221,8 @@ def init_decomposition(shape, backend: str | None = None, device=None) -> Decomp
     "gloo" on CUDA devices stages the halos through host memory, so that
     several ranks can share one GPU. NCCL needs a GPU per rank on the host
     and raises where there are fewer; a backend other than these two
-    raises."""
+    raises. Once joined, the rank marks it by creating the file that
+    HNUMO_READY_FILE names, where the local launcher set one."""
     py, px = (int(v) for v in shape)
     if py < 1 or px < 1:
         raise ValueError(f"decomposition shape {shape} must be positive")
@@ -276,6 +278,11 @@ def init_decomposition(shape, backend: str | None = None, device=None) -> Decomp
     if rank == 0:
         print(f"decomposition {py}x{px}: {world} ranks, backend {backend}, "
               f"transport {transport}, rank 0 on {device}", flush=True)
+    # the local launcher (parallel/launch.py) starts the run's time limit
+    # once every rank has marked that it joined
+    mark = os.environ.get("HNUMO_READY_FILE")
+    if mark:
+        Path(mark).touch()
     return dec
 
 

@@ -34,7 +34,7 @@ from hnumo_tpu.parallel.sharding import blockify_tables, make_mesh, table_specs
 from hnumo_tpu_torch.config import Config as TorchConfig
 from hnumo_tpu_torch.core.init import static_for_blocks
 from hnumo_tpu_torch.model import Model as TorchModel
-from hnumo_tpu_torch.parallel.launch import run_function, start_function
+from hnumo_tpu_torch.parallel.launch import run_command, run_function, start_function
 from hnumo_tpu_torch.parallel.sharding import (Decomposition, block_bounds,
                                                init_decomposition, local_state,
                                                local_tables)
@@ -349,3 +349,14 @@ def test_a_failed_or_hung_rank_fails_the_run(target, exc, match):
     with pytest.raises(exc, match=match):
         run_function(f"torch_decomp_ranks:{target}", (1, 2), "gloo", device="cpu",
                      timeout=10.0, pythonpath=[TESTS])
+
+
+def test_the_time_limit_starts_once_every_rank_has_joined(monkeypatch):
+    """A rank that is slow to start (here: rank 1 sleeps 12 s before it joins
+    the group) does not eat the run's time limit of 10 s: the limit counts
+    from the moment every rank has joined (`launch.STARTUP_TIMEOUT` bounds
+    the start), so the run completes."""
+    monkeypatch.setenv("PYTHONPATH", str(TESTS))
+    logs = run_command(["-c", "import torch_decomp_ranks as R; R.late_join_on_rank_one(12.0)"],
+                       2, timeout=10.0)
+    assert "decomposition 1x2: 2 ranks, backend gloo" in logs[0]

@@ -191,6 +191,24 @@ def hang_on_rank_one(dec):
     dec.barrier()
 
 
+def late_join_on_rank_one(delay: float):
+    """A rank's whole program, run through `launch.run_command`: rank 1
+    sleeps `delay` seconds before it joins the group (a slow start), then
+    every rank meets the others in a collective and leaves."""
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    from hnumo_tpu_torch.parallel.sharding import init_decomposition
+
+    if os.environ["RANK"] == "1":
+        time.sleep(delay)
+    dec = init_decomposition((1, 2), backend="gloo", device="cpu")
+    dec.barrier()
+    dist.destroy_process_group()
+
+
 # ---- checkpoints across decompositions ----------------------------------------
 
 def checkpoint_ranks(dec, over, runs):
