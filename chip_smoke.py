@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile [FILE]  # also torch.profiler tables (default
                                             # chiprun_out/chip_smoke_profile.txt)
     python3 chip_smoke.py --log FILE  # the whole output (default chiprun_out/chip_smoke.log)
+    python3 chip_smoke.py --decomposition-only  # phases 1-2 and 27-27d only
 
 Builds the five CUDA kernels from the sources in this checkout (and, to be
 timed only, two ablated variants of each of the four streaming kernels: the
@@ -48,7 +49,16 @@ a 32x32 f64 one with a no-slip and a copy wall, each split 2x2 over four
 ranks that share the card over gloo (halos staged through host memory),
 eager, on the per-stage and the fused path, against the serial model, with
 every rank's launches counted; over NCCL with a GPU per rank where the
-machine has two or more (27b; otherwise a line says it was not run); and
+machine has two or more (27b; otherwise a line says it was not run), eager
+and graphed: the graphed split step bitwise the eager one on every rank,
+its replay's kernels and NCCL launches counted in a trace, ms/step in
+turns; the capture of the split step on one GPU (27c): a one-rank NCCL
+group whose axes exchange with the rank itself replays rank 0's exchange
+plans of phase 27 and the `ok` all-reduce as one CUDA graph (received
+bitwise what was sent, the all-reduce right, one NCCL launch per call), and
+a doubly periodic 64x64 model on those axes graphed against eager and
+serial; the double gyre at 256x256 split 2x2 over NCCL, eager and graphed
+beside the serial model, where the machine has four GPUs (27d); and
 the native C++ mesh front end (28): phase 21's MSH file read through it,
 its geometry bitwise the Python path's, and the CLI decomposed 2x2 against
 the serial CLI. Last the flat unstructured faces (29): mesh/flatfaces.py's
@@ -1905,7 +1915,9 @@ DECOMP_STEPS = 2      # eager steps of each decomposed case (the second is timed
 # give a block bitwise what they give the whole grid.
 DECOMP_F32_TOL = 1e-4
 DECOMP_F64_TOL = 1e-12
-DECOMP_TIMEOUT = 900.0
+DECOMP_TIMEOUT = 600.0
+DECOMP_TURN_STEPS = 3  # steps of each timed turn over NCCL (eager, graph, graph, eager)
+TRACED_REPLAYS = 2     # replays traced one by one on every rank (graphed_block)
 CLI_MESH_STEPS = 3    # steps of phase 28's decomposed CLI run
 
 
@@ -1926,25 +1938,113 @@ def decomposed_cases():
              DECOMP_F64_TOL)]
 
 
-def decomposed_ranks(dec, cases, steps):
-    """A rank of phase 27: each case's model on this rank's block, eager;
-    the launch counters zeroed just before its first step and read after its
-    last; the last step timed (all ranks start it together). Returns per
-    case this rank's counts, its expected counts, its ms/step, its share of
-    the mass before and after, its exchange calls per step, and on rank 0
-    the gathered final state (CPU tensors)."""
+def on_self_axes(m, dec):
+    """Close model `m`'s faces through `self_axes` (phase 27c)."""
+    from hnumo_tpu_torch.core.faces import BCs
+
+    ax = self_axes(dec)
+    m.bc = BCs(*m.bc[:4], ax["x"], ax["y"])
+    m._build_operators()
+
+
+def graphed_block(dec, cfg, m, s, steps, self_exchange=False):
+    """Over NCCL, beside the eager model `m` of a rank whose state after
+    `steps` steps from its initial state is `s`: a graphed model of `cfg`
+    (the default under NCCL) stepped as far, which must be bitwise `s` on
+    this block; its first step's launches (warm-up and capture: twice the
+    path's); TRACED_REPLAYS replays traced one by one, of which one at least
+    must hold the path's kernels and one NCCL point-to-point launch per
+    posting call of the eager step's plan (Decomposition.plan) exactly (the
+    count of each trace is returned: one trace of the 64x64 self-axis model
+    on a four-GPU host held 825 of 828, the same model's on a one-GPU host
+    828); then both models' ms/step timed in turns (eager,
+    graph, graph, eager; DECOMP_TURN_STEPS steps each, the ranks meeting
+    before each turn). Every rank makes the same calls in the same order.
+    `self_exchange`: the graphed model's faces are closed through
+    `self_axes`, as `m`'s are (phase 27c)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnumo_tpu_torch.model import Model
+
+    mg = Model(cfg, decomp=dec)
+    if self_exchange:
+        on_self_axes(mg, dec)
+    if mg.step_impl != "graph":
+        raise AssertionError(f"a model over NCCL took step_impl {mg.step_impl!r}")
+    wrappers = zero_counts()
+    sg = mg.run(mg.state0, steps)
+    at_capture = {k: fn.launches for k, fn in wrappers.items()}
+    per_step = path_launches_per_step(mg)
+    if at_capture != {k: 2 * per_step.get(k, 0) for k in wrappers}:
+        raise AssertionError(f"rank {dec.rank}: the first graphed step launched "
+                             f"{at_capture}, expected twice {per_step}")
+    for f in ("qb_df", "q_df", "qprime_df"):
+        a, b = getattr(sg, f), getattr(s, f)
+        if not torch.equal(a, b):
+            diff = float((a.double() - b.double()).abs().max())
+            raise AssertionError(f"rank {dec.rank}: graphed {f} != eager after {steps} "
+                                 f"steps, max |diff| {diff:.3e}")
+    dec.plan = []
+    m.step(s)
+    plan, dec.plan = dec.plan, None
+    posting = sum(e.posts for e in plan)
+    want = {k: per_step.get(k, 0) for k in KERNEL_SYMBOLS}
+    traces = []
+    for _ in range(TRACED_REPLAYS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mg.step(sg)
+            torch.cuda.synchronize()
+        rows = _device_rows(prof)
+        traces.append(({name: sum(e.count for e in rows if sym in e.key)
+                        for name, sym in KERNEL_SYMBOLS.items()}, nccl_kernels(prof)))
+    exact = [(c, k) for c, k in traces if c == want and sendrecv_launches(k) == posting]
+    if not exact:
+        raise AssertionError(f"rank {dec.rank}: no traced replay ran {per_step} and "
+                             f"{posting} NCCL point-to-point launches: {traces}")
+    counts, kernels = exact[0]
+    models, states = {"eager": m, "graph": mg}, {"eager": s, "graph": sg}
+    ms = {"eager": [], "graph": []}
+    for impl in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        dec.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[impl] = models[impl].run(states[impl], DECOMP_TURN_STEPS)
+        torch.cuda.synchronize()
+        ms[impl].append((time.perf_counter() - t0) / DECOMP_TURN_STEPS * 1e3)
+    return {"launches_at_capture": at_capture, "replay_kernels": counts,
+            "nccl_kernels": kernels, "posting_calls_per_step": posting,
+            "nccl_sendrecv_traced": [sendrecv_launches(k) for _, k in traces],
+            "exchange_calls_per_step": len(plan), "ms_eager": ms["eager"],
+            "ms_graph": ms["graph"]}
+
+
+def decomposed_ranks(dec, cases, steps, graphed=False):
+    """A rank of phases 27, 27b and 27d: each case's model on this rank's
+    block, eager (named: over NCCL the default is the graph); the launch
+    counters zeroed just before its first step and read after its last; the
+    exchange plan of its first step recorded (Decomposition.plan); the last
+    step timed (all ranks start it together). With `graphed` (NCCL), the
+    graphed model of the case beside it (`graphed_block`). Returns per case
+    this rank's counts, its expected counts, its ms/step, its share of the
+    mass before and after, its exchange and posting calls per step, and on
+    rank 0 the plan and the gathered final state (CPU tensors)."""
     from hnumo_tpu_torch.model import Model
 
     out = {}
     for name, cfg, _ in cases:
-        m = Model(cfg, decomp=dec)
-        if m.step_impl != "eager" or m.static.mega or m.static.volume_impl != "kernel":
+        m = Model(cfg, decomp=dec, step_impl="eager")
+        if m.static.mega or m.static.volume_impl != "kernel":
             raise AssertionError(f"{name}: rank {dec.rank} is not on the eager kernel path")
         s = m.state0
         mass0 = total_mass(m, s)      # this block's share: the shares add up
         calls0 = dec.exchange_calls
         wrappers = zero_counts()
-        s = m.run(s, steps - 1)
+        dec.plan = []
+        s = m.run(s, 1)
+        plan, dec.plan = dec.plan, None
+        s = m.run(s, steps - 2)
         torch.cuda.synchronize()
         dec.barrier()
         t0 = time.perf_counter()
@@ -1955,15 +2055,20 @@ def decomposed_ranks(dec, cases, steps):
         want = {k: steps * v for k, v in path_launches_per_step(m).items()}
         finite = all(bool(torch.isfinite(getattr(s, f)).all())
                      for f in ("qb_df", "q_df", "qprime_df"))
-        whole = m.gather(s)
-        out[name] = dict(
+        res = dict(
             counts=counts, want=want, ms_per_step=ms, mass0=mass0,
             mass=total_mass(m, s), finite=finite, ok=bool(s.ok),
             exchange_calls_per_step=(dec.exchange_calls - calls0) / steps,
+            posting_calls_per_step=sum(e.posts for e in plan),
+            plan=plan if dec.rank == 0 else None,
             block=tuple(m.g.wjac.shape[:2]), transport=dec.transport,
-            batched_faces=m.static.batched_faces, fused=m.static.fused_tail,
-            state=None if whole is None else {f: getattr(whole, f) for f in
-                                              ("qb_df", "q_df", "qprime_df")})
+            batched_faces=m.static.batched_faces, fused=m.static.fused_tail)
+        whole = m.gather(s)
+        res["state"] = None if whole is None else {f: getattr(whole, f) for f in
+                                                   ("qb_df", "q_df", "qprime_df")}
+        if graphed:
+            res["graph"] = graphed_block(dec, cfg, m, s, steps)
+        out[name] = res
         del m, s, whole
         torch.cuda.empty_cache()
     return out
@@ -1985,17 +2090,19 @@ def serial_references(cases, steps):
     return refs
 
 
-def check_decomposed(cases, refs, shape, backend, nranks_gpu):
-    """Phase 27 (27b): run the cases split `shape` over `backend` ranks and
-    hold each against its serial reference: per channel within the case's
-    tolerance of its max, mass change within MASS_TOL, finite, `ok`, and on
-    every rank the launches of its path (kernel 1, or A, F and U, 200 a step
-    each; never the megakernel)."""
+def check_decomposed(cases, refs, shape, backend, nranks_gpu, graphed=False):
+    """Phase 27 (27b, 27d): run the cases split `shape` over `backend` ranks
+    and hold each against its serial reference: per channel within the
+    case's tolerance of its max, mass change within MASS_TOL, finite, `ok`,
+    and on every rank the launches of its path (kernel 1, or A, F and U, 200
+    a step each; never the megakernel). `graphed` (NCCL): every rank's
+    graphed model too (`graphed_block`: bitwise the eager one, its replay's
+    kernels and NCCL launches, ms/step in turns)."""
     from hnumo_tpu_torch.parallel.launch import start_function
 
     t0 = time.perf_counter()
     run = start_function("chip_smoke:decomposed_ranks", shape, backend, device="cuda",
-                         kwargs=dict(cases=cases, steps=DECOMP_STEPS),
+                         kwargs=dict(cases=cases, steps=DECOMP_STEPS, graphed=graphed),
                          pythonpath=[pathlib.Path(__file__).resolve().parent])
     ranks = run.result(DECOMP_TIMEOUT)
     wall = time.perf_counter() - t0
@@ -2027,10 +2134,22 @@ def check_decomposed(cases, refs, shape, backend, nranks_gpu):
             ms_per_step_ranks=[r["ms_per_step"] for r in per_rank],
             ms_per_step_serial=refs[name]["ms_per_step"],
             exchange_calls_per_step=per_rank[0]["exchange_calls_per_step"],
+            posting_calls_per_step_ranks=[r["posting_calls_per_step"] for r in per_rank],
+            plan=per_rank[0]["plan"],
             block=per_rank[0]["block"], transport=per_rank[0]["transport"],
             fused=per_rank[0]["fused"],
             batched_faces_block=per_rank[0]["batched_faces"],
             batched_faces_serial=refs[name]["batched_faces"])
+        if graphed:
+            g = [r["graph"] for r in per_rank]
+            out[name]["graph"] = dict(
+                steps_bitwise=DECOMP_STEPS, replay_kernels=g[0]["replay_kernels"],
+                nccl_sendrecv_per_replay_ranks=[sendrecv_launches(x["nccl_kernels"])
+                                                for x in g],
+                nccl_kernels_rank0=g[0]["nccl_kernels"],
+                nccl_sendrecv_traced_ranks=[x["nccl_sendrecv_traced"] for x in g],
+                ms_eager_ranks=[x["ms_eager"] for x in g],
+                ms_graph_ranks=[x["ms_graph"] for x in g])
     return {"cases": out, "wall_s": wall, "ranks": shape[0] * shape[1],
             "gpus": nranks_gpu, "backend": backend}
 
@@ -2042,6 +2161,19 @@ def decomposition_text(d):
         return (f"faces {'flat' if v['batched_faces_block'] else 'per direction'}; whole "
                 f"grid {'flat' if v['batched_faces_serial'] else 'per direction'}")
 
+    def graph(v):
+        g = v.get("graph")
+        if g is None:
+            return ""
+        return (f"; graphed == eager bitwise on every rank over {g['steps_bitwise']} steps, "
+                f"one replay {nonzero(g['replay_kernels'])} and NCCL point-to-point "
+                f"launches per rank {g['nccl_sendrecv_per_replay_ranks']} (traced replays "
+                f"{g['nccl_sendrecv_traced_ranks']}; posting calls "
+                f"{v['posting_calls_per_step_ranks']}), ms/step in turns (eager, graph, "
+                f"graph, eager) per rank " + ", ".join(
+                    f"[{e[0]:.1f}, {gr[0]:.1f}, {gr[1]:.1f}, {e[1]:.1f}]"
+                    for e, gr in zip(g["ms_eager_ranks"], g["ms_graph_ranks"])))
+
     return "; ".join(
         f"{k}: block {v['block'][0]}x{v['block'][1]} ({faces(v)}), launches per rank "
         f"per step {json.dumps(v['launches_per_rank_per_step'])}, exchange calls per "
@@ -2049,8 +2181,266 @@ def decomposition_text(d):
         f"{v['max_err']:.2e} (tol {v['tol']:g}; per channel "
         f"{v['max_err_per_channel']:.2e}), mass change {v['mass_drift']:.2e}, "
         f"ms/step ranks {', '.join(f'{t:.0f}' for t in v['ms_per_step_ranks'])} "
-        f"against serial eager {v['ms_per_step_serial']:.1f}"
+        f"against serial eager {v['ms_per_step_serial']:.1f}" + graph(v)
         for k, v in d["cases"].items())
+
+
+# ---- phase 27c: the capture of the exchange, on one GPU ----------------------
+
+SELF_REPLAYS = 4      # replays of each plan, `ok` true and false in turns
+SELF_TIMED = 5        # eager runs and replays of each plan timed, in turns
+SELF_MODEL_STEPS = 2  # steps of the self-exchanging periodic model, graphed and eager
+SELF_MODEL_NEL = 64
+SELF_TIMEOUT = 600.0
+
+
+def self_axes(dec):
+    """An Axis per direction that exchanges with this rank itself (one block,
+    periodic): every call posts a send and a receive to itself, which NCCL
+    allows. A 1x1 decomposition's own axes are None and post nothing."""
+    from hnumo_tpu_torch.parallel.sharding import Axis
+
+    return {name: Axis(name, 1, 0, dec.rank, dec.rank, True, dec) for name in ("x", "y")}
+
+
+def nccl_kernels(prof) -> dict:
+    """{kernel name: launches} of the NCCL kernels in a trace."""
+    return {e.key: e.count for e in _device_rows(prof) if "nccl" in e.key.lower()}
+
+
+def sendrecv_launches(kernels: dict) -> int:
+    """Launches of NCCL's point-to-point kernel among `nccl_kernels`."""
+    return sum(n for k, n in kernels.items() if "sendrecv" in k.lower())
+
+
+def replay_plan(dec, axes, plan, seed):
+    """One rank's exchange plan of a step (Exchange records, in order) posted
+    against the self axes, with the `ok` all-reduce last, captured into one
+    CUDA graph as Model captures its step (model.capture_graph). Every slab
+    is a slice of a source buffer per dtype, and each received slab is
+    copied at once into the same slice of a destination buffer; before every replay the sources take new random numbers, the
+    destinations NaN, and `ok` true or false in turns. Gates: every replay
+    receives bitwise what it sent, the all-reduce returns `ok`, and the
+    trace of a replay holds one NCCL point-to-point launch per call. Times
+    the plan posted eagerly and replayed, in turns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnumo_tpu_torch.model import capture_graph
+
+    dev = dec.device
+    sizes = [int(np.prod(e.shape)) for e in plan]
+    offsets, total = [], {}
+    for e, n in zip(plan, sizes):
+        offsets.append(total.get(e.dtype, 0))
+        total[e.dtype] = offsets[-1] + n
+    src = {dt: torch.empty(n, dtype=dt, device=dev) for dt, n in total.items()}
+    dst = {dt: torch.empty_like(t) for dt, t in src.items()}
+    ok_in = torch.ones((), dtype=torch.bool, device=dev)
+
+    def post():
+        for e, off, n in zip(plan, offsets, sizes):
+            got = axes[e.axis].exchange(src[e.dtype][off:off + n].view(e.shape),
+                                        e.from_prev)
+            dst[e.dtype][off:off + n].view(e.shape).copy_(got)
+        return dec.all_and(ok_in)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def refill(ok: bool):
+        for dt in src:
+            src[dt].normal_(generator=gen)
+            dst[dt].fill_(float("nan"))
+        ok_in.fill_(ok)
+
+    def check(ok_out, ok: bool, what):
+        torch.cuda.synchronize(dev)
+        if not all(torch.equal(dst[dt], src[dt]) for dt in src):
+            raise AssertionError(f"{what}: a received slab is not the slab sent")
+        if bool(ok_out) != ok:
+            raise AssertionError(f"{what}: all_and gave {bool(ok_out)} for ok={ok}")
+
+    refill(False)
+    check(post(), False, "eager")
+    graph, ok_out = capture_graph(post, dev, dec)
+    for k in range(SELF_REPLAYS):
+        ok = k % 2 == 0
+        refill(ok)
+        graph.replay()
+        check(ok_out, ok, f"replay {k}")
+    ms = {"eager": [], "graph": []}
+    for impl in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(SELF_TIMED):
+            if impl == "eager":
+                post()
+            else:
+                graph.replay()
+        torch.cuda.synchronize(dev)
+        ms[impl].append((time.perf_counter() - t0) / SELF_TIMED * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize(dev)
+    kernels = nccl_kernels(prof)
+    if sendrecv_launches(kernels) != len(plan):
+        raise AssertionError(f"a replay of {len(plan)} exchange calls ran the NCCL "
+                             f"kernels {kernels}")
+    del graph
+    return {"calls": len(plan),
+            "bytes": sum(n * src[e.dtype].element_size() for e, n in zip(plan, sizes)),
+            "replays_bitwise": SELF_REPLAYS, "ms_eager": ms["eager"],
+            "ms_graph": ms["graph"], "nccl_kernels": kernels}
+
+
+def self_exchange_model(dec, cfg, steps):
+    """A periodic model of the whole grid on a one-rank NCCL group whose faces
+    are closed through `self_axes`, so that its step posts every halo
+    exchange of a split step (to itself) and the `ok` all-reduce: `steps`
+    eager steps against the serial model (whose periodic wrap posts
+    nothing), then `graphed_block` beside it (graphed bitwise eager, one
+    replay's kernels and NCCL launches, ms/step in turns)."""
+    from hnumo_tpu_torch.model import Model
+
+    m = Model(cfg, decomp=dec, step_impl="eager")
+    on_self_axes(m, dec)
+    serial = Model(cfg, step_impl="eager")
+    s = m.run(m.state0, steps)
+    vs_serial = compare_states(s, serial.run(serial.state0, steps), DECOMP_F32_TOL,
+                               "self axes vs serial")
+    del serial
+    return {"steps_bitwise": steps, "vs_serial": vs_serial, "fused": m.static.fused_tail,
+            **graphed_block(dec, cfg, m, s, steps, self_exchange=True)}
+
+
+def self_exchange_rank(dec, plans, model_cases):
+    """Phase 27c's rank (a one-rank NCCL group): each plan of `plans` (name
+    -> Exchange records) replayed by `replay_plan`, then each of
+    `model_cases` ((name, config)) by `self_exchange_model`."""
+    out = {"plans": {}, "models": {}}
+    for k, (name, plan) in enumerate(plans.items()):
+        out["plans"][name] = replay_plan(dec, self_axes(dec), plan, seed=100 + k)
+    for name, cfg in model_cases:
+        out["models"][name] = self_exchange_model(dec, cfg, SELF_MODEL_STEPS)
+        torch.cuda.empty_cache()
+    return out
+
+
+def self_exchange_cases():
+    """Phase 27c's models: the bench configuration doubly periodic at
+    SELF_MODEL_NEL, fused and per stage, f32."""
+    import dataclasses
+
+    cfg = main_path_config(SELF_MODEL_NEL, "float32", mega="off", x_boundary=(3, 3),
+                           y_boundary=(3, 3))
+    return [(f"{SELF_MODEL_NEL}_f32_periodic_fused", dataclasses.replace(cfg, fused_tail="on")),
+            (f"{SELF_MODEL_NEL}_f32_periodic_per_stage", cfg)]
+
+
+def check_self_exchange(plans, model_cases):
+    """Phase 27c: `self_exchange_rank` on a one-rank NCCL group."""
+    from hnumo_tpu_torch.parallel.launch import start_function
+
+    run = start_function("chip_smoke:self_exchange_rank", (1, 1), "nccl", device="cuda",
+                         kwargs=dict(plans=plans, model_cases=model_cases),
+                         pythonpath=[pathlib.Path(__file__).resolve().parent])
+    return run.result(SELF_TIMEOUT)[0]
+
+
+def self_exchange_text(d):
+    return "; ".join(
+        [f"{k} plan ({v['calls']} calls, {v['bytes'] / 1e6:.2f} MB a replay): "
+         f"{v['replays_bitwise']} replays received bitwise what they sent, all_and right "
+         f"for ok true and false, one replay's NCCL kernels {json.dumps(v['nccl_kernels'])}, "
+         f"ms eager {', '.join(f'{t:.2f}' for t in v['ms_eager'])} / graphed "
+         f"{', '.join(f'{t:.2f}' for t in v['ms_graph'])}"
+         for k, v in d["plans"].items()]
+        + [f"{k} on self axes: graphed == eager bitwise over {v['steps_bitwise']} steps, "
+           f"one replayed step {nonzero(v['replay_kernels'])} and NCCL "
+           f"{json.dumps(v['nccl_kernels'])} for {v['posting_calls_per_step']} posting "
+           f"calls (traced replays {v['nccl_sendrecv_traced']}), vs serial max per field {max(v['vs_serial'].values()):.2e}, ms/step in "
+           f"turns (eager, graph, graph, eager) [{v['ms_eager'][0]:.1f}, "
+           f"{v['ms_graph'][0]:.1f}, {v['ms_graph'][1]:.1f}, {v['ms_eager'][1]:.1f}]"
+           for k, v in d["models"].items()])
+
+
+def decomposed_cases_256():
+    """Phase 27d: the double gyre at full width, 256x256 f32, fused and per
+    stage (128x128 a block at 2x2, above 8192 elements: per-direction faces
+    on both sides)."""
+    import dataclasses
+
+    cfg = main_path_config(256, "float32", mega="off")
+    return [("256_f32_fused", dataclasses.replace(cfg, fused_tail="on"), DECOMP_F32_TOL),
+            ("256_f32_per_stage", cfg, DECOMP_F32_TOL)]
+
+
+def decomposition_phases(smi):
+    """Phases 27, 27b, 27c and 27d, each printing its line; returns their
+    readings (None where a phase needs more GPUs than the machine shows)."""
+    # ---- phase 27: domain decomposition on the card, ranks sharing it -------
+    t_phase = time.perf_counter()
+    dcases = decomposed_cases()
+    drefs = serial_references(dcases, DECOMP_STEPS)
+    ngpu = torch.cuda.device_count()
+    dec27 = check_decomposed(dcases, drefs, DECOMP_SHAPE, "gloo", min(ngpu, 4))
+    print(f"phase 27 ({time.perf_counter() - t_phase:.1f} s) domain decomposition "
+          f"{DECOMP_SHAPE[0]}x{DECOMP_SHAPE[1]}, {dec27['ranks']} ranks sharing "
+          f"{'cuda:0' if ngpu == 1 else f'{min(ngpu, 4)} GPUs'} over gloo with host-staged "
+          f"halos ({dec27['cases']['128_f32_per_stage']['transport']}), {DECOMP_STEPS} eager "
+          f"steps a case, the last timed: a correctness run, not a scaling number; "
+          + decomposition_text(dec27))
+
+    # ---- phase 27b: the NCCL transport (one GPU per rank), eager and graphed --
+    dec27b = None
+    if ngpu >= 2:
+        shape_b = (2, 2) if ngpu >= 4 else (1, 2)
+        t_phase = time.perf_counter()
+        dec27b = check_decomposed(dcases, drefs, shape_b, "nccl", shape_b[0] * shape_b[1],
+                                  graphed=True)
+        print(f"phase 27b ({time.perf_counter() - t_phase:.1f} s) NCCL {shape_b[0]}x"
+              f"{shape_b[1]}, one GPU per rank, eager and graphed: "
+              + decomposition_text(dec27b) + f" | {smi}")
+    else:
+        print(f"phase 27b NCCL transport: not run: this machine shows {ngpu} CUDA device "
+              f"and NCCL takes one GPU per rank (two ranks on one device are refused); "
+              f"not counted as passed")
+    del drefs
+    torch.cuda.empty_cache()
+
+    # ---- phase 27c: the capture of the exchange on one GPU --------------------
+    t_phase = time.perf_counter()
+    plans = {f"{k}_rank0": v["plan"] for k, v in dec27["cases"].items()
+             if k.startswith("128_")}
+    self27c = check_self_exchange(plans, self_exchange_cases())
+    print(f"phase 27c ({time.perf_counter() - t_phase:.1f} s) the split step's capture on "
+          f"one GPU: a one-rank NCCL group whose axes exchange with the rank itself (every "
+          f"call posts a send and a receive), phase 27's {DECOMP_SHAPE[0]}x{DECOMP_SHAPE[1]} "
+          f"exchange plans of rank 0 and the all-reduce captured into one CUDA graph and "
+          f"replayed: " + self_exchange_text(self27c) + f" | {smi}")
+
+    # ---- phase 27d: the double gyre at 256x256 split 2x2 over NCCL -----------
+    dec27d = None
+    if ngpu >= 4:
+        t_phase = time.perf_counter()
+        cases256 = decomposed_cases_256()
+        refs256 = serial_references(cases256, DECOMP_STEPS)
+        serial_turns = {name: time_in_turns(cfg, DECOMP_TURN_STEPS)
+                        for name, cfg, _ in cases256}
+        dec27d = check_decomposed(cases256, refs256, DECOMP_SHAPE, "nccl", 4, graphed=True)
+        dec27d["serial_turns"] = {k: {"ms_eager": v["ms_eager"], "ms_graph": v["ms_graph"]}
+                                  for k, v in serial_turns.items()}
+        del refs256
+        torch.cuda.empty_cache()
+        print(f"phase 27d ({time.perf_counter() - t_phase:.1f} s) the double gyre 256x256 "
+              f"f32 split 2x2 over NCCL, one GPU per rank: " + decomposition_text(dec27d)
+              + "; serial on cuda:0, ms/step in turns (eager, graph, graph, eager): "
+              + "; ".join(f"{k} [{v['ms_eager'][0]:.1f}, {v['ms_graph'][0]:.1f}, "
+                          f"{v['ms_graph'][1]:.1f}, {v['ms_eager'][1]:.1f}]"
+                          for k, v in dec27d["serial_turns"].items()) + f" | {smi}")
+    else:
+        print(f"phase 27d 256x256 split 2x2 over NCCL: not run: this machine shows {ngpu} "
+              f"CUDA device(s), it takes 4; not counted as passed")
+    return dec27, dec27b, self27c, dec27d
 
 
 def _fin_numbers(path) -> list[float]:
@@ -2614,6 +3004,10 @@ def main() -> int:
                     help="only phases 1-2 and the probe of where a split f32 run leaves "
                          "the serial one (split_probe); its readings to "
                          "chiprun_out/split_probe.json")
+    ap.add_argument("--decomposition-only", action="store_true",
+                    help="only phases 1-2 (the five kernels) and the decomposition's "
+                         "phases 27-27d (27b needs 2 GPUs, 27d 4); their readings to "
+                         "chiprun_out/decomposition.json")
     args = ap.parse_args()
     pathlib.Path(args.log).parent.mkdir(parents=True, exist_ok=True)
     log = open(args.log, "w")
@@ -2655,6 +3049,13 @@ def main() -> int:
                                       for u in mega_main):
         raise AssertionError(f"btp_mega at f<5,9> must build both routes without a "
                              f"spill: {mega_main}")
+    if args.decomposition_only:
+        readings = dict(zip(("27", "27b", "27c", "27d"), decomposition_phases(smi)))
+        (OUT_DIR / "decomposition.json").write_text(json.dumps(readings, default=str))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     t0 = time.perf_counter()
     build_variants(ABLATED_SOURCES + ("btp_mega",), [(d,) for _, d in ABLATIONS])
     build_variants(["btp_mega"], [(d,) for _, d in MEGA_ABLATIONS[len(ABLATIONS):]])
@@ -3219,33 +3620,8 @@ def main() -> int:
               for k, v in sb["botfr2_vs_per_stage_f64"].items())
           + f" (tol {STEP_TOL:g})")
 
-    # ---- phase 27: domain decomposition on the card ---------------------------------
-    t_phase = time.perf_counter()
-    dcases = decomposed_cases()
-    drefs = serial_references(dcases, DECOMP_STEPS)
-    ngpu = torch.cuda.device_count()
-    dec27 = check_decomposed(dcases, drefs, DECOMP_SHAPE, "gloo", min(ngpu, 4))
-    secs_27 = time.perf_counter() - t_phase
-    print(f"phase 27 ({secs_27:.1f} s) domain decomposition {DECOMP_SHAPE[0]}x"
-          f"{DECOMP_SHAPE[1]}, {dec27['ranks']} ranks sharing cuda:0 over gloo with "
-          f"host-staged halos ({dec27['cases']['128_f32_per_stage']['transport']}), "
-          f"{DECOMP_STEPS} eager steps a case, the last timed: a correctness run, not a "
-          f"scaling number; " + decomposition_text(dec27))
-
-    # ---- phase 27b: the NCCL transport (one GPU per rank) -----------------------------
-    dec27b = None
-    if ngpu >= 2:
-        shape_b = (2, 2) if ngpu >= 4 else (1, 2)
-        t_phase = time.perf_counter()
-        dec27b = check_decomposed(dcases, drefs, shape_b, "nccl", shape_b[0] * shape_b[1])
-        print(f"phase 27b ({time.perf_counter() - t_phase:.1f} s) NCCL {shape_b[0]}x"
-              f"{shape_b[1]}, one GPU per rank: " + decomposition_text(dec27b))
-    else:
-        print(f"phase 27b NCCL transport: not run: this machine shows {ngpu} CUDA device "
-              f"and NCCL takes one GPU per rank (two ranks on one device are refused); "
-              f"not counted as passed")
-    del drefs
-    torch.cuda.empty_cache()
+    # ---- phases 27-27d: domain decomposition ------------------------------------------
+    dec27, dec27b, self27c, dec27d = decomposition_phases(smi)
 
     # ---- phase 28: the native mesh front end; the CLI decomposed ----------------------
     t_phase = time.perf_counter()
@@ -3293,8 +3669,18 @@ def main() -> int:
                     for k, v in d["cases"].items()
                     if v["launches_per_rank_per_step"].get(name, 0)}
         out = {"gloo_2x2_shared_gpu": cases(dec27)}
-        if dec27b is not None:
-            out["nccl"] = cases(dec27b)
+        for key, d in (("nccl", dec27b), ("nccl_256", dec27d)):
+            if d is not None:
+                out[key] = cases(d)
+                for k, v in out[key].items():
+                    g = d["cases"][k]["graph"]
+                    v.update(graph_equals_eager=True, ms_eager_ranks=g["ms_eager_ranks"],
+                             ms_graph_ranks=g["ms_graph_ranks"],
+                             replay_launches=g["replay_kernels"].get(name, 0))
+        out["self_exchange_one_gpu"] = {
+            k: {"replay_launches": v["replay_kernels"].get(name, 0),
+                "nccl_sendrecv_per_replay": sendrecv_launches(v["nccl_kernels"])}
+            for k, v in self27c["models"].items() if v["replay_kernels"].get(name, 0)}
         return out
 
     # ---- the kernels line -----------------------------------------------------------

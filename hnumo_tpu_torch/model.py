@@ -12,7 +12,11 @@ Under a domain decomposition (`decomp`, parallel/sharding.Decomposition)
 each process holds a Model of its own block: the tables are built for the
 whole grid, as in a serial run, and cut to the block; the state is the
 block's; the faces on a block boundary are closed by halos exchanged with
-the neighbouring blocks (core/faces.py). Such a model steps eagerly.
+the neighbouring blocks (core/faces.py). Over NCCL such a model steps as
+one captured CUDA graph too, halo exchanges and the `ok` all-reduce
+included, the counterpart of the JAX package's jitted `shard_map` step;
+over gloo (the CPU, or ranks sharing a GPU with host-staged halos) it
+steps eagerly.
 """
 from __future__ import annotations
 
@@ -78,6 +82,57 @@ def _resolve_impl(name: str, impl, allowed, device: torch.device) -> str:
     return impl
 
 
+def resolve_step_impl(step_impl, decomp, device: torch.device) -> str:
+    """`step_impl` of a model on `device`, under the decomposition `decomp`
+    (or None): "graph" is the default on CUDA and "eager" elsewhere, as for
+    one device. A decomposition adds one rule: halos staged through host
+    memory ("gloo-host-staged") cannot be captured, so there "eager" is the
+    default and "graph" raises."""
+    if decomp is not None and decomp.transport == "gloo-host-staged":
+        if step_impl == "graph":
+            raise ValueError(
+                "step_impl='graph' under the 'gloo-host-staged' transport: its halos "
+                "are copied through host memory, which a CUDA graph cannot capture; "
+                "use step_impl='eager', or backend 'nccl' with one GPU per rank")
+        step_impl = step_impl or "eager"
+    return _resolve_impl("step_impl", step_impl, STEP_IMPLS, device)
+
+
+def capture_graph(fn, device: torch.device, decomp=None):
+    """`fn()` recorded into a CUDA graph on `device`; returns (graph, what the
+    captured call returned). One eager warm-up call on a side stream comes
+    first (PyTorch's recipe): it builds the kernels, plans their launches
+    and fills the caches of small device constants, none of which may
+    happen while the stream is captured. A failed capture raises: there is
+    no eager fallback.
+
+    Under a decomposition (NCCL) the warm-up also posts every exchange and
+    the all-reduce the call makes, which connects each NCCL peer and makes
+    each receive buffer before the capture. Every rank warms up and
+    captures at the same point, with the same calls in the same order.
+    Between the two, the device is drained and the ranks meet: no NCCL work
+    from before is pending while the stream is captured. The capture is
+    "thread_local", so that the process group's watchdog thread, which
+    queries the events of earlier work, cannot void it. A rank that fails
+    to capture raises; the others hang in their first replay until the
+    launcher's limit ends them (parallel/launch.py)."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    mode = "global"
+    if decomp is not None:
+        torch.cuda.synchronize(device)
+        decomp.barrier()
+        torch.cuda.synchronize(device)
+        mode = "thread_local"
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode=mode):
+        out = fn()
+    return graph, out
+
+
 class Model:
     def __init__(self, cfg: Config, device=None, volume_impl: str | None = None,
                  mega_impl: str | None = None, tail_impl: str | None = None,
@@ -95,7 +150,10 @@ class Model:
         CUDA) or "eager" (dispatched op by op; default on the CPU).
         `decomp`: a parallel/sharding.Decomposition; the model is then this
         process's block of the grid (`device` defaults to the
-        decomposition's, and the step is eager: "graph" raises)."""
+        decomposition's). Over NCCL its step is graphed by default, as on
+        one device: every rank captures at its first step, and every rank
+        must step together; with halos staged through host memory
+        (`resolve_step_impl`) it is eager, and "graph" raises."""
         self.decomp = decomp
         if decomp is not None:
             if device is None:
@@ -103,20 +161,12 @@ class Model:
             elif torch.device(device) != decomp.device:
                 raise ValueError(f"device {device} is not the decomposition's "
                                  f"{decomp.device}")
-            if step_impl is None:
-                step_impl = "eager"
-            elif step_impl == "graph":
-                raise NotImplementedError(
-                    "step_impl='graph' under a domain decomposition: the capture "
-                    "of the halo exchange is not ported yet (ROADMAP.md, "
-                    "queue 1, 'the decomposed step as one CUDA graph'); use "
-                    "step_impl='eager'")
         self.device = _resolve_device(device)
         volume_impl = _resolve_impl("volume_impl", volume_impl, VOLUME_IMPLS,
                                     self.device)
         mega_impl = _resolve_impl("mega_impl", mega_impl, MEGA_IMPLS, self.device)
         tail_impl = _resolve_impl("tail_impl", tail_impl, TAIL_IMPLS, self.device)
-        self.step_impl = _resolve_impl("step_impl", step_impl, STEP_IMPLS, self.device)
+        self.step_impl = resolve_step_impl(step_impl, decomp, self.device)
         _set_full_precision()
         check_ported(cfg)
         self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
@@ -283,20 +333,10 @@ class Model:
 
     def _capture(self, state: State) -> None:
         """Record one step, from static input buffers shaped like `state`,
-        into a CUDA graph. One eager warm-up step on a side stream comes
-        first (PyTorch's recipe): it builds the kernels, plans their launches
-        and fills the caches of small device constants, none of which may
-        happen while the stream is captured. A failed capture raises: there
-        is no eager fallback."""
+        into a CUDA graph (`capture_graph`)."""
         inputs = State(*[t.clone() for t in state])
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._step_eager(inputs)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outputs = self._step_eager(inputs)
+        graph, outputs = capture_graph(lambda: self._step_eager(inputs), self.device,
+                                       self.decomp)
         self._graph = (graph, inputs, outputs)
 
     def _replay(self, state: State) -> State:

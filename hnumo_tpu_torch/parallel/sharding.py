@@ -24,12 +24,21 @@ Transport, chosen from the group's backend and never switched silently:
 - "gloo-host-staged": ranks on CUDA devices over gloo, which sends no CUDA
   tensor: each slab is copied to host memory, sent, received and copied
   back. This is how several ranks share one GPU, which NCCL refuses.
+
+Under "nccl" a step's exchanges and its `ok` all-reduce can be captured in
+a CUDA graph (model.Model, step_impl="graph"): they read nothing back to the
+host and receive into buffers whose addresses stay fixed (`Axis.exchange`).
+The staged transport copies to host memory, which a capture forbids: it and
+"gloo" step eagerly. `Decomposition.plan` records the calls a block makes,
+in order (`Exchange`): the same in every step, and each send met by its
+peer's receive, which a graph replayed on every rank relies on.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,6 +68,26 @@ def block_bounds(n: int, p: int, i: int) -> tuple[int, int]:
         raise ValueError(f"{n} elements do not split into {p} equal blocks")
     size = n // p
     return i * size, (i + 1) * size
+
+
+class Exchange(NamedTuple):
+    """One call of Axis.exchange, as `Decomposition.plan` records it: the
+    axis, the sense, the slab's shape and dtype, the rank sent to and the
+    rank received from (None: nothing posted that way, across a closed
+    domain edge), and the address of the receive buffer (None: none)."""
+
+    axis: str
+    from_prev: bool
+    shape: tuple
+    dtype: torch.dtype
+    send_to: int | None
+    recv_from: int | None
+    recv_ptr: int | None
+
+    @property
+    def posts(self) -> bool:
+        """Whether the call posts a message (one NCCL launch on the card)."""
+        return self.send_to is not None or self.recv_from is not None
 
 
 @dataclasses.dataclass(eq=False)
@@ -98,9 +127,18 @@ class Axis:
         can deadlock; every rank must make the same calls in the same order.
         Across a closed domain edge nothing is sent, and the result on the
         edge block is `slab` itself (the caller closes that face with the
-        wall's mirror and reads no ghost). The received tensor lives in a
-        buffer of this axis, one per sense and shape, which the next such
-        call overwrites: callers consume it at once."""
+        wall's mirror and reads no ghost).
+
+        The received tensor lives in a buffer of this axis, one per sense,
+        shape and dtype, made at the first such call and kept: its address
+        is the same in every step, so a CUDA graph captured after an eager
+        step (under "nccl") receives where that step did. The next call of
+        the same key overwrites it: callers consume it at once. One buffer
+        per key is safe under a replay too, by stream order: NCCL's stream
+        waits on the current stream before it posts, so the receive follows
+        every earlier reader of the buffer, and `wait` makes the current
+        stream wait for the receive before any later reader. Nothing here
+        reads a device value on the host."""
         self.calls += 1
         src, dst = (self.prev, self.next) if from_prev else (self.next, self.prev)
         recv_edge, send_edge = (self.first, self.last) if from_prev else (self.last, self.first)
@@ -122,6 +160,11 @@ class Axis:
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
+        if self.dec.plan is not None:
+            self.dec.plan.append(Exchange(
+                self.name, from_prev, tuple(slab.shape), slab.dtype,
+                dst if send else None, src if recv else None,
+                None if buf is None else buf.data_ptr()))
         if buf is None:
             return slab
         return buf.to(slab.device) if staged else buf
@@ -138,6 +181,8 @@ class Decomposition:
     backend: str
     transport: str
     device: torch.device
+    # a list while the caller records the exchange calls (Exchange), in order
+    plan: list | None = None
     _axes: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -185,7 +230,8 @@ class Decomposition:
 
     def all_and(self, ok: torch.Tensor) -> torch.Tensor:
         """Logical AND of a boolean scalar over all blocks: one all-reduce
-        (a sum of failures, as the JAX package's psum)."""
+        (a sum of failures, as the JAX package's psum). Under "nccl" it stays
+        on the device: a CUDA graph captures it."""
         bad = self._comm(torch.logical_not(ok).to(torch.int32).reshape(1))
         dist.all_reduce(bad, op=dist.ReduceOp.SUM)
         return (bad[0] == 0).to(ok.device)

@@ -316,9 +316,11 @@ def test_static_for_blocks_resolves_batched_faces_per_block():
 
 
 def test_graph_step_is_refused_under_a_decomposition():
+    """Over gloo on the CPU the graph is refused as on one CPU device (over
+    NCCL it is the default: tests/test_torch_decomp_graph.py)."""
     dec = Decomposition(shape=(1, 2), rank=0, backend="gloo", transport="gloo",
                         device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
+    with pytest.raises(ValueError, match="needs a CUDA device"):
         TorchModel(TorchConfig(**R.BUMP), device="cpu", step_impl="graph", decomp=dec)
 
 

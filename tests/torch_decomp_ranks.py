@@ -167,6 +167,62 @@ def steps_ranks(dec, cases):
     return out
 
 
+HOST_READS = ("__bool__", "item", "tolist", "__float__", "__int__", "numpy", "cpu")
+
+
+def _refuse_host_reads():
+    """Patch every Tensor method of HOST_READS (tests/test_torch_graph.py's
+    list) to raise; returns what undoes it."""
+    saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
+    for name in HOST_READS:
+        def refuse(*args, _name=name, **kw):
+            raise AssertionError(f"Tensor.{_name} called inside the step")
+        setattr(torch.Tensor, name, refuse)
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+    return undo
+
+
+def plan_ranks(dec, cases):
+    """For each case (name, config overrides): the decomposed model's first
+    two steps, each with its exchange plan recorded (Decomposition.plan),
+    the second with every host read patched to raise (what a CUDA graph's
+    capture forbids), then the second again unpatched. Returns per case the
+    two plans (tuples of Exchange's fields), whether the patched and the
+    unpatched second step agree bitwise, the model's step_impl, and the
+    exchange calls of the two steps."""
+    out = {}
+    for name, over in cases:
+        m = Model(bump_config(**over), device="cpu", decomp=dec)
+        calls0 = dec.exchange_calls
+        dec.plan = []
+        s1 = m.step(m.state0)
+        plan1, dec.plan = dec.plan, []
+        undo = _refuse_host_reads()
+        try:
+            try:
+                bool(torch.tensor(True))
+                patched = False
+            except AssertionError:
+                patched = True
+            s2 = m.step(s1)
+        finally:
+            undo()
+        plan2, dec.plan = dec.plan, None
+        calls = dec.exchange_calls - calls0
+        again = m.step(s1)
+        out[name] = dict(
+            plans=[[tuple(e) for e in p] for p in (plan1, plan2)],
+            posting=[sum(e.posts for e in p) for p in (plan1, plan2)],
+            same=all(torch.equal(getattr(s2, f), getattr(again, f)) for f in FIELDS),
+            patched=patched,
+            ok=bool(s2.ok), step_impl=m.step_impl, calls=calls, mega=m.static.mega,
+            fused=m.static.fused_tail)
+    return out
+
+
 def run_jobs(dec, jobs):
     """Several of the functions above in one set of ranks: `jobs` is a list
     of (key, function name, kwargs); returns {key: result}."""
