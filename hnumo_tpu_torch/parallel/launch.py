@@ -33,6 +33,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 _PACKAGE_ROOT = str(Path(__file__).resolve().parents[2])
@@ -213,7 +214,16 @@ def _rank_main(job_path: str) -> None:
     module, name = job["target"].split(":")
     fn = getattr(importlib.import_module(module), name)
     dec = init_decomposition(job["shape"], backend=job["backend"], device=job["device"])
-    result = fn(dec, **job["kwargs"])
+    try:
+        result = fn(dec, **job["kwargs"])
+    except BaseException:
+        # a rank that fails inside an NCCL group can hang at exit, in the
+        # group's teardown, while its peers wait in a collective: the
+        # launcher would see it only at its time limit. Leave at once.
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
     (job_path.parent / f"result{dec.rank}.pkl").write_bytes(pickle.dumps(result))
     dist.destroy_process_group()
 

@@ -343,6 +343,9 @@ def test_init_decomposition_refuses_what_no_transport_serves(monkeypatch, backen
 
 @pytest.mark.parametrize("target,exc,match", [
     ("fail_on_rank_one", RuntimeError, "rank one fails on purpose"),
+    # a failed rank leaves at once, whatever its exit would run: it fails the
+    # run, not the time limit
+    ("fail_with_a_slow_exit_on_rank_one", RuntimeError, "rank one fails on purpose"),
     ("hang_on_rank_one", TimeoutError, "still running"),
 ])
 def test_a_failed_or_hung_rank_fails_the_run(target, exc, match):

@@ -238,6 +238,19 @@ def fail_on_rank_one(dec):
     dec.barrier()
 
 
+def fail_with_a_slow_exit_on_rank_one(dec):
+    """Rank 1 raises, and its interpreter's exit would then take an hour, as
+    an NCCL group's teardown can while the peers wait in a collective; the
+    others wait for it in a collective."""
+    import atexit
+    import time
+
+    if dec.rank == 1:
+        atexit.register(time.sleep, 3600)
+        raise ValueError("rank one fails on purpose")
+    dec.barrier()
+
+
 def hang_on_rank_one(dec):
     """Rank 1 never reaches the collective the others wait in."""
     import time
