@@ -1917,7 +1917,6 @@ DECOMP_F32_TOL = 1e-4
 DECOMP_F64_TOL = 1e-12
 DECOMP_TIMEOUT = 600.0
 DECOMP_TURN_STEPS = 3  # steps of each timed turn over NCCL (eager, graph, graph, eager)
-TRACED_REPLAYS = 2     # replays traced one by one on every rank (graphed_block)
 CLI_MESH_STEPS = 3    # steps of phase 28's decomposed CLI run
 
 
@@ -1947,21 +1946,34 @@ def on_self_axes(m, dec):
     m._build_operators()
 
 
+def graph_path_counts(nodes: dict) -> dict:
+    """The five kernels' nodes among `graph_kernels` (mangled symbols)."""
+    return {name: sum(n for k, n in nodes.items() if sym in k)
+            for name, sym in KERNEL_SYMBOLS.items()}
+
+
 def graphed_block(dec, cfg, m, s, steps, self_exchange=False):
     """Over NCCL, beside the eager model `m` of a rank whose state after
     `steps` steps from its initial state is `s`: a graphed model of `cfg`
-    (the default under NCCL) stepped as far, which must be bitwise `s` on
-    this block; its first step's launches (warm-up and capture: twice the
-    path's); TRACED_REPLAYS replays traced one by one, of which one at least
-    must hold the path's kernels and one NCCL point-to-point launch per
-    posting call of the eager step's plan (Decomposition.plan) exactly (the
-    count of each trace is returned: one trace of the 64x64 self-axis model
-    on a four-GPU host held 825 of 828, the same model's on a one-GPU host
-    828); then both models' ms/step timed in turns (eager,
-    graph, graph, eager; DECOMP_TURN_STEPS steps each, the ranks meeting
-    before each turn). Every rank makes the same calls in the same order.
-    `self_exchange`: the graphed model's faces are closed through
-    `self_axes`, as `m`'s are (phase 27c)."""
+    (the default under NCCL) stepped as far, its captured graph's nodes kept
+    (Model.keep_graph). Returns its readings and, under `failures`, the
+    gates it failed (the caller raises once the readings are printed):
+    - its first step's launches (warm-up and capture) twice the path's;
+    - its state bitwise `s`;
+    - the captured graph's kernel nodes (`graph_kernels`, what every replay
+      launches): the path's kernels, no megakernel, and one NCCL
+      point-to-point kernel per posting call of the eager step's plan
+      (Decomposition.plan);
+    - one replay traced, its output bitwise that of an eager step of `m`
+      from the same state, and the path's kernels counted in its trace.
+      NCCL's kernels in the trace are recorded beside the graph's, not
+      gated: on four GPUs traces have held one to three SendRecv launches
+      fewer than the posting calls (PERF.md, section 7).
+    Then both models' ms/step timed in turns (eager, graph, graph, eager;
+    DECOMP_TURN_STEPS steps each, the ranks meeting before each turn).
+    Every rank makes the same calls in the same order. `self_exchange`: the
+    graphed model's faces are closed through `self_axes`, as `m`'s are
+    (phase 27c)."""
     from torch.profiler import ProfilerActivity, profile
 
     from hnumo_tpu_torch.model import Model
@@ -1971,39 +1983,49 @@ def graphed_block(dec, cfg, m, s, steps, self_exchange=False):
         on_self_axes(mg, dec)
     if mg.step_impl != "graph":
         raise AssertionError(f"a model over NCCL took step_impl {mg.step_impl!r}")
+    mg.keep_graph = True
+    fails = []
     wrappers = zero_counts()
     sg = mg.run(mg.state0, steps)
     at_capture = {k: fn.launches for k, fn in wrappers.items()}
     per_step = path_launches_per_step(mg)
-    if at_capture != {k: 2 * per_step.get(k, 0) for k in wrappers}:
-        raise AssertionError(f"rank {dec.rank}: the first graphed step launched "
-                             f"{at_capture}, expected twice {per_step}")
-    for f in ("qb_df", "q_df", "qprime_df"):
-        a, b = getattr(sg, f), getattr(s, f)
-        if not torch.equal(a, b):
-            diff = float((a.double() - b.double()).abs().max())
-            raise AssertionError(f"rank {dec.rank}: graphed {f} != eager after {steps} "
-                                 f"steps, max |diff| {diff:.3e}")
+    want = {k: per_step.get(k, 0) for k in KERNEL_SYMBOLS}
+    if at_capture != {k: 2 * v for k, v in want.items()}:
+        fails.append(f"rank {dec.rank}: the first graphed step launched {at_capture}, "
+                     f"expected twice {per_step}")
+
+    def differ(a, b, what):
+        for f in ("qb_df", "q_df", "qprime_df"):
+            x, y = getattr(a, f), getattr(b, f)
+            if not torch.equal(x, y):
+                diff = float((x.double() - y.double()).abs().max())
+                fails.append(f"rank {dec.rank}: {what}: {f} differs, max |diff| {diff:.3e}")
+                return True
+        return False
+
+    bitwise = not differ(sg, s, f"graphed vs eager after {steps} steps")
+    nodes = graph_kernels(mg._graph[0])
+    graph_counts = graph_path_counts(nodes)
+    graph_nccl = {k: n for k, n in nodes.items() if "nccl" in k.lower()}
     dec.plan = []
-    m.step(s)
+    se = m.step(s)
     plan, dec.plan = dec.plan, None
     posting = sum(e.posts for e in plan)
-    want = {k: per_step.get(k, 0) for k in KERNEL_SYMBOLS}
-    traces = []
-    for _ in range(TRACED_REPLAYS):
+    if graph_counts != want or sendrecv_launches(graph_nccl) != posting:
+        fails.append(f"rank {dec.rank}: the captured graph holds {graph_counts} and NCCL "
+                     f"{graph_nccl}; expected {want} and {posting} point-to-point kernels")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sg = mg.step(sg)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            mg.step(sg)
-            torch.cuda.synchronize()
-        rows = _device_rows(prof)
-        traces.append(({name: sum(e.count for e in rows if sym in e.key)
-                        for name, sym in KERNEL_SYMBOLS.items()}, nccl_kernels(prof)))
-    exact = [(c, k) for c, k in traces if c == want and sendrecv_launches(k) == posting]
-    if not exact:
-        raise AssertionError(f"rank {dec.rank}: no traced replay ran {per_step} and "
-                             f"{posting} NCCL point-to-point launches: {traces}")
-    counts, kernels = exact[0]
-    models, states = {"eager": m, "graph": mg}, {"eager": s, "graph": sg}
+    rows = _device_rows(prof)
+    traced = {name: sum(e.count for e in rows if sym in e.key)
+              for name, sym in KERNEL_SYMBOLS.items()}
+    kernels = nccl_kernels(prof)
+    replay_bitwise = not differ(sg, se, "the traced replay vs an eager step from its state")
+    if traced != want:
+        fails.append(f"rank {dec.rank}: the traced replay ran {traced}, expected {want}")
+    models, states = {"eager": m, "graph": mg}, {"eager": se, "graph": sg}
     ms = {"eager": [], "graph": []}
     for impl in ("eager", "graph", "graph", "eager"):
         torch.cuda.synchronize()
@@ -2013,11 +2035,13 @@ def graphed_block(dec, cfg, m, s, steps, self_exchange=False):
         states[impl] = models[impl].run(states[impl], DECOMP_TURN_STEPS)
         torch.cuda.synchronize()
         ms[impl].append((time.perf_counter() - t0) / DECOMP_TURN_STEPS * 1e3)
-    return {"launches_at_capture": at_capture, "replay_kernels": counts,
-            "nccl_kernels": kernels, "posting_calls_per_step": posting,
-            "nccl_sendrecv_traced": [sendrecv_launches(k) for _, k in traces],
-            "exchange_calls_per_step": len(plan), "ms_eager": ms["eager"],
-            "ms_graph": ms["graph"]}
+    return {"launches_at_capture": at_capture, "bitwise": bitwise,
+            "replay_bitwise": replay_bitwise, "graph_kernels": graph_counts,
+            "graph_nccl": graph_nccl, "nccl_sendrecv_nodes": sendrecv_launches(graph_nccl),
+            "replay_kernels": traced, "nccl_kernels": kernels,
+            "nccl_sendrecv_traced": sendrecv_launches(kernels),
+            "posting_calls_per_step": posting, "exchange_calls_per_step": len(plan),
+            "ms_eager": ms["eager"], "ms_graph": ms["graph"], "failures": fails}
 
 
 def decomposed_ranks(dec, cases, steps, graphed=False):
@@ -2096,8 +2120,10 @@ def check_decomposed(cases, refs, shape, backend, nranks_gpu, graphed=False):
     case's tolerance of its max, mass change within MASS_TOL, finite, `ok`,
     and on every rank the launches of its path (kernel 1, or A, F and U, 200
     a step each; never the megakernel). `graphed` (NCCL): every rank's
-    graphed model too (`graphed_block`: bitwise the eager one, its replay's
-    kernels and NCCL launches, ms/step in turns)."""
+    graphed model too (`graphed_block`: bitwise the eager one, its captured
+    graph's and a traced replay's kernels, ms/step in turns). The gates a
+    run fails are listed under `failures`: the caller prints the readings,
+    then raises."""
     from hnumo_tpu_torch.parallel.launch import start_function
 
     t0 = time.perf_counter()
@@ -2106,24 +2132,25 @@ def check_decomposed(cases, refs, shape, backend, nranks_gpu, graphed=False):
                          pythonpath=[pathlib.Path(__file__).resolve().parent])
     ranks = run.result(DECOMP_TIMEOUT)
     wall = time.perf_counter() - t0
-    out = {}
+    out, fails = {}, []
     for name, cfg, tol in cases:
         per_rank = [r[name] for r in ranks]
         for k, r in enumerate(per_rank):
             if r["counts"] != {n: r["want"].get(n, 0) for n in r["counts"]}:
-                raise AssertionError(f"{name}: rank {k} launched {r['counts']}, expected "
-                                     f"{r['want']}")
+                fails.append(f"{name}: rank {k} launched {r['counts']}, expected {r['want']}")
             if r["counts"]["btp_mega"] or not (r["finite"] and r["ok"]):
-                raise AssertionError(f"{name}: rank {k}: megakernel, non-finite or not ok")
+                fails.append(f"{name}: rank {k}: megakernel, non-finite or not ok")
         mass0 = sum(r["mass0"] for r in per_rank)
         drift = abs(sum(r["mass"] for r in per_rank) - mass0) / mass0
         if not drift <= MASS_TOL:
-            raise AssertionError(f"{name}: mass change {drift:.3e} > {MASS_TOL}")
+            fails.append(f"{name}: mass change {drift:.3e} > {MASS_TOL}")
         got = per_rank[0]["state"]
         want = refs[name]["state"]
         got = type(want)(**got, t=want.t, ok=want.ok)
         want = type(want)(*[t.cpu() for t in want])
-        errs = compare_states(got, want, tol, f"{name} split {shape} vs serial")
+        errs = compare_states(got, want, float("inf"), "")
+        fails += [f"{name} split {shape} vs serial: {f}: {e:.3e} of the max > {tol:g}"
+                  for f, e in errs.items() if not e <= tol]
         per_channel = compare_states(got, want, float("inf"), "", per_channel=True)
         steps = DECOMP_STEPS
         out[name] = dict(
@@ -2142,16 +2169,18 @@ def check_decomposed(cases, refs, shape, backend, nranks_gpu, graphed=False):
             batched_faces_serial=refs[name]["batched_faces"])
         if graphed:
             g = [r["graph"] for r in per_rank]
+            fails += [f"{name}: {f}" for x in g for f in x["failures"]]
             out[name]["graph"] = dict(
-                steps_bitwise=DECOMP_STEPS, replay_kernels=g[0]["replay_kernels"],
-                nccl_sendrecv_per_replay_ranks=[sendrecv_launches(x["nccl_kernels"])
-                                                for x in g],
-                nccl_kernels_rank0=g[0]["nccl_kernels"],
+                steps_bitwise=DECOMP_STEPS, bitwise_ranks=[x["bitwise"] for x in g],
+                replay_bitwise_ranks=[x["replay_bitwise"] for x in g],
+                graph_kernels=g[0]["graph_kernels"], replay_kernels=g[0]["replay_kernels"],
+                nccl_sendrecv_nodes_ranks=[x["nccl_sendrecv_nodes"] for x in g],
                 nccl_sendrecv_traced_ranks=[x["nccl_sendrecv_traced"] for x in g],
+                graph_nccl_rank0=g[0]["graph_nccl"], nccl_kernels_rank0=g[0]["nccl_kernels"],
                 ms_eager_ranks=[x["ms_eager"] for x in g],
                 ms_graph_ranks=[x["ms_graph"] for x in g])
     return {"cases": out, "wall_s": wall, "ranks": shape[0] * shape[1],
-            "gpus": nranks_gpu, "backend": backend}
+            "gpus": nranks_gpu, "backend": backend, "failures": fails}
 
 
 def decomposition_text(d):
@@ -2165,11 +2194,13 @@ def decomposition_text(d):
         g = v.get("graph")
         if g is None:
             return ""
-        return (f"; graphed == eager bitwise on every rank over {g['steps_bitwise']} steps, "
-                f"one replay {nonzero(g['replay_kernels'])} and NCCL point-to-point "
-                f"launches per rank {g['nccl_sendrecv_per_replay_ranks']} (traced replays "
-                f"{g['nccl_sendrecv_traced_ranks']}; posting calls "
-                f"{v['posting_calls_per_step_ranks']}), ms/step in turns (eager, graph, "
+        return (f"; graphed == eager bitwise per rank over {g['steps_bitwise']} steps "
+                f"{g['bitwise_ranks']} and in a traced replay {g['replay_bitwise_ranks']}; "
+                f"captured graph {nonzero(g['graph_kernels'])} and NCCL SendRecv nodes per "
+                f"rank {g['nccl_sendrecv_nodes_ranks']} for posting calls "
+                f"{v['posting_calls_per_step_ranks']}; traced replay "
+                f"{nonzero(g['replay_kernels'])}, SendRecv launches traced per rank "
+                f"{g['nccl_sendrecv_traced_ranks']}; ms/step in turns (eager, graph, "
                 f"graph, eager) per rank " + ", ".join(
                     f"[{e[0]:.1f}, {gr[0]:.1f}, {gr[1]:.1f}, {e[1]:.1f}]"
                     for e, gr in zip(g["ms_eager_ranks"], g["ms_graph_ranks"])))
@@ -2208,6 +2239,54 @@ def nccl_kernels(prof) -> dict:
     return {e.key: e.count for e in _device_rows(prof) if "nccl" in e.key.lower()}
 
 
+def graph_kernels(graph) -> dict:
+    """{kernel symbol (mangled): nodes} of a captured CUDA graph whose nodes
+    were kept (torch.cuda.CUDAGraph(keep_graph=True); Model.keep_graph),
+    read through the CUDA driver, child graphs included: what every replay
+    of it launches, whatever a profiler's trace records."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, out = ctypes.c_void_p, ctypes.byref
+
+    class KernelNodeParams(ctypes.Structure):   # cuda.h: CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ptr), ("dims", ctypes.c_uint * 6),
+                    ("shared_bytes", ctypes.c_uint), ("params", ptr), ("extra", ptr),
+                    ("kern", ptr), ("ctx", ptr)]
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        if rc:
+            raise RuntimeError(f"{fn} returned CUresult {rc}")
+
+    counts = {}
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", g, None, out(n))
+        nodes = (ptr * n.value)()
+        call("cuGraphGetNodes", g, nodes, out(n))
+        for node in map(ptr, nodes):
+            kind = ctypes.c_int()
+            call("cuGraphNodeGetType", node, out(kind))
+            if kind.value == 4:                   # CU_GRAPH_NODE_TYPE_GRAPH
+                child = ptr()
+                call("cuGraphChildGraphNodeGetGraph", node, out(child))
+                walk(child)
+            elif kind.value == 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+                params, name = KernelNodeParams(), ctypes.c_char_p()
+                call("cuGraphKernelNodeGetParams_v2", node, out(params))
+                if params.func:
+                    call("cuFuncGetName", out(name), ptr(params.func))
+                else:
+                    call("cuKernelGetName", out(name), ptr(params.kern))
+                key = name.value.decode()
+                counts[key] = counts.get(key, 0) + 1
+
+    walk(ptr(graph.raw_cuda_graph()))
+    return counts
+
+
 def sendrecv_launches(kernels: dict) -> int:
     """Launches of NCCL's point-to-point kernel among `nccl_kernels`."""
     return sum(n for k, n in kernels.items() if "sendrecv" in k.lower())
@@ -2218,11 +2297,13 @@ def replay_plan(dec, axes, plan, seed):
     against the self axes, with the `ok` all-reduce last, captured into one
     CUDA graph as Model captures its step (model.capture_graph). Every slab
     is a slice of a source buffer per dtype, and each received slab is
-    copied at once into the same slice of a destination buffer; before every replay the sources take new random numbers, the
-    destinations NaN, and `ok` true or false in turns. Gates: every replay
+    copied at once into the same slice of a destination buffer; before
+    every replay the sources take new random numbers, the destinations NaN,
+    and `ok` true or false in turns. Gates: every replay
     receives bitwise what it sent, the all-reduce returns `ok`, and the
-    trace of a replay holds one NCCL point-to-point launch per call. Times
-    the plan posted eagerly and replayed, in turns."""
+    captured graph holds one NCCL point-to-point kernel per call
+    (`graph_kernels`; a replay's trace is counted beside it). Times the plan
+    posted eagerly and replayed, in turns."""
     from torch.profiler import ProfilerActivity, profile
 
     from hnumo_tpu_torch.model import capture_graph
@@ -2261,7 +2342,11 @@ def replay_plan(dec, axes, plan, seed):
 
     refill(False)
     check(post(), False, "eager")
-    graph, ok_out = capture_graph(post, dev, dec)
+    graph, ok_out = capture_graph(post, dev, dec, keep_graph=True)
+    nodes = {k: n for k, n in graph_kernels(graph).items() if "nccl" in k.lower()}
+    if sendrecv_launches(nodes) != len(plan):
+        raise AssertionError(f"the capture of {len(plan)} exchange calls holds the NCCL "
+                             f"kernels {nodes}")
     for k in range(SELF_REPLAYS):
         ok = k % 2 == 0
         refill(ok)
@@ -2278,18 +2363,18 @@ def replay_plan(dec, axes, plan, seed):
                 graph.replay()
         torch.cuda.synchronize(dev)
         ms[impl].append((time.perf_counter() - t0) / SELF_TIMED * 1e3)
+    refill(True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         graph.replay()
         torch.cuda.synchronize(dev)
+    check(ok_out, True, "the traced replay")
     kernels = nccl_kernels(prof)
-    if sendrecv_launches(kernels) != len(plan):
-        raise AssertionError(f"a replay of {len(plan)} exchange calls ran the NCCL "
-                             f"kernels {kernels}")
     del graph
     return {"calls": len(plan),
             "bytes": sum(n * src[e.dtype].element_size() for e, n in zip(plan, sizes)),
             "replays_bitwise": SELF_REPLAYS, "ms_eager": ms["eager"],
-            "ms_graph": ms["graph"], "nccl_kernels": kernels}
+            "ms_graph": ms["graph"], "graph_nccl": nodes,
+            "nccl_sendrecv_traced": sendrecv_launches(kernels)}
 
 
 def self_exchange_model(dec, cfg, steps):
@@ -2349,15 +2434,20 @@ def check_self_exchange(plans, model_cases):
 def self_exchange_text(d):
     return "; ".join(
         [f"{k} plan ({v['calls']} calls, {v['bytes'] / 1e6:.2f} MB a replay): "
-         f"{v['replays_bitwise']} replays received bitwise what they sent, all_and right "
-         f"for ok true and false, one replay's NCCL kernels {json.dumps(v['nccl_kernels'])}, "
+         f"{v['replays_bitwise']} replays and a traced one received bitwise what they "
+         f"sent, all_and right for ok true and false, captured graph's NCCL kernel nodes "
+         f"{json.dumps(v['graph_nccl'])}, SendRecv launches traced in a replay "
+         f"{v['nccl_sendrecv_traced']}, "
          f"ms eager {', '.join(f'{t:.2f}' for t in v['ms_eager'])} / graphed "
          f"{', '.join(f'{t:.2f}' for t in v['ms_graph'])}"
          for k, v in d["plans"].items()]
-        + [f"{k} on self axes: graphed == eager bitwise over {v['steps_bitwise']} steps, "
-           f"one replayed step {nonzero(v['replay_kernels'])} and NCCL "
-           f"{json.dumps(v['nccl_kernels'])} for {v['posting_calls_per_step']} posting "
-           f"calls (traced replays {v['nccl_sendrecv_traced']}), vs serial max per field {max(v['vs_serial'].values()):.2e}, ms/step in "
+        + [f"{k} on self axes: graphed == eager bitwise over {v['steps_bitwise']} steps "
+           f"{v['bitwise']} and in a traced replay {v['replay_bitwise']}; captured graph "
+           f"{nonzero(v['graph_kernels'])} and NCCL {json.dumps(v['graph_nccl'])} for "
+           f"{v['posting_calls_per_step']} posting calls; traced replay "
+           f"{nonzero(v['replay_kernels'])}, SendRecv launches traced "
+           f"{v['nccl_sendrecv_traced']}; vs serial max per field "
+           f"{max(v['vs_serial'].values()):.2e}, ms/step in "
            f"turns (eager, graph, graph, eager) [{v['ms_eager'][0]:.1f}, "
            f"{v['ms_graph'][0]:.1f}, {v['ms_graph'][1]:.1f}, {v['ms_eager'][1]:.1f}]"
            for k, v in d["models"].items()])
@@ -2374,25 +2464,48 @@ def decomposed_cases_256():
             ("256_f32_per_stage", cfg, DECOMP_F32_TOL)]
 
 
-def decomposition_phases(smi):
-    """Phases 27, 27b, 27c and 27d, each printing its line; returns their
-    readings (None where a phase needs more GPUs than the machine shows)."""
+DECOMP_PHASES = ("27", "27b", "27c", "27d")
+
+
+def decomposition_phases(smi, phases=DECOMP_PHASES):
+    """Phases 27, 27b, 27c and 27d (those of `phases`; 27c replays 27's
+    exchange plans and takes 27 with it), each printing its line; returns
+    their readings (None where a phase was not asked for or needs more GPUs
+    than the machine shows). The gates a phase fails are printed after its
+    line, and raised once every phase has run."""
+    if "27c" in phases and "27" not in phases:
+        raise ValueError("phase 27c replays phase 27's exchange plans: ask for 27 too")
+    fails = []
+
+    def report(phase, failures):
+        for f in failures:
+            print(f"phase {phase} FAILED: {f}")
+        fails.extend(f"phase {phase}: {f}" for f in failures)
+
     # ---- phase 27: domain decomposition on the card, ranks sharing it -------
     t_phase = time.perf_counter()
-    dcases = decomposed_cases()
-    drefs = serial_references(dcases, DECOMP_STEPS)
     ngpu = torch.cuda.device_count()
-    dec27 = check_decomposed(dcases, drefs, DECOMP_SHAPE, "gloo", min(ngpu, 4))
-    print(f"phase 27 ({time.perf_counter() - t_phase:.1f} s) domain decomposition "
-          f"{DECOMP_SHAPE[0]}x{DECOMP_SHAPE[1]}, {dec27['ranks']} ranks sharing "
-          f"{'cuda:0' if ngpu == 1 else f'{min(ngpu, 4)} GPUs'} over gloo with host-staged "
-          f"halos ({dec27['cases']['128_f32_per_stage']['transport']}), {DECOMP_STEPS} eager "
-          f"steps a case, the last timed: a correctness run, not a scaling number; "
-          + decomposition_text(dec27))
+    dcases = decomposed_cases()
+    dec27 = drefs = None
+    if "27" in phases or "27b" in phases:
+        drefs = serial_references(dcases, DECOMP_STEPS)
+    if "27" not in phases:
+        print("phase 27 gloo, ranks sharing the GPUs: not asked for")
+    else:
+        dec27 = check_decomposed(dcases, drefs, DECOMP_SHAPE, "gloo", min(ngpu, 4))
+        print(f"phase 27 ({time.perf_counter() - t_phase:.1f} s) domain decomposition "
+              f"{DECOMP_SHAPE[0]}x{DECOMP_SHAPE[1]}, {dec27['ranks']} ranks sharing "
+              f"{'cuda:0' if ngpu == 1 else f'{min(ngpu, 4)} GPUs'} over gloo with host-staged "
+              f"halos ({dec27['cases']['128_f32_per_stage']['transport']}), {DECOMP_STEPS} eager "
+              f"steps a case, the last timed: a correctness run, not a scaling number; "
+              + decomposition_text(dec27))
+        report("27", dec27["failures"])
 
     # ---- phase 27b: the NCCL transport (one GPU per rank), eager and graphed --
     dec27b = None
-    if ngpu >= 2:
+    if "27b" not in phases:
+        print("phase 27b NCCL transport: not asked for")
+    elif ngpu >= 2:
         shape_b = (2, 2) if ngpu >= 4 else (1, 2)
         t_phase = time.perf_counter()
         dec27b = check_decomposed(dcases, drefs, shape_b, "nccl", shape_b[0] * shape_b[1],
@@ -2400,6 +2513,7 @@ def decomposition_phases(smi):
         print(f"phase 27b ({time.perf_counter() - t_phase:.1f} s) NCCL {shape_b[0]}x"
               f"{shape_b[1]}, one GPU per rank, eager and graphed: "
               + decomposition_text(dec27b) + f" | {smi}")
+        report("27b", dec27b["failures"])
     else:
         print(f"phase 27b NCCL transport: not run: this machine shows {ngpu} CUDA device "
               f"and NCCL takes one GPU per rank (two ranks on one device are refused); "
@@ -2408,19 +2522,26 @@ def decomposition_phases(smi):
     torch.cuda.empty_cache()
 
     # ---- phase 27c: the capture of the exchange on one GPU --------------------
-    t_phase = time.perf_counter()
-    plans = {f"{k}_rank0": v["plan"] for k, v in dec27["cases"].items()
-             if k.startswith("128_")}
-    self27c = check_self_exchange(plans, self_exchange_cases())
-    print(f"phase 27c ({time.perf_counter() - t_phase:.1f} s) the split step's capture on "
-          f"one GPU: a one-rank NCCL group whose axes exchange with the rank itself (every "
-          f"call posts a send and a receive), phase 27's {DECOMP_SHAPE[0]}x{DECOMP_SHAPE[1]} "
-          f"exchange plans of rank 0 and the all-reduce captured into one CUDA graph and "
-          f"replayed: " + self_exchange_text(self27c) + f" | {smi}")
+    self27c = None
+    if "27c" not in phases:
+        print("phase 27c the capture on one GPU: not asked for")
+    else:
+        t_phase = time.perf_counter()
+        plans = {f"{k}_rank0": v["plan"] for k, v in dec27["cases"].items()
+                 if k.startswith("128_")}
+        self27c = check_self_exchange(plans, self_exchange_cases())
+        print(f"phase 27c ({time.perf_counter() - t_phase:.1f} s) the split step's capture on "
+              f"one GPU: a one-rank NCCL group whose axes exchange with the rank itself (every "
+              f"call posts a send and a receive), phase 27's {DECOMP_SHAPE[0]}x{DECOMP_SHAPE[1]} "
+              f"exchange plans of rank 0 and the all-reduce captured into one CUDA graph and "
+              f"replayed: " + self_exchange_text(self27c) + f" | {smi}")
+        report("27c", [f"{k}: {f}" for k, v in self27c["models"].items() for f in v["failures"]])
 
     # ---- phase 27d: the double gyre at 256x256 split 2x2 over NCCL -----------
     dec27d = None
-    if ngpu >= 4:
+    if "27d" not in phases:
+        print("phase 27d 256x256 split 2x2 over NCCL: not asked for")
+    elif ngpu >= 4:
         t_phase = time.perf_counter()
         cases256 = decomposed_cases_256()
         refs256 = serial_references(cases256, DECOMP_STEPS)
@@ -2437,9 +2558,12 @@ def decomposition_phases(smi):
               + "; ".join(f"{k} [{v['ms_eager'][0]:.1f}, {v['ms_graph'][0]:.1f}, "
                           f"{v['ms_graph'][1]:.1f}, {v['ms_eager'][1]:.1f}]"
                           for k, v in dec27d["serial_turns"].items()) + f" | {smi}")
+        report("27d", dec27d["failures"])
     else:
         print(f"phase 27d 256x256 split 2x2 over NCCL: not run: this machine shows {ngpu} "
               f"CUDA device(s), it takes 4; not counted as passed")
+    if fails:
+        raise AssertionError(f"{len(fails)} decomposition gate(s) failed: " + "; ".join(fails))
     return dec27, dec27b, self27c, dec27d
 
 
@@ -3004,12 +3128,15 @@ def main() -> int:
                     help="only phases 1-2 and the probe of where a split f32 run leaves "
                          "the serial one (split_probe); its readings to "
                          "chiprun_out/split_probe.json")
-    ap.add_argument("--decomposition-only", action="store_true",
+    ap.add_argument("--decomposition-only", nargs="*", metavar="PHASE",
+                    choices=DECOMP_PHASES, default=None,
                     help="only phases 1-2 (the five kernels) and the decomposition's "
-                         "phases 27-27d (27b needs 2 GPUs, 27d 4); their readings to "
+                         "phases 27-27d, or those named (27c takes 27 with it; 27b "
+                         "needs 2 GPUs, 27d 4); their readings to "
                          "chiprun_out/decomposition.json")
     args = ap.parse_args()
     pathlib.Path(args.log).parent.mkdir(parents=True, exist_ok=True)
+    OUT_DIR.mkdir(exist_ok=True)   # the readings' files, wherever the log goes
     log = open(args.log, "w")
     sys.stdout = _Tee(sys.__stdout__, log)
     sys.stderr = _Tee(sys.__stderr__, log)
@@ -3049,8 +3176,9 @@ def main() -> int:
                                       for u in mega_main):
         raise AssertionError(f"btp_mega at f<5,9> must build both routes without a "
                              f"spill: {mega_main}")
-    if args.decomposition_only:
-        readings = dict(zip(("27", "27b", "27c", "27d"), decomposition_phases(smi)))
+    if args.decomposition_only is not None:
+        readings = dict(zip(DECOMP_PHASES, decomposition_phases(
+            smi, args.decomposition_only or DECOMP_PHASES)))
         (OUT_DIR / "decomposition.json").write_text(json.dumps(readings, default=str))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3674,12 +3802,14 @@ def main() -> int:
                 out[key] = cases(d)
                 for k, v in out[key].items():
                     g = d["cases"][k]["graph"]
-                    v.update(graph_equals_eager=True, ms_eager_ranks=g["ms_eager_ranks"],
+                    v.update(graph_equals_eager=all(g["bitwise_ranks"]
+                                                    + g["replay_bitwise_ranks"]),
+                             ms_eager_ranks=g["ms_eager_ranks"],
                              ms_graph_ranks=g["ms_graph_ranks"],
                              replay_launches=g["replay_kernels"].get(name, 0))
         out["self_exchange_one_gpu"] = {
             k: {"replay_launches": v["replay_kernels"].get(name, 0),
-                "nccl_sendrecv_per_replay": sendrecv_launches(v["nccl_kernels"])}
+                "nccl_sendrecv_nodes": v["nccl_sendrecv_nodes"]}
             for k, v in self27c["models"].items() if v["replay_kernels"].get(name, 0)}
         return out
 

@@ -98,9 +98,11 @@ def resolve_step_impl(step_impl, decomp, device: torch.device) -> str:
     return _resolve_impl("step_impl", step_impl, STEP_IMPLS, device)
 
 
-def capture_graph(fn, device: torch.device, decomp=None):
+def capture_graph(fn, device: torch.device, decomp=None, keep_graph: bool = False):
     """`fn()` recorded into a CUDA graph on `device`; returns (graph, what the
-    captured call returned). One eager warm-up call on a side stream comes
+    captured call returned). `keep_graph`: keep the captured graph's nodes
+    beside its executable (`CUDAGraph.raw_cuda_graph`), so that a caller can
+    list what each replay launches. One eager warm-up call on a side stream comes
     first (PyTorch's recipe): it builds the kernels, plans their launches
     and fills the caches of small device constants, none of which may
     happen while the stream is captured. A failed capture raises: there is
@@ -127,13 +129,19 @@ def capture_graph(fn, device: torch.device, decomp=None):
         decomp.barrier()
         torch.cuda.synchronize(device)
         mode = "thread_local"
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     with torch.cuda.graph(graph, capture_error_mode=mode):
         out = fn()
+    if keep_graph:
+        graph.instantiate()
     return graph, out
 
 
 class Model:
+    # True before the first step: the captured step keeps its graph's nodes
+    # (capture_graph's keep_graph; self._graph[0].raw_cuda_graph())
+    keep_graph = False
+
     def __init__(self, cfg: Config, device=None, volume_impl: str | None = None,
                  mega_impl: str | None = None, tail_impl: str | None = None,
                  step_impl: str | None = None, decomp=None):
@@ -336,7 +344,7 @@ class Model:
         into a CUDA graph (`capture_graph`)."""
         inputs = State(*[t.clone() for t in state])
         graph, outputs = capture_graph(lambda: self._step_eager(inputs), self.device,
-                                       self.decomp)
+                                       self.decomp, self.keep_graph)
         self._graph = (graph, inputs, outputs)
 
     def _replay(self, state: State) -> State:
