@@ -65,11 +65,15 @@ the serial CLI. Last the flat unstructured faces (29): mesh/flatfaces.py's
 tables of the 256x256 brick, its traces and scatter on the card in f32 and
 f64 against the CPU and against the structured path's traces, the adjoint
 identity, and the geometry of the pinwheel and of a deformed 256x256 brick.
+Then the bench tool (30): hnumo_tpu_torch/tools/bench.py's graphed runs in
+turns, 32x32 p=4 on each of its paths and 16x16 p=8 per stage, uniform
+volume and fused, each held to its gates and its captured graph's kernels.
 Any failure raises and the run exits non-zero; there is no CPU path.
 
 Output: one line per phase, then a `{"kernels": [...], "flatfaces_256": {...}}`
 line (five kernels; each entry that a phase from 22 on launched carries that
-phase's readings under a key of its own; phase 29's readings beside them:
+phase's readings under a key of its own, phase 30's under "bench_30";
+phase 29's readings beside them:
 the flat faces are library calls, no kernel), the card's name and power
 limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -90,9 +94,11 @@ import time
 import numpy as np
 import torch
 
-# published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of `bound_ms`
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+from hnumo_tpu_torch.tools._measure import (
+    HBM_BYTES_PER_S, KERNEL_SYMBOLS, MASS_TOL, card, device_rows, fused_bounds, gates,
+    graph_kernels, graph_path_counts, mega_bound, path_launches_per_step, replay_profile,
+    total_mass, volume_bound)
+from hnumo_tpu_torch.tools import bench
 
 # Builds of the four streaming kernels with one of their two halves compiled
 # out (BTP_ABLATE in ops/csrc/btp_volume_common.cuh and btp_tail_common.cuh):
@@ -119,7 +125,6 @@ SOLVE_TOL = 1e-11   # f64 barotropic solve, kernel vs plain, over N_btp*kstages 
 # 32x32; the tolerance leaves a factor of 20.
 F32_MEGA_TOL = 1e-4
 STEP_TOL = 1e-10    # f64, two full steps, megakernel vs per-stage path
-MASS_TOL = 1e-6     # relative total-mass change over the f32 run
 # the viscosity of the sheared-state check (phase 7): the neighbours' viscous
 # gradient enters a solve with small weights; at the model's 100 m^2/s a
 # fault there moves qb by no more than rounding, so no tolerance could see
@@ -132,17 +137,9 @@ SHEAR_VISC = 1e12
 
 def main_path_config(nel: int, dtype: str, nop: int = 4, mega: str = "auto", **over):
     """The double-gyre basin of the JAX package's bench.py (same dt
-    scaling); `over` replaces any of its fields."""
-    from hnumo_tpu_torch.config import Config
-
-    scale = (25.0 / nel) * (4.0 / nop) ** 2
-    kw = dict(nelx=nel, nely=nel, nopx=nop, nopy=nop,
-              xdims=(0.0, 2.0e6), ydims=(0.0, 2.0e6), nlayers=2,
-              dt=500.0 * scale, dt_btp=25.0 * scale, time_final=1e9,
-              test_case="double_gyre", f0=9.3e-5, beta=2.0e-11,
-              botfr=1, cd_mlswe=1.0e-7, method_visc=2, visc_mlswe=100.0,
-              dtype=dtype, mega=mega)
-    return Config(**{**kw, **over})
+    scaling; hnumo_tpu_torch/tools/bench.bench_config); `over` replaces any
+    of its fields."""
+    return bench.bench_config(nel, nop, dtype, mega=mega, **over)
 
 
 def fused_config(nel: int, dtype: str):
@@ -747,25 +744,6 @@ def time_volume_stage(m, n=60, nsets=None, ablations=True):
     return out
 
 
-def volume_bound(m):
-    """Least time the card could take for one volume stage at this model's
-    shapes: bytes once over the HBM rate vs flops over the f32 peak."""
-    ngl, nq = m.g.psiq.shape
-    npts, nqq = ngl * ngl, nq * nq
-    E = m.cfg.nelx * m.cfg.nely
-    itemsize = 8 if m.cfg.dtype == "float64" else 4
-    # in: qb 4, pbp 1, accn 3 (nodal); qpl 3, met 5, ptab 8, coup 4, accv 12 (quad)
-    # out: rhs 3, accn 3 (nodal); accv 12 (quad); operators 3*npts*nqq once
-    nbytes = itemsize * (E * (14 * npts + 44 * nqq) + 3 * npts * nqq)
-    # 4 interpolations + 8 scatter rows, 2 flops per multiply-add; ~110 pointwise per quad point
-    flops = E * (2 * 12 * npts * nqq + 110 * nqq + 8 * npts)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
-
-
 def time_mega(m, n=20, ablations=True):
     """One solve at this model's shapes: the launch alone with the launches
     queued ahead of the device (`ms`), the wrapper as the host calls it
@@ -806,46 +784,6 @@ def time_mega(m, n=20, ablations=True):
             out["ms_" + name] = time_launches(launch, [()], n, device_only=True)
     vars(barotropic_solve_mega_cuda).update(before)   # timing launches are not the path's
     return out
-
-
-def mega_bound(m):
-    """Least time the card could take for one barotropic solve at this
-    model's shapes: every operand read once and every result written once
-    over the HBM rate, against the solve's flops over the f32 peak. The
-    flops are counted from the kernel's loops (2 per multiply-add) and its
-    pointwise blocks (counted by hand from the source: ~80 per volume quad
-    point, ~110 per face quad point, ~45 per viscous edge node, ~20 per
-    updated node). The grid barriers (one per stage) are not in the bound."""
-    n, q = m.g.psiq.shape
-    npts, nqq = n * n, q * q
-    E = m.cfg.nelx * m.cfg.nely
-    nsub = m.static.n_btp * m.static.kstages
-    visc = m.static.use_visc
-    itemsize = 8 if m.cfg.dtype == "float64" else 4
-    # in: qb 4, ref3 3, massinv/pbp/opbp/masks 5 (nodal); qplq 3, coup 4, ptab 8
-    # (quad); qe 4, ftab 13 (side x nq); ntab 3 (side x ngl); nbr; with
-    # viscosity pvisc 1, bdg 4 (nodal), bgf 10 (side x ngl).
-    # out: qb 4, accn 3, agr 4 (nodal); accv 12 (quad); aff 16; agt 8
-    nodal = 4 + 3 + 5 + 4 + 3 + (1 + 4 + 4 if visc else 0)
-    quad = 3 + 4 + 8 + 12
-    side_q = 4 + 13 + 16
-    side_n = 3 + (10 + 8 if visc else 0)
-    values = E * (nodal * npts + quad * nqq + side_q * 4 * q + side_n * 4 * n)
-    nbytes = itemsize * values + 4 * 4 * E
-    macs = (4 * n * q * n + 4 * nqq * n          # interpolation, two passes
-            + 5 * q * n * q + 2 * q * n * q      # scatter, first pass
-            + 3 * npts * 2 * q                   # scatter, second pass
-            + 2 * 16 * q * n + 12 * n * q)       # face interpolation and scatter
-    pointwise = 80 * nqq + 110 * 4 * q + 20 * 3 * npts + 8 * npts
-    if visc:
-        macs += 4 * npts * n + 16 * n * n + 2 * npts * 2 * n
-        pointwise += 45 * 4 * n + 3 * 4 * npts
-    flops = E * nsub * (2 * macs + pointwise)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops, "barriers": nsub}
 
 
 def fused_kernel_calls(m):
@@ -911,50 +849,6 @@ def time_fused_kernels(m, n=60):
     return out
 
 
-def fused_bounds(m):
-    """Least time the card could take for one launch of each of A, F and U at
-    this model's shapes: the values each function must read and write once
-    (counted from its operands; of the three SSPRK registers the update reads
-    rows 1..3 only) over the HBM rate, against its flops (2 per multiply-add
-    of the sum-factorised loops, plus the pointwise blocks counted by hand
-    from the sources) over the f32 peak."""
-    n, q = m.g.psiq.shape
-    npts, nqq = n * n, q * q
-    E = m.cfg.nelx * m.cfg.nely
-    F = m.cfg.nely * (m.cfg.nelx + 1) + (m.cfg.nely + 1) * m.cfg.nelx
-    visc = m.static.use_visc
-    rows = 6 if m.static.flat_bottom else 8
-    itemsize = 8 if m.cfg.dtype == "float64" else 4
-    # A in: qb 4, qpln 3, pbp 1, accn 3 [, agr 4] nodal; ptab 6|8, coup 4, accv 12 quad
-    #   out: rhs 3, accn 3 [, gv 4, agr 4] nodal; accv 12 quad
-    a_vals = E * ((17 + (12 if visc else 0)) * npts + (rows + 28) * nqq)
-    a_flops = E * (2 * (7 * n * q * n + 7 * nqq * n + 5 * q * n * q + 3 * npts * 2 * q
-                        + (4 * npts * n if visc else 0)) + 80 * nqq + 8 * npts)
-    # F in: trL, trR 2*(4|8), ntab 5 [, bgf 10, ag 8] nodal; ftab 15, af 16 quad
-    #   out: S 3 [, Sv 2, ag 8] nodal; af 16 quad
-    f_vals = F * ((16 + (36 if visc else 0)) * n + 47 * q)
-    f_flops = F * (2 * (10 * q * n + 3 * n * q) + 110 * q + (45 * n if visc else 0))
-    # U in: rhs 3, qb rows 3*3, ref 3, pbdf 1, mask 2 [, gv 4, pbpv 1, bdg 4] nodal;
-    #       edges 3 [, vedges 2] x 4*ngl;  out: qb 4 nodal
-    u_vals = E * ((22 + (9 if visc else 0)) * npts + (3 + (2 if visc else 0)) * 4 * n)
-    u_flops = E * (20 * 3 * npts + (2 * 2 * npts * 2 * n + 3 * 4 * npts if visc else 0))
-    out = {}
-    for name, vals, flops in (("btp_volume_uni", a_vals, a_flops),
-                              ("btp_faces", f_vals, f_flops),
-                              ("btp_update", u_vals, u_flops)):
-        t_bytes = vals * itemsize / HBM_BYTES_PER_S * 1e3
-        t_flops = flops / F32_FLOPS_PER_S * 1e3
-        out[name] = {"bound_ms": max(t_bytes, t_flops),
-                     "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-                     "bytes": vals * itemsize, "flops": flops}
-    return out
-
-
-def total_mass(m, state) -> float:
-    dp = (m.P.dpp_ref_df + state.q_df[0]).double()
-    return float((m.g.wjac_df.double() * dp).sum())
-
-
 def kernel_wrappers():
     """{kernel name: its wrapper, whose `launches` counts the launches made}."""
     from hnumo_tpu_torch.ops.btp_tail import btp_faces_cuda, btp_update_cuda
@@ -965,24 +859,6 @@ def kernel_wrappers():
     return {"btp_volume": btp_volume_cuda, "btp_mega": barotropic_solve_mega_cuda,
             "btp_volume_uni": btp_volume_uni_cuda, "btp_faces": btp_faces_cuda,
             "btp_update": btp_update_cuda}
-
-
-def path_launches_per_step(m) -> dict:
-    """{kernel: launches per baroclinic step} on this model's path. On the
-    megakernel path a step is exactly 2 megakernel launches; on the fused
-    path 2*N_btp*kstages launches of each of the uniform-geometry volume
-    kernel, the face kernel and the update kernel; on the per-stage path
-    2*N_btp*kstages volume kernel launches (of the uniform-geometry one under
-    uni_volume). Every other kernel: none."""
-    per_stage = 2 * m.static.n_btp * m.static.kstages
-    if m.static.mega:
-        return {"btp_mega": 2}
-    if m.static.fused_tail:
-        return {"btp_volume_uni": per_stage, "btp_faces": per_stage,
-                "btp_update": per_stage}
-    if m.static.uni_volume:
-        return {"btp_volume_uni": per_stage}
-    return {"btp_volume": per_stage}
 
 
 def zero_counts():
@@ -1041,14 +917,6 @@ def drive(m, warm: int, steps: int):
             "step_impl": m.step_impl, "t": float(s.t)}, s
 
 
-def _device_rows(prof):
-    """Rows of device activities (kernels, memcpys) only: the operator rows
-    repeat their kernels' device time."""
-    from torch.autograd import DeviceType
-
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-
 def profile_solve(m, out_path, title):
     """torch.profiler over one barotropic solve on this model's path: device
     activities and busy ms per stage, and the share of the wall time the
@@ -1076,7 +944,7 @@ def profile_solve(m, out_path, title):
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
     with open(out_path, "a") as f:
         f.write(f"==== {title} ====\n{table}\n")
-    dev = _device_rows(prof)
+    dev = device_rows(prof)
     nsub = m.static.n_btp * m.static.kstages
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     return {"solve_wall_ms_profiled": wall_ms, "solve_device_busy_ms": busy,
@@ -1096,7 +964,7 @@ def profile_step(m, state, out_path, title):
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     with open(out_path, "a") as f:
         f.write(f"==== {title} ====\n{table}\n")
-    dev = _device_rows(prof)
+    dev = device_rows(prof)
     out = {"device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
            "device_activities": sum(e.count for e in dev)}
     mega = [e for e in dev if "btp_mega_kernel" in e.key]
@@ -1105,38 +973,6 @@ def profile_step(m, state, out_path, title):
     return out
 
 
-KERNEL_SYMBOLS = {"btp_volume": "btp_volume_kernel", "btp_mega": "btp_mega_kernel",
-                  "btp_volume_uni": "btp_volume_uni_kernel", "btp_faces": "btp_faces_kernel",
-                  "btp_update": "btp_update_kernel"}
-
-
-def replay_profile(m, state, out_path=None, title=None):
-    """torch.profiler over one replay of a graphed model's step: the five
-    kernels counted by name in the trace (each must be its path's
-    per-step count, the others none), the device activities and busy ms."""
-    import re
-
-    from torch.profiler import ProfilerActivity, profile
-
-    if m.step_impl != "graph" or m._graph is None:
-        raise ValueError("replay_profile takes a graphed model that has captured its step")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        m.step(state)
-        torch.cuda.synchronize()
-    dev = _device_rows(prof)
-    counts = {name: sum(e.count for e in dev if re.search(rf"\b{sym}\b", e.key))
-              for name, sym in KERNEL_SYMBOLS.items()}
-    want = {name: path_launches_per_step(m).get(name, 0) for name in KERNEL_SYMBOLS}
-    if counts != want:
-        raise AssertionError(f"one replayed step ran {counts}, expected {want}")
-    if out_path:
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
-        with open(out_path, "a") as f:
-            f.write(f"==== {title} ====\n{table}\n")
-    return {"replay_kernels": counts,
-            "replay_device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
-            "replay_device_activities": sum(e.count for e in dev)}
 
 
 def check_graph_vs_eager(cfg, steps: int):
@@ -1618,21 +1454,6 @@ def check_path(m, what, mega=False, fused=False, flat=None):
         raise AssertionError(f"{what}: expected {want} with the kernels, got {got} {impls}")
 
 
-def gates(m, state, state0=None):
-    """ok, finite fields and the relative total-mass change from `state0`
-    (default the initial state) to `state`, which must stay within MASS_TOL."""
-    if not bool(state.ok):
-        raise AssertionError("state.ok is False")
-    for name in ("qb_df", "q_df", "qprime_df"):
-        if not bool(torch.isfinite(getattr(state, name)).all()):
-            raise AssertionError(f"non-finite values in {name}")
-    m0 = total_mass(m, m.state0 if state0 is None else state0)
-    drift = abs(total_mass(m, state) - m0) / m0
-    if not drift <= MASS_TOL:
-        raise AssertionError(f"relative total-mass change {drift:.3e} > {MASS_TOL}")
-    return drift
-
-
 def graph_and_replay(cfg, steps, what, timed=3, profile=None, **path):
     """check_graph_vs_eager over `steps` steps on the path described, a step
     of the graphed model under the sync debug mode, `timed` more replayed
@@ -1946,12 +1767,6 @@ def on_self_axes(m, dec):
     m._build_operators()
 
 
-def graph_path_counts(nodes: dict) -> dict:
-    """The five kernels' nodes among `graph_kernels` (mangled symbols)."""
-    return {name: sum(n for k, n in nodes.items() if sym in k)
-            for name, sym in KERNEL_SYMBOLS.items()}
-
-
 def graphed_block(dec, cfg, m, s, steps, self_exchange=False):
     """Over NCCL, beside the eager model `m` of a rank whose state after
     `steps` steps from its initial state is `s`: a graphed model of `cfg`
@@ -2018,7 +1833,7 @@ def graphed_block(dec, cfg, m, s, steps, self_exchange=False):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sg = mg.step(sg)
         torch.cuda.synchronize()
-    rows = _device_rows(prof)
+    rows = device_rows(prof)
     traced = {name: sum(e.count for e in rows if sym in e.key)
               for name, sym in KERNEL_SYMBOLS.items()}
     kernels = nccl_kernels(prof)
@@ -2236,55 +2051,7 @@ def self_axes(dec):
 
 def nccl_kernels(prof) -> dict:
     """{kernel name: launches} of the NCCL kernels in a trace."""
-    return {e.key: e.count for e in _device_rows(prof) if "nccl" in e.key.lower()}
-
-
-def graph_kernels(graph) -> dict:
-    """{kernel symbol (mangled): nodes} of a captured CUDA graph whose nodes
-    were kept (torch.cuda.CUDAGraph(keep_graph=True); Model.keep_graph),
-    read through the CUDA driver, child graphs included: what every replay
-    of it launches, whatever a profiler's trace records."""
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-    ptr, out = ctypes.c_void_p, ctypes.byref
-
-    class KernelNodeParams(ctypes.Structure):   # cuda.h: CUDA_KERNEL_NODE_PARAMS_v2
-        _fields_ = [("func", ptr), ("dims", ctypes.c_uint * 6),
-                    ("shared_bytes", ctypes.c_uint), ("params", ptr), ("extra", ptr),
-                    ("kern", ptr), ("ctx", ptr)]
-
-    def call(fn, *args):
-        rc = getattr(cu, fn)(*args)
-        if rc:
-            raise RuntimeError(f"{fn} returned CUresult {rc}")
-
-    counts = {}
-
-    def walk(g):
-        n = ctypes.c_size_t(0)
-        call("cuGraphGetNodes", g, None, out(n))
-        nodes = (ptr * n.value)()
-        call("cuGraphGetNodes", g, nodes, out(n))
-        for node in map(ptr, nodes):
-            kind = ctypes.c_int()
-            call("cuGraphNodeGetType", node, out(kind))
-            if kind.value == 4:                   # CU_GRAPH_NODE_TYPE_GRAPH
-                child = ptr()
-                call("cuGraphChildGraphNodeGetGraph", node, out(child))
-                walk(child)
-            elif kind.value == 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
-                params, name = KernelNodeParams(), ctypes.c_char_p()
-                call("cuGraphKernelNodeGetParams_v2", node, out(params))
-                if params.func:
-                    call("cuFuncGetName", out(name), ptr(params.func))
-                else:
-                    call("cuKernelGetName", out(name), ptr(params.kern))
-                key = name.value.decode()
-                counts[key] = counts.get(key, 0) + 1
-
-    walk(ptr(graph.raw_cuda_graph()))
-    return counts
+    return {e.key: e.count for e in device_rows(prof) if "nccl" in e.key.lower()}
 
 
 def sendrecv_launches(kernels: dict) -> int:
@@ -2916,6 +2683,14 @@ def split_probe():
     return {"library": lib, "whole": res, "by_function": rows}
 
 
+# ---- the bench tool (phase 30) -------------------------------------------------
+# (elements a side, nop), variants: hnumo_tpu_torch/tools/bench.py's runs at
+# the megakernel's size (every path of p=4) and at p=8 (no megakernel there)
+BENCH_RUNS = (((32, 4), ("default", "mega", "stage", "uni", "fused")),
+              ((16, 8), ("stage", "uni", "fused")))
+BENCH_STEPS = 3
+BENCH_REPEATS = 2
+
 # ---- the flat unstructured faces (phase 29) ------------------------------------
 
 FLAT_NEL = 256         # the bench brick of phases 6 and 13: 65,536 elements
@@ -3147,9 +2922,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     from hnumo_tpu_torch.model import Model
@@ -3786,6 +3559,23 @@ def main() -> int:
           f"continuity {flat[f'deformed_{FLAT_NEL}']['coord_continuity']:.1e}, unit normals "
           f"{flat[f'deformed_{FLAT_NEL}']['unit_normal_err']:.1e} | {smi}")
 
+    # ---- phase 30: the bench tool's runs, path by path ----------------------------------
+    t_phase = time.perf_counter()
+    bench30 = []
+    for (nel, nop), variants in BENCH_RUNS:
+        bench30 += bench.time_in_turns([(v, bench.variant_config(nel, nop, v))
+                                        for v in variants], BENCH_STEPS, BENCH_REPEATS)
+    secs_30 = time.perf_counter() - t_phase
+    print(f"phase 30 ({secs_30:.1f} s) hnumo_tpu_torch/tools/bench.py's runs (--table), "
+          f"{BENCH_REPEATS} windows of {BENCH_STEPS} graphed steps each in turns; every "
+          f"captured graph holds exactly its variant's kernels, ok, finite, mass change "
+          f"within {MASS_TOL:g}; ms/step (spread), idle share, kernels a step: " + "; ".join(
+              f"{r['nel'][0]}x{r['nel'][1]} p={r['nop']} {r['variant']} "
+              f"{r['ms_per_step']:.2f} ({r['spread']:.3f}), {r['device_idle_share']:.3f}, "
+              f"{json.dumps(r['kernels_per_step'])}" for r in bench30) + f" | {smi}")
+    for r in bench30:
+        print("phase 30 " + json.dumps(r))
+
     def decomposed_entry(name):
         """A kernel's readings in phase 27 (27b), per case of its path."""
         def cases(d):
@@ -4007,6 +3797,13 @@ def main() -> int:
             "mass_drift": sb["botfr2_mega_32"]["run"]["mass_drift"],
             "step_err_f64_vs_per_stage": sb["botfr2_vs_per_stage_f64"]["mega"]},
     }] + fused_entries
+    for entry in kernels:      # phase 30's runs that launched the kernel
+        entry["bench_30"] = {
+            f"{r['nel'][0]}x{r['nel'][1]} p={r['nop']} {r['variant']}": {
+                "launches_per_step": r["kernels_per_step"][entry["name"]],
+                "ms_per_launch_in_replay": r["kernel_ms_per_launch"].get(entry["name"]),
+                "bound_ms": r["bound_ms"][entry["name"]], "step_ms": r["ms_per_step"]}
+            for r in bench30 if entry["name"] in r["kernels_per_step"]}
     print(json.dumps({"kernels": kernels, "flatfaces_256": {
         "what": "hnumo_tpu_torch/mesh/flatfaces.py: index_select / index_add_, no kernel "
                 "of its own (the JAX package's is an XLA gather and segment-sum)",

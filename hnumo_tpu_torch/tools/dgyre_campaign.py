@@ -28,7 +28,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -40,6 +39,7 @@ if __package__ in (None, ""):          # run as a script
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from hnumo_tpu_torch.io.diagnostics import derived_fields  # noqa: E402
+from hnumo_tpu_torch.tools._measure import card  # noqa: E402
 from hnumo_tpu_torch.tools.goldens import dgyre_config  # noqa: E402
 
 
@@ -103,11 +103,7 @@ def device_label(device: torch.device) -> str:
     """"<name>, <power limit>" of the CUDA device from nvidia-smi, or "cpu"."""
     if device.type != "cuda":
         return "cpu"
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return subprocess.run(
-        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    return card(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def campaign_config(f64: bool = False, nel: int = 25):

@@ -43,7 +43,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 import torch
@@ -51,6 +50,8 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 
 import chip_smoke as cs  # noqa: E402
+from hnumo_tpu_torch.tools._measure import (card, fused_bounds, mega_bound,  # noqa: E402
+                                            volume_bound)
 
 VARIANTS = (("full", ()),) + tuple((name, (define,)) for name, define in cs.ABLATIONS)
 KERNELS = ("btp_volume", "btp_volume_uni", "btp_faces", "btp_update")
@@ -87,7 +88,7 @@ def time_mega(nel, n=20):
     t = time_variants(lambda: mega.mega_launch(m.static, m.mega_ops, op, acc, *bufs), [()], n,
                       MEGA_VARIANTS)
     vars(mega.barotropic_solve_mega_cuda).update(counters)   # timing launches are not the path's
-    line = {"kernel": "btp_mega", "grid": nel, "bound_ms": cs.mega_bound(m)["bound_ms"], **t}
+    line = {"kernel": "btp_mega", "grid": nel, "bound_ms": mega_bound(m)["bound_ms"], **t}
     layout = getattr(mega, "btp_mega_layout", None)     # absent before the redesign
     if layout is not None:
         line["layout"] = layout(torch.float32, E, ngl, nq)
@@ -131,7 +132,7 @@ def main() -> int:
             t = time_variants(lambda *o: bv.btp_volume_cuda(vol_ops, *o, **kw), sets, n)
             bv.btp_volume_cuda.launches = before
             lines.append({"kernel": "btp_volume", "grid": nel, "bound_ms":
-                          cs.volume_bound(m)["bound_ms"], **t})
+                          volume_bound(m)["bound_ms"], **t})
             del m, sets, vol_ops
             torch.cuda.empty_cache()
 
@@ -139,7 +140,7 @@ def main() -> int:
         if fused or args.steps:
             m = Model(cs.fused_config(nel, "float32"))
             calls = cs.fused_kernel_calls(m)
-            bounds = cs.fused_bounds(m)
+            bounds = fused_bounds(m)
             for name in fused:
                 kernel, _, sets = calls[name]
                 before = wrappers[name].launches
@@ -168,9 +169,7 @@ def main() -> int:
 def report(lines, usage, out) -> int:
     """Print the JSON lines, the card's name and power limit and what ptxas
     said of each build; also write them to `out` when given."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     text = "\n".join(json.dumps(line) for line in lines) + "\n" + smi + "\n"
     text += "".join(f"ptxas {label}: " + "; ".join(u) + "\n" for label, u in usage)
     print(text, end="")

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -50,15 +49,9 @@ RANK_TIMEOUT = 600.0
 def bench_config(nely: int, nelx: int):
     """The bench basin on the fused path, its time step scaled by the
     elements along y (bench.py's `dt = 500 * 25 / nel`) whatever the grid."""
-    from hnumo_tpu_torch.config import Config
+    from hnumo_tpu_torch.tools.bench import bench_config as basin
 
-    scale = 25.0 / nely
-    return Config(nelx=nelx, nely=nely, nopx=4, nopy=4,
-                  xdims=(0.0, 2.0e6 * nelx / nely), ydims=(0.0, 2.0e6), nlayers=2,
-                  dt=500.0 * scale, dt_btp=25.0 * scale, time_final=1e9,
-                  test_case="double_gyre", f0=9.3e-5, beta=2.0e-11, botfr=1,
-                  cd_mlswe=1.0e-7, method_visc=2, visc_mlswe=100.0, dtype="float32",
-                  mega="off", fused_tail="on")
+    return basin(nely, nelx=nelx, mega="off", fused_tail="on")
 
 
 def runs(gpus) -> list[tuple[str, int, tuple[int, int], tuple[int, int]]]:
@@ -109,12 +102,6 @@ def rank_run(dec, grid, steps):
     ms = (time.perf_counter() - t0) / steps * 1e3
     return {"ms_per_step": ms, "exchange_calls_per_step": calls,
             "block": list(m.g.wjac.shape[:2]), "ok": bool(s.ok)}
-
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:

@@ -24,6 +24,9 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+hnumo_tpu(\s|\.|$
                                     "hnumo_tpu_torch.io.diagnostics",
                                     "hnumo_tpu_torch.tools.goldens",
                                     "hnumo_tpu_torch.tools.dgyre_campaign",
+                                    "hnumo_tpu_torch.tools.bench",
+                                    "hnumo_tpu_torch.tools._measure",
+                                    "hnumo_tpu_torch.tools.scaling",
                                     "hnumo_tpu_torch.config",
                                     "hnumo_tpu_torch.driver",
                                     "hnumo_tpu_torch.__main__",
