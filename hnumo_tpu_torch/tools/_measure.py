@@ -4,7 +4,7 @@ one replay, the least time each kernel could take, and the card it ran on.
 
 Shared by hnumo_tpu_torch/tools/bench.py and chip_smoke.py (and the other
 tools of this package that name the card). Nothing here runs at import:
-torch is imported, the CUDA driver is opened only when a graph is read.
+torch is imported, and libcuda is opened only when a graph is read.
 """
 from __future__ import annotations
 
