@@ -3569,9 +3569,10 @@ def main() -> int:
     print(f"phase 30 ({secs_30:.1f} s) hnumo_tpu_torch/tools/bench.py's runs (--table), "
           f"{BENCH_REPEATS} windows of {BENCH_STEPS} graphed steps each in turns; every "
           f"captured graph holds exactly its variant's kernels, ok, finite, mass change "
-          f"within {MASS_TOL:g}; ms/step (spread), idle share, kernels a step: " + "; ".join(
+          f"within {MASS_TOL:g}; ms/step (spread), one replay's busy ms, kernels a step: "
+          + "; ".join(
               f"{r['nel'][0]}x{r['nel'][1]} p={r['nop']} {r['variant']} "
-              f"{r['ms_per_step']:.2f} ({r['spread']:.3f}), {r['device_idle_share']:.3f}, "
+              f"{r['ms_per_step']:.2f} ({r['spread']:.3f}), {r['replay_device_busy_ms']:.3f}, "
               f"{json.dumps(r['kernels_per_step'])}" for r in bench30) + f" | {smi}")
     for r in bench30:
         print("phase 30 " + json.dumps(r))

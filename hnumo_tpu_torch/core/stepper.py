@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.dg import DeviceGeom, interp_n2q
+from ..spans import span
 from .bcl import (apply_consistency, evaluate_bcl, evaluate_bcl_v1,
                   extract_qprime_faces, layer_mass_rhs, layer_momentum_rhs,
                   rhs_layer_shear_stress, velocity_df)
@@ -94,59 +95,75 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
                      dtype=qprime_df.dtype, device=qprime_df.device)
 
     # ==================== predictor =====================================
-    qprime_faces = extract_qprime_faces(bc, qprime_df)
+    with span("hnumo.bcl.predictor"):
+        with span("hnumo.bcl.faces"):
+            qprime_faces = extract_qprime_faces(bc, qprime_df)
 
-    dpprime_visc = qprime_df[0]
-    dpprime_visc_q = interp_n2q(g, dpprime_visc) if static.method_visc == 1 else zq
-    coup = btp_bcl_coeffs(static, P, g, bc, qprime_df, qprime_faces,
-                          dpprime_visc, dpprime_visc_q)
-    qbp_df, avg = barotropic_solve(static, P, g, bc, coup, qb_df, qprime_df,
-                                   vol_ops=vol_ops, mega_ops=mega_ops,
-                                   tail_ops=tail_ops)
+        dpprime_visc = qprime_df[0]
+        dpprime_visc_q = interp_n2q(g, dpprime_visc) if static.method_visc == 1 else zq
+        with span("hnumo.coupling"):
+            coup = btp_bcl_coeffs(static, P, g, bc, qprime_df, qprime_faces,
+                                  dpprime_visc, dpprime_visc_q)
+        with span("hnumo.btp.solve"):
+            qbp_df, avg = barotropic_solve(static, P, g, bc, coup, qb_df, qprime_df,
+                                           vol_ops=vol_ops, mega_ops=mega_ops,
+                                           tail_ops=tail_ops)
 
-    # momentum_mass (predictor): mass + momentum + recombination
-    q_df2, ok1 = _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces)
-    q_df2 = _momentum_update(static, P, g, bc, avg, coup,
-                             q_df2, qprime_df, qprime_faces, qbp_df)
-    q_df2, qprime_df2, qprime_faces2 = evaluate_bcl(static, P, bc, q_df2, qprime_df, qbp_df)
+        # momentum_mass (predictor): mass + momentum + recombination
+        with span("hnumo.bcl.thickness"):
+            q_df2, ok1 = _thickness_update(static, P, g, bc, avg, q_df, qprime_df,
+                                           qprime_faces)
+        with span("hnumo.bcl.momentum"):
+            q_df2 = _momentum_update(static, P, g, bc, avg, coup,
+                                     q_df2, qprime_df, qprime_faces, qbp_df)
+        with span("hnumo.bcl.evaluate"):
+            q_df2, qprime_df2, qprime_faces2 = evaluate_bcl(static, P, bc, q_df2, qprime_df,
+                                                            qbp_df)
 
     # ==================== corrector =====================================
-    qprime_half = 0.5 * (qprime_df2 + qprime_df)
-    qprime_faces_half = tuple(
-        type(f2)(*[0.5 * (a + b) for a, b in zip(f1, f2)])
-        for f1, f2 in zip(qprime_faces, qprime_faces2)
-    )
-    dpprime_visc = P.dpp_ref_df + qprime_half[0]
-    dpprime_visc_q = interp_n2q(g, dpprime_visc) if static.method_visc == 1 else zq
-    coup = btp_bcl_coeffs(static, P, g, bc, qprime_half, qprime_faces_half,
-                          dpprime_visc, dpprime_visc_q)
-    qb_new, avg = barotropic_solve(static, P, g, bc, coup, qb_df,
-                                   qprime_half, vol_ops=vol_ops,
-                                   mega_ops=mega_ops, tail_ops=tail_ops)
+    with span("hnumo.bcl.corrector"):
+        qprime_half = 0.5 * (qprime_df2 + qprime_df)
+        qprime_faces_half = tuple(
+            type(f2)(*[0.5 * (a + b) for a, b in zip(f1, f2)])
+            for f1, f2 in zip(qprime_faces, qprime_faces2)
+        )
+        dpprime_visc = P.dpp_ref_df + qprime_half[0]
+        dpprime_visc_q = interp_n2q(g, dpprime_visc) if static.method_visc == 1 else zq
+        with span("hnumo.coupling"):
+            coup = btp_bcl_coeffs(static, P, g, bc, qprime_half, qprime_faces_half,
+                                  dpprime_visc, dpprime_visc_q)
+        with span("hnumo.btp.solve"):
+            qb_new, avg = barotropic_solve(static, P, g, bc, coup, qb_df,
+                                           qprime_half, vol_ops=vol_ops,
+                                           mega_ops=mega_ops, tail_ops=tail_ops)
 
-    # thickness (corrector) with averaged primes
-    q_df, ok2 = _thickness_update(static, P, g, bc, avg, q_df,
-                                  qprime_half, qprime_faces_half)
+        # thickness (corrector) with averaged primes
+        with span("hnumo.bcl.thickness"):
+            q_df, ok2 = _thickness_update(static, P, g, bc, avg, q_df,
+                                          qprime_half, qprime_faces_half)
 
-    # store dp' dofs; average thickness primes for the momentum corrector
-    # (reference src/ti_rk_bcl.F90:73-85); δ-forms throughout
-    eta_t = (torch.sum(q_df[0], 0) + P.sum_ref_residual) * P.one_over_pbprime_df
-    dpprime_new = (q_df[0] - P.dpp_ref_df * eta_t[None]) / (1.0 + eta_t)[None]
-    dpprime_faces_new = extract_qprime_faces(bc, torch.stack(
-        [dpprime_new, qprime_half[1], qprime_half[2]]))[0]
+        # store dp' dofs; average thickness primes for the momentum corrector
+        # (reference src/ti_rk_bcl.F90:73-85); δ-forms throughout
+        eta_t = (torch.sum(q_df[0], 0) + P.sum_ref_residual) * P.one_over_pbprime_df
+        dpprime_new = (q_df[0] - P.dpp_ref_df * eta_t[None]) / (1.0 + eta_t)[None]
+        with span("hnumo.bcl.faces"):
+            dpprime_faces_new = extract_qprime_faces(bc, torch.stack(
+                [dpprime_new, qprime_half[1], qprime_half[2]]))[0]
 
-    qprime_mom = torch.stack([0.5 * (qprime_df[0] + dpprime_new),
-                              qprime_half[1], qprime_half[2]])
-    fdp_half = type(qprime_faces[0])(*[
-        0.5 * (a + b) for a, b in zip(qprime_faces[0], dpprime_faces_new)])
-    qprime_faces_mom = (fdp_half, qprime_faces_half[1], qprime_faces_half[2])
+        qprime_mom = torch.stack([0.5 * (qprime_df[0] + dpprime_new),
+                                  qprime_half[1], qprime_half[2]])
+        fdp_half = type(qprime_faces[0])(*[
+            0.5 * (a + b) for a, b in zip(qprime_faces[0], dpprime_faces_new)])
+        qprime_faces_mom = (fdp_half, qprime_faces_half[1], qprime_faces_half[2])
 
-    q_df = _momentum_update(static, P, g, bc, avg, coup,
-                            q_df, qprime_mom, qprime_faces_mom, qb_new)
-    q_df, qprime_mom = evaluate_bcl_v1(P, q_df, qprime_mom, qb_new)
+        with span("hnumo.bcl.momentum"):
+            q_df = _momentum_update(static, P, g, bc, avg, coup,
+                                    q_df, qprime_mom, qprime_faces_mom, qb_new)
+        with span("hnumo.bcl.evaluate"):
+            q_df, qprime_mom = evaluate_bcl_v1(P, q_df, qprime_mom, qb_new)
 
-    qprime_out = torch.stack([dpprime_new, qprime_mom[1], qprime_mom[2]])
+        qprime_out = torch.stack([dpprime_new, qprime_mom[1], qprime_mom[2]])
+        t = state.t + static.dt
+        ok = torch.logical_and(state.ok, torch.logical_and(ok1, ok2))
 
-    return State(qb_df=qb_new, q_df=q_df, qprime_df=qprime_out,
-                 t=state.t + static.dt,
-                 ok=torch.logical_and(state.ok, torch.logical_and(ok1, ok2)))
+    return State(qb_df=qb_new, q_df=q_df, qprime_df=qprime_out, t=t, ok=ok)

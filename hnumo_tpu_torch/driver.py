@@ -30,6 +30,7 @@ import time as _time
 
 from .io import diagnostics as diag
 from .io import snapshots as snap
+from .spans import span
 
 
 class Runner:
@@ -51,17 +52,18 @@ class Runner:
         cfg = self.model.cfg
         if not cfg.dump_data:
             return
-        if cfg.out_type == "nc":
-            snap.write_nc(self.model, state, itime, outdir=self.outdir)
-        elif cfg.out_type == "vtk":
-            from .io.vtk import write_vtk
+        with span("hnumo.io.snapshot"):
+            if cfg.out_type == "nc":
+                snap.write_nc(self.model, state, itime, outdir=self.outdir)
+            elif cfg.out_type == "vtk":
+                from .io.vtk import write_vtk
 
-            write_vtk(self.model, state, itime, outdir=self.outdir,
-                      fmt=cfg.format_vtk)
-            # restart needs a readable prognostic snapshot alongside VTK
-            snap.write_txt(self.model, state, itime, outdir=self.outdir)
-        else:
-            snap.write_txt(self.model, state, itime, outdir=self.outdir)
+                write_vtk(self.model, state, itime, outdir=self.outdir,
+                          fmt=cfg.format_vtk)
+                # restart needs a readable prognostic snapshot alongside VTK
+                snap.write_txt(self.model, state, itime, outdir=self.outdir)
+            else:
+                snap.write_txt(self.model, state, itime, outdir=self.outdir)
 
     def run(self, state=None, quiet=False):
         """Step from `state` (default: the initial state, or the snapshot
@@ -104,36 +106,44 @@ class Runner:
                 state = m.step(state)
                 # forces sync, matching reference fail-stop (the flag is
                 # and-reduced over the blocks: every rank stops together)
-                if not bool(state.ok):
+                with span("hnumo.run.ok_read"):
+                    ok = bool(state.ok)
+                if not ok:
                     raise RuntimeError(
                         f"Negative mass in thickness (itime={itime}) — aborting, "
                         "as the reference does (src/mod_splitting.F90:74-77)")
                 self.rhs_time += _time.perf_counter() - t0
 
                 if itime % self.irestart == 0 or itime == self.ntime:
-                    whole = m.gather(state)
-                    if not writer:
-                        continue
-                    self._write_snapshot(whole, itime)
-                    s = diag.summary(m, whole, self.mass0)
-                    mass_log.write(f"{itime:8d} " +
-                                   " ".join(f"{v:24.16e}" for v in s["mass"]) + "\n")
-                    if cfg.lprint_diagnostics and not quiet:
-                        print(diag.print_summary(s, itime, cfg.dt, cfg.dt_btp_eff,
-                                                 cfg.time_scale))
+                    with span("hnumo.run.output"):
+                        with span("hnumo.run.gather"):
+                            whole = m.gather(state)
+                        if not writer:
+                            continue
+                        self._write_snapshot(whole, itime)
+                        with span("hnumo.io.diagnostics"):
+                            s = diag.summary(m, whole, self.mass0)
+                        with span("hnumo.run.mass_log"):
+                            mass_log.write(f"{itime:8d} " +
+                                           " ".join(f"{v:24.16e}" for v in s["mass"]) + "\n")
+                        if cfg.lprint_diagnostics and not quiet:
+                            print(diag.print_summary(s, itime, cfg.dt, cfg.dt_btp_eff,
+                                                     cfg.time_scale))
         finally:
             if mass_log is not None:
                 mass_log.close()
         wall = _time.perf_counter() - t_wall0
 
         # final summary + FIN file (reference print_diagnostics idone=1 path)
-        whole = m.gather(state)
-        if not writer:
-            return state, None
-        s = diag.summary(m, whole, self.mass0)
-        diag.write_fin(os.path.join(self.outdir, "mlswe_FIN.txt"), s)
-        with open(os.path.join(self.outdir, "time.csv"), "a") as f:
-            f.write(f"{self.rhs_time:.6f}, {wall:.6f}\n")
+        with span("hnumo.run.finish"):
+            whole = m.gather(state)
+            if not writer:
+                return state, None
+            with span("hnumo.io.diagnostics"):
+                s = diag.summary(m, whole, self.mass0)
+            diag.write_fin(os.path.join(self.outdir, "mlswe_FIN.txt"), s)
+            with open(os.path.join(self.outdir, "time.csv"), "a") as f:
+                f.write(f"{self.rhs_time:.6f}, {wall:.6f}\n")
         if not quiet:
             print(" **Simulation Finished**")
             print(f"steps={itime} wall={wall:.2f}s rhs_time={self.rhs_time:.2f}s")

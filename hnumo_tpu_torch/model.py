@@ -34,6 +34,7 @@ from .core.types import State
 from .mesh.grid import build_geometry
 from .ops.dg import device_geom
 from .ops.mega import build_mega_static
+from .spans import span
 
 
 def _set_full_precision():
@@ -320,19 +321,20 @@ class Model:
         return int(round((self.cfg.t_final - self.cfg.t_initial) / self.cfg.dt))
 
     def step(self, state: State) -> State:
-        with torch.no_grad():
-            out = (self._replay(state) if self.step_impl == "graph"
-                   else self._step_eager(state))
-        if self.cfg.debug_checks:
-            # debug mode: a per-step finite-value check, read back from the
-            # device after the step (the JAX package's, hnumo_tpu/model.py:186-200)
-            for name in ("qb_df", "q_df", "qprime_df"):
-                bad = int((~torch.isfinite(getattr(out, name))).sum())
-                if bad:
-                    raise FloatingPointError(
-                        f"debug_checks: {bad} non-finite values in {name} "
-                        f"at t={float(out.t)}")
-        return out
+        with span("hnumo.step"):
+            with torch.no_grad():
+                out = (self._replay(state) if self.step_impl == "graph"
+                       else self._step_eager(state))
+            if self.cfg.debug_checks:
+                # debug mode: a per-step finite-value check, read back from the
+                # device after the step (the JAX package's, hnumo_tpu/model.py:186-200)
+                for name in ("qb_df", "q_df", "qprime_df"):
+                    bad = int((~torch.isfinite(getattr(out, name))).sum())
+                    if bad:
+                        raise FloatingPointError(
+                            f"debug_checks: {bad} non-finite values in {name} "
+                            f"at t={float(out.t)}")
+            return out
 
     def _step_eager(self, state: State) -> State:
         return ti_rk_bcl(self.static, self.P, self.g, self.bc, state,
@@ -359,15 +361,19 @@ class Model:
             if self._graph is None:
                 self._capture(state)
             graph, inputs, outputs = self._graph
-            for name, dst, src in zip(State._fields, inputs, state):
-                if (src.shape, src.dtype, src.device) != (dst.shape, dst.dtype, dst.device):
-                    raise ValueError(
-                        f"state.{name} is {tuple(src.shape)} {src.dtype} on "
-                        f"{src.device}; the captured step takes "
-                        f"{tuple(dst.shape)} {dst.dtype} on {dst.device}")
-                dst.copy_(src)
-            graph.replay()
-            return State(*[t.clone() for t in outputs])
+            with span("hnumo.step.copy_in"):
+                for name, dst, src in zip(State._fields, inputs, state):
+                    if (src.shape, src.dtype, src.device) != (dst.shape, dst.dtype,
+                                                              dst.device):
+                        raise ValueError(
+                            f"state.{name} is {tuple(src.shape)} {src.dtype} on "
+                            f"{src.device}; the captured step takes "
+                            f"{tuple(dst.shape)} {dst.dtype} on {dst.device}")
+                    dst.copy_(src)
+            with span("hnumo.step.replay"):
+                graph.replay()
+            with span("hnumo.step.clone_out"):
+                return State(*[t.clone() for t in outputs])
 
     def run(self, state: State, nsteps: int, check_ok: bool = True) -> State:
         for _ in range(nsteps):

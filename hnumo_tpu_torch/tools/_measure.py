@@ -3,15 +3,20 @@ its state, the kernels its captured CUDA graph holds, the device time of
 one replay, the least time each kernel could take, and the card it ran on.
 
 Shared by hnumo_tpu_torch/tools/bench.py and chip_smoke.py (and the other
-tools of this package that name the card). Nothing here runs at import:
-torch is imported, and libcuda is opened only when a graph is read.
+tools of this package that name the card); `kernels_by_span` puts one
+eager step's device activities down to the port's spans (spans.py).
+Nothing here runs at import: torch is imported, and libcuda is opened only
+when a graph is read.
 """
 from __future__ import annotations
 
 import re
 import subprocess
+from collections import Counter
 
 import torch
+
+from .. import spans
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of `bound_ms`
 HBM_BYTES_PER_S = 3.35e12
@@ -86,7 +91,8 @@ def graph_kernels(graph) -> dict:
     """{kernel symbol (mangled): nodes} of a captured CUDA graph whose nodes
     were kept (torch.cuda.CUDAGraph(keep_graph=True); Model.keep_graph),
     read through the CUDA driver, child graphs included: what every replay
-    of it launches, whatever a profiler's trace records."""
+    of it launches, whatever a profiler's trace records. Its memcpy and
+    memset nodes count under "(memcpy)" and "(memset)"."""
     import ctypes
 
     cu = ctypes.CDLL("libcuda.so.1")
@@ -116,6 +122,9 @@ def graph_kernels(graph) -> dict:
                 child = ptr()
                 call("cuGraphChildGraphNodeGetGraph", node, out(child))
                 walk(child)
+            elif kind.value in (1, 2):            # CU_GRAPH_NODE_TYPE_MEMCPY, _MEMSET
+                key = "(memcpy)" if kind.value == 1 else "(memset)"
+                counts[key] = counts.get(key, 0) + 1
             elif kind.value == 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
                 params, name = KernelNodeParams(), ctypes.c_char_p()
                 call("cuGraphKernelNodeGetParams_v2", node, out(params))
@@ -128,6 +137,128 @@ def graph_kernels(graph) -> dict:
 
     walk(ptr(graph.raw_cuda_graph()))
     return counts
+
+
+def demangle(symbol: str) -> str:
+    """A kernel's mangled symbol as the profiler names it (the C++ ABI's
+    demangler, which Kineto calls); the symbol itself where it is not a
+    mangled C++ name."""
+    import ctypes
+
+    lib = ctypes.CDLL("libstdc++.so.6")
+    fn = lib.__cxa_demangle
+    fn.restype = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
+    status = ctypes.c_int(-1)
+    out = fn(symbol.encode(), None, None, ctypes.byref(status))
+    if status.value != 0 or not out:
+        return symbol
+    free = ctypes.CDLL(None).free
+    free.argtypes, free.restype = [ctypes.c_void_p], None
+    try:
+        return ctypes.string_at(out).decode()
+    finally:
+        free(out)
+
+
+# a device activity whose launch the trace does not hold
+NO_LAUNCH = "(no launch recorded)"
+# one whose launch ran outside every span
+OUTSIDE = "(outside every span)"
+
+
+def span_path(ranges, t: float) -> str | None:
+    """The path ("outer/inner/...") of the ranges [(name, start, end)] that
+    hold time `t`, outermost first; None where none does."""
+    held = sorted((r for r in ranges if r[1] <= t <= r[2]), key=lambda r: (r[1], -r[2]))
+    return "/".join(r[0] for r in held) or None
+
+
+def attribute(ranges, launches: dict, activities) -> dict:
+    """{span path: {"launches", "device_ms", "kernels": {name: count}}} of
+    the device `activities` [(name, start_s, end_s, correlation)], each put
+    down to the path of `ranges` [(name, start_s, end_s)] that holds its
+    launch's start (`launches`: {correlation: start_s}, the host calls that
+    enqueued them). Memory copies and fills count as launches of
+    "(memcpy)" and "(memset)"."""
+    out = {}
+    for name, s, e, corr in activities:
+        t = launches.get(corr)
+        key = NO_LAUNCH if t is None else (span_path(ranges, t) or OUTSIDE)
+        row = out.setdefault(key, {"launches": 0, "device_ms": 0.0, "kernels": Counter()})
+        row["launches"] += 1
+        row["device_ms"] += (e - s) * 1e3
+        row["kernels"][activity_name(name)] += 1
+    return {k: {**v, "kernels": dict(v["kernels"])} for k, v in sorted(out.items())}
+
+
+def activity_name(name: str) -> str:
+    """A device activity's name as `graph_kernels` names the graph node
+    that launches it."""
+    if name.startswith("Memcpy"):
+        return "(memcpy)"
+    if name.startswith("Memset"):
+        return "(memset)"
+    return name
+
+
+def _trace_records(prof):
+    """(hnumo ranges, {correlation: launch start}, device activities) of a
+    finished torch.profiler run, in seconds on the profiler's clock."""
+    from torch.autograd import DeviceType
+
+    ranges, launches, activities = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name, s = e.name(), e.start_ns() / 1e9
+        end = s + e.duration_ns() / 1e9
+        if e.device_type() == DeviceType.CPU:
+            if name.startswith(spans.PREFIX):
+                ranges.append((name, s, end))
+            elif name.startswith("cu"):          # a CUDA runtime or driver call
+                launches.setdefault(e.correlation_id(), s)
+        elif not (e.is_user_annotation() or name.startswith(spans.PREFIX) or "Sync" in name):
+            # a kernel, a memory copy or a fill: not a span's copy on the
+            # device's timeline, not a synchronization record
+            activities.append((name, s, end, e.correlation_id()))
+    return ranges, launches, activities
+
+
+def kernels_by_span(model, state) -> dict:
+    """The device activities of one eager step (`model._step_eager`) of a
+    graphed model that has captured its step with its nodes kept
+    (`Model.keep_graph`), by the span that launched each (`attribute`):
+    launches that no baroclinic span holds are the self time of
+    "hnumo.step". Once the capture's caches are filled, the eager step
+    launches what a replay launches, so the step's launches must be the
+    captured graph's kernel, memcpy and memset nodes, name for name (the
+    graph's symbols demangled as the profiler names kernels); else it
+    raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if model.step_impl != "graph" or model._graph is None:
+        raise ValueError("kernels_by_span takes a graphed model that has captured its step")
+    want = Counter()
+    for name, n in graph_kernels(model._graph[0]).items():
+        want[demangle(name)] += n
+    torch.cuda.synchronize(model.device)
+    with torch.no_grad(), torch.cuda.device(model.device):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with spans.span("hnumo.step"):
+                model._step_eager(state)
+            torch.cuda.synchronize(model.device)
+    table = attribute(*_trace_records(prof))
+    got = Counter()
+    for row in table.values():
+        got.update(row["kernels"])
+    if got != want:
+        extra, missing = got - want, want - got
+        raise AssertionError(
+            f"the eager step launched {sum(got.values())} activities, the captured graph "
+            f"holds {sum(want.values())} kernel, memcpy and memset nodes; the step's "
+            f"beyond the graph's: {dict(list(extra.items())[:5])}; the graph's beyond the "
+            f"step's: {dict(list(missing.items())[:5])}")
+    return table
 
 
 def graph_path_counts(nodes: dict) -> dict:

@@ -4,6 +4,7 @@
         [--repeats 5] [--variant default] [--f64] [--out FILE]
     python -m hnumo_tpu_torch.tools.bench --table [--grids 25 32 64 128 256 16:8 32:8] \
         [--variants NAME ...] [--steps 10] [--repeats 5] [--out FILE]
+    python -m hnumo_tpu_torch.tools.bench --spans ...  # and the step's launches by span
     python -m hnumo_tpu_torch.tools.bench --cpu ...   # eager on the CPU, for the tests
 
 The counterpart of the JAX package's bench.py (one grid, one JSON line of
@@ -63,9 +64,12 @@ nlayers * steps / wall, nq = 2p+1) from the median, the first step's
 seconds, the model's peak device memory, for each window the host's time
 in the step calls (the enqueue: a window whose steps the host cannot
 enqueue faster than the device runs them is host-bound) and the SM clock
-after it, and from one profiled replay the device busy ms, the idle share
-(1 - busy / median ms/step) and each kernel's device ms per launch beside
-its bound (tools/_measure.py).
+after it, and from one profiled replay the device busy ms and each
+kernel's device ms per launch beside its bound (tools/_measure.py). With
+--spans (on the card) each record also holds `kernels_by_span`: one eager
+step's device activities by the span of the port that launched them
+(_measure.kernels_by_span; the eager step's launches are held to the captured
+graph's nodes, name for name), and without --table its table goes to stderr.
 
 Without --table the tool works as bench.py: its last line on stdout is
 bench.py's four keys, `vs_baseline` against the same BASELINE_GPS (the JAX
@@ -95,8 +99,8 @@ import torch
 from hnumo_tpu_torch.config import Config
 from hnumo_tpu_torch.core.init import MEGA_AUTO_MAX_ELEMENTS, MEGA_MAX_NOP
 from hnumo_tpu_torch.tools._measure import (KERNEL_SYMBOLS, card, gates, graph_kernels,
-                                            graph_path_counts, path_bounds, replay_profile,
-                                            sm_clock_mhz)
+                                            graph_path_counts, kernels_by_span, path_bounds,
+                                            replay_profile, sm_clock_mhz)
 
 BASELINE_GPS = 28.4e3   # bench.py's: the JAX package's f64 single-core CPU rate
 
@@ -256,13 +260,18 @@ def _first_step(variant: str, cfg: Config, cuda: bool) -> dict:
                          if cuda else None)}
 
 
-def time_in_turns(runs, steps: int, repeats: int, cpu: bool = False) -> list[dict]:
+def time_in_turns(runs, steps: int, repeats: int, cpu: bool = False,
+                  spans: bool = False) -> list[dict]:
     """Each (variant, cfg) of `runs` built and stepped once (`_first_step`),
     then `repeats` windows of `steps` steps of each, in turns; then each
-    run's gates and one profiled replay. Returns a record per run. The
-    models are dropped before the return."""
+    run's gates and one profiled replay (with `spans`, one profiled eager
+    step by span too). Returns a record per run. The models are dropped
+    before the return."""
     if steps < 1 or repeats < 1:
         raise ValueError(f"steps and repeats must be positive, got {steps}, {repeats}")
+    if spans and cpu:
+        raise ValueError("--spans puts the card's activities down to the spans; "
+                         "it needs a CUDA device, not --cpu")
     cuda = not cpu
     built = [_first_step(variant, cfg, cuda) for variant, cfg in runs]
     windows, enqueue, clocks = ([[] for _ in built] for _ in range(3))
@@ -310,12 +319,13 @@ def time_in_turns(runs, steps: int, repeats: int, cpu: bool = False) -> list[dic
             rec.update({
                 "sm_mhz_windows": c, "replay_device_busy_ms": busy,
                 "replay_device_activities": prof["replay_device_activities"],
-                "device_idle_share": 1.0 - busy / ms,
                 "replay_kernels_traced": {k: n for k, n in traced.items() if n},
                 "kernel_ms_per_launch": {k: t / traced[k] for k, t
                                          in prof["replay_kernel_ms"].items() if traced[k]}})
+            if spans:
+                rec["kernels_by_span"] = kernels_by_span(m, s)
         else:
-            rec.update({"replay_device_busy_ms": None, "device_idle_share": None})
+            rec["replay_device_busy_ms"] = None
         records.append(rec)
         del m, s
     del built
@@ -323,6 +333,20 @@ def time_in_turns(runs, steps: int, repeats: int, cpu: bool = False) -> list[dic
         gc.collect()
         torch.cuda.empty_cache()
     return records
+
+
+def format_spans(table: dict) -> str:
+    """`kernels_by_span`'s table as lines: each span's launches and device
+    ms, and its most launched kernel."""
+    lines = [f"# {'span':<56} {'launches':>8} {'device ms':>10}  most launched"]
+    for path, row in table.items():
+        name, n = max(row["kernels"].items(), key=lambda kv: kv[1])
+        lines.append(f"# {path:<56} {row['launches']:>8d} {row['device_ms']:>10.4f}  "
+                     f"{n} x {name[:60]}")
+    total = sum(r["launches"] for r in table.values())
+    ms = sum(r["device_ms"] for r in table.values())
+    lines.append(f"# {'all':<56} {total:>8d} {ms:>10.4f}")
+    return "\n".join(lines)
 
 
 def _device(cpu: bool) -> dict:
@@ -355,6 +379,8 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", nargs="+", default=None,
                     help="--table's variants (default every one a grid's envelope admits)")
     ap.add_argument("--out", default=None, help="also append the JSON lines to this file")
+    ap.add_argument("--spans", action="store_true",
+                    help="also put one eager step's device activities down to the spans")
     args = ap.parse_args(argv)
     if not args.table and (args.grids or args.variants):
         raise ValueError("--grids and --variants go with --table; without it say "
@@ -368,8 +394,8 @@ def main(argv=None) -> int:
         cfg = variant_config(args.nel, args.nop, args.variant, dtype, nlayers=args.nlayers)
         load = host_load()
         rec = {**time_in_turns([(args.variant, cfg)], args.steps, args.repeats,
-                               args.cpu)[0], **_device(args.cpu), "host_load": load,
-               **versions}
+                               args.cpu, args.spans)[0], **_device(args.cpu),
+               "host_load": load, **versions}
         _append(args.out, [rec])
         gps = rec["gp_steps_per_s"]
         print(f"# device={'cpu' if args.cpu else 'gpu'} {rec['device']} | {rec['card']} "
@@ -380,6 +406,8 @@ def main(argv=None) -> int:
               f"(median of {args.repeats} x {args.steps} steps, spread "
               f"{rec['spread']:.3f}), first step (build, warm-up, capture) "
               f"{rec['first_step_s']:.1f} s, ok=True", file=sys.stderr)
+        if args.spans:
+            print(format_spans(rec["kernels_by_span"]), file=sys.stderr)
         print(json.dumps({
             "metric": "dg_gridpoint_steps_per_s",
             "value": round(gps, 1),
@@ -392,7 +420,8 @@ def main(argv=None) -> int:
         runs = [(v, variant_config(nel, nop, v, dtype, nlayers=args.nlayers)) for v in names]
         load = host_load()
         records = [{**r, **_device(args.cpu), "host_load": load, **versions}
-                   for r in time_in_turns(runs, args.steps, args.repeats, args.cpu)]
+                   for r in time_in_turns(runs, args.steps, args.repeats, args.cpu,
+                                          args.spans)]
         for r in records:
             print(json.dumps(r), flush=True)
         _append(args.out, records)

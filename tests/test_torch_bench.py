@@ -183,6 +183,7 @@ def test_each_variant_names_its_kernels(variant, nel, nop, want):
     (["--table", "--grids", "4:8", "--variants", "mega"], ValueError, "mega='on' is outside"),
     (["--grids", "4"], ValueError, "--table"),
     (["--steps", "0"], ValueError, "positive"),
+    (["--spans"], ValueError, "needs a CUDA device"),
 ])
 def test_what_the_tool_refuses(argv, exc, match):
     with pytest.raises(exc, match=match):

@@ -38,7 +38,8 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+hnumo_tpu(\s|\.|$
                                     "hnumo_tpu_torch.parallel.sharding",
                                     "hnumo_tpu_torch.parallel.launch",
                                     "hnumo_tpu_torch.basis.filter",
-                                    "hnumo_tpu_torch.mesh.flatfaces"])
+                                    "hnumo_tpu_torch.mesh.flatfaces",
+                                    "hnumo_tpu_torch.spans"])
 def test_import_pulls_in_no_jax(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
