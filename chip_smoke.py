@@ -5,8 +5,9 @@
                                             # chiprun_out/chip_smoke_profile.txt)
     python3 chip_smoke.py --log FILE  # the whole output (default chiprun_out/chip_smoke.log)
     python3 chip_smoke.py --decomposition-only  # phases 1-2 and 27-27d only
+    python3 chip_smoke.py --bcl-flux-only       # phases 1-2 and 31 only
 
-Builds the five CUDA kernels from the sources in this checkout (and, to be
+Builds the six CUDA kernels from the sources in this checkout (and, to be
 timed only, two ablated variants of each of the four streaming kernels: the
 two volume kernels, the face kernel and the update kernel, and four of the
 megakernel), holds each against its plain PyTorch version on the card (the
@@ -68,10 +69,17 @@ identity, and the geometry of the pinwheel and of a deformed 256x256 brick.
 Then the bench tool (30): hnumo_tpu_torch/tools/bench.py's graphed runs in
 turns, 32x32 p=4 on each of its paths and 16x16 p=8 per stage, uniform
 volume and fused, each held to its gates and its captured graph's kernels.
+Last the baroclinic layer-momentum face-flux kernel (31, ops/bcl_flux)
+against its plain version in f32 and f64 (the double gyre's 25x25 p=4 L=2
+on perturbed, sheared and stepped inputs, p=8, 1, 3, 5, 10 and 20 layers,
+x-periodic sides, copy and no-slip walls, each block of a 2x2 split), its time per
+launch beside its byte bound and the graphed plain version's, and the
+25x25 main path's step with it: 2 launches a step, 2 nodes in the
+captured graph, ms/step against the plain fluxes in turns.
 Any failure raises and the run exits non-zero; there is no CPU path.
 
 Output: one line per phase, then a `{"kernels": [...], "flatfaces_256": {...}}`
-line (five kernels; each entry that a phase from 22 on launched carries that
+line (six kernels; each entry that a phase from 22 on launched carries that
 phase's readings under a key of its own, phase 30's under "bench_30";
 phase 29's readings beside them:
 the flat faces are library calls, no kernel), the card's name and power
@@ -86,6 +94,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -1486,7 +1495,7 @@ def step_kernel_vs_plain(cfg, steps, tol, what):
 
     mk = Model(cfg, step_impl="eager")
     mp = Model(cfg, volume_impl="plain", mega_impl="plain", tail_impl="plain",
-               step_impl="eager")
+               flux_impl="plain", step_impl="eager")
     out = compare_states(mk.run(mk.state0, steps, check_ok=False),
                          mp.run(mp.state0, steps, check_ok=False), tol, what)
     torch.cuda.synchronize()
@@ -2683,6 +2692,272 @@ def split_probe():
     return {"library": lib, "whole": res, "by_function": rows}
 
 
+# ---- the baroclinic layer-momentum face fluxes (phase 31) ---------------------
+
+FLUX_SYMBOL = "bcl_flux_kernel"
+FLUX_OUTPUTS = ("SuL", "SuR", "SvL", "SvR")
+
+
+def flux_operands(m, inputs, seed):
+    """ops/bcl_flux's operands at this model's shapes: the face traces of the
+    primes of `inputs(m, seed)` and the face averages of one barotropic
+    solve from that state on the model's own path."""
+    from hnumo_tpu_torch.core.bcl import extract_qprime_faces
+    from hnumo_tpu_torch.core.btp import barotropic_solve
+
+    _, qb, qp, coup = inputs(m, seed)
+    _, avg = barotropic_solve(m.static, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
+                              mega_ops=m.mega_ops, tail_ops=m.tail_ops)
+    return (m.g.psiq, m.P.alpha, m.static.gravity, extract_qprime_faces(m.bc, qp),
+            avg.faces, m.P.faces)
+
+
+def block_flux_operands(m, ops, block):
+    """`ops` cut to one block ((py, px), (iy, ix)) of the grid, as a rank of
+    a decomposition holds them: the face tables of its own faces
+    (parallel/sharding.local_tables, walls where the block owns them), and
+    the traces and averages of those faces, which on a rank are the
+    exchanged ones."""
+    from hnumo_tpu_torch.core.faces import FaceLR
+    from hnumo_tpu_torch.core.types import Pair
+    from hnumo_tpu_torch.parallel.sharding import block_bounds, local_tables
+
+    (py, px), (iy, ix) = block
+    y0, y1 = block_bounds(m.cfg.nely, py, iy)
+    x0, x1 = block_bounds(m.cfg.nelx, px, ix)
+
+    def cut_x(t):
+        return t[..., y0:y1, x0:x1 + 1, :].contiguous()
+
+    def cut_y(t):
+        return t[..., y0:y1 + 1, x0:x1, :].contiguous()
+
+    psiq, alpha, grav, qpf, avg_faces, _ = ops
+    qpf = tuple(FaceLR(cut_x(f.xl), cut_x(f.xr), cut_y(f.yl), cut_y(f.yr)) for f in qpf)
+    avg = Pair(type(avg_faces.x)(*map(cut_x, avg_faces.x)),
+               type(avg_faces.y)(*map(cut_y, avg_faces.y)))
+    _, P_loc = local_tables(m.g, m.P, block)
+    return psiq, alpha, grav, qpf, avg, P_loc.faces
+
+
+def compare_fluxes(ops, tol, what):
+    """The kernel against the plain version on `ops`: every output within
+    tol * its max; returns (max err/scale, max abs err)."""
+    from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain
+
+    got = bcl_momentum_fluxes_cuda(*ops)
+    want = bcl_momentum_fluxes_plain(*ops)
+    torch.cuda.synchronize()
+    worst, worst_abs = 0.0, 0.0
+    for d, g_, w_ in zip("xy", got, want):
+        for name, a, b in zip(FLUX_OUTPUTS, g_, w_):
+            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{what}: {d}.{name}: shape {tuple(a.shape)} against "
+                                     f"{tuple(b.shape)}, or non-finite values")
+            scale, err = float(b.abs().max()), float((a - b).abs().max())
+            if not err <= tol * scale:
+                raise AssertionError(f"{what}: {d}.{name}: max|diff|={err:.3e} > "
+                                     f"{tol:g}*{scale:.3e}")
+            worst_abs = max(worst_abs, err)
+            worst = max(worst, err / scale if scale else 0.0)
+    return worst, worst_abs
+
+
+def flux_bound(ops) -> dict:
+    """The kernel's least time on the card: each operand read once and each
+    output written once over the HBM bandwidth (its flops, ~1 kflop a quad
+    point and layer, are far below the byte time at f32 peak)."""
+    from hnumo_tpu_torch.ops.bcl_flux import FACE_AVG, FACE_GEOM
+
+    psiq, alpha, _, qpf, avg_faces, geom_faces = ops
+    values = psiq.numel() + alpha.numel()
+    for d in "xy":
+        traces = [getattr(f, d + side) for f in qpf for side in "lr"]
+        values += sum(t.numel() for t in traces) + 4 * traces[0].numel()
+        values += sum(getattr(getattr(avg_faces, d), n).numel() for n in FACE_AVG)
+        values += sum(getattr(getattr(geom_faces, d), n).numel() for n in FACE_GEOM)
+    nbytes = values * psiq.element_size()
+    return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def time_fluxes(ops, n=400):
+    """Device ms of one kernel launch (launches back to back) and of one
+    replay of the plain version captured as a CUDA graph, as the graphed
+    step runs it."""
+    from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain
+
+    ms = time_launches(lambda *o: bcl_momentum_fluxes_cuda(*o), [ops], n, device_only=True)
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        bcl_momentum_fluxes_plain(*ops)
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bcl_momentum_fluxes_plain(*ops)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(20):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return {"ms": ms, "plain_ms_graphed": t0.elapsed_time(t1) / 20}
+
+
+def flux_graph_checks(cfg, steps=300):
+    """The main path's step with the kernel: an eager model's wrapper
+    launches 2 a step; the graphed step's captured nodes hold the kernel
+    exactly twice and the barotropic kernels as its path says; one replay's
+    device time of the kernel (torch.profiler); and ms/step of the graphed
+    step with the kernel against the step with the plain fluxes, in turns
+    (plain, kernel, kernel, plain) after one untimed step each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda as kf
+
+    me = Model(cfg, step_impl="eager")
+    before = kf.launches
+    me.run(me.state0, 3)
+    torch.cuda.synchronize()
+    eager = kf.launches - before
+    if eager != 6:
+        raise AssertionError(f"3 eager steps launched the flux kernel {eager} times, not 6")
+    del me
+    models = {}
+    for impl in ("plain", "kernel"):
+        m = Model(cfg, flux_impl=impl)
+        m.keep_graph = True
+        before = kf.launches
+        s = m.run(m.state0, 1)
+        torch.cuda.synchronize()
+        nodes = graph_kernels(m._graph[0])
+        flux_nodes = sum(v for k, v in nodes.items() if FLUX_SYMBOL in k)
+        want = 2 if impl == "kernel" else 0
+        if flux_nodes != want or kf.launches - before != 2 * want:
+            raise AssertionError(f"flux_impl={impl}: {flux_nodes} graph nodes of the kernel "
+                                 f"and {kf.launches - before} launches at capture, expected "
+                                 f"{want} and {2 * want}")
+        path = graph_path_counts(nodes)
+        if path != {k: path_launches_per_step(m).get(k, 0) for k in KERNEL_SYMBOLS}:
+            raise AssertionError(f"flux_impl={impl}: the graph launches {path} of the "
+                                 "barotropic kernels")
+        kernel_nodes = sum(v for k, v in nodes.items() if not k.startswith("("))
+        models[impl] = (m, s, kernel_nodes, nodes.get("(memcpy)", 0), flux_nodes)
+    ms = {"plain": [], "kernel": []}
+    for impl in ("plain", "kernel", "kernel", "plain"):
+        m, s = models[impl][:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = m.run(s, steps)
+        torch.cuda.synchronize()
+        ms[impl].append((time.perf_counter() - t0) / steps * 1e3)
+        gates(m, s)
+        models[impl] = (m, s) + models[impl][2:]
+    m, s = models["kernel"][:2]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        m.step(s)
+        torch.cuda.synchronize()
+    rows = [e for e in device_rows(prof) if FLUX_SYMBOL in e.key]
+    in_replay = sum(e.device_time_total for e in rows) / 1e3
+    count = sum(e.count for e in rows)
+    return {"eager_launches_per_step": eager / 3, "graph_flux_nodes": models["kernel"][4],
+            "graph_kernel_nodes": {k: v[2] for k, v in models.items()},
+            "graph_memcpy_nodes": {k: v[3] for k, v in models.items()},
+            "ms_per_step_turns": ms, "replay_launches": count,
+            "ms_per_launch_in_replay": in_replay / count if count else None}
+
+
+def check_bcl_flux(smi) -> dict:
+    """Phase 31: the layer-momentum face-flux kernel (ops/bcl_flux) against
+    its plain version, f32 and f64: the cell's 25x25 p=4 L=2 on perturbed,
+    sheared and stepped inputs; p=8; 1, 3, 5, 10 and 20 layers (the
+    register build and both local-memory ones); x-periodic sides; copy and
+    no-slip walls; each block of a 2x2 split of 8x6. Then its time per
+    launch beside its byte bound and the plain version's, and the main path's
+    graph with it."""
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.ops._build import library_path, resource_usage
+
+    usage = resource_usage("bcl_flux")
+    main = [u for u in usage if u.startswith(("f<5,9,4>", "d<5,9,4>"))]
+    if len(main) != 2 or not all(u.endswith(" 0 B spill stores, 0 B spill loads")
+                                 for u in main):
+        raise AssertionError(f"bcl_flux at <5,9,4> must build without a spill: {usage}")
+    # the register build holds the column in registers: no stack frame
+    # (ptxas -v, per instantiation by its mangled name)
+    frames = dict(re.findall(r"Function properties for (\S+)\s+(\d+) bytes stack frame",
+                             library_path("bcl_flux").with_suffix(".log").read_text()))
+    in_regs = {k: int(v) for k, v in frames.items() if "Li5ELi9ELi4E" in k}
+    if len(in_regs) != 2 or any(in_regs.values()):
+        raise AssertionError(f"bcl_flux at <5,9,4> must keep its column in registers, without "
+                             f"a stack frame: {frames}")
+    errs = {}
+    for dtype in ("float32", "float64"):
+        tol = F32_TOL if dtype == "float32" else F64_TOL
+        m25 = Model(main_path_config(25, dtype))
+        cases = [(f"25x25 {name}", m25, inputs) for name, inputs in (
+            ("perturbed", perturbed_inputs), ("sheared", sheared_inputs),
+            ("stepped", stepped_inputs))]
+        small = {"p=8": dict(nop=8), "L=1": dict(nlayers=1, test_case="lakeatrest"),
+                 "L=3": dict(nlayers=3, test_case="lakeatrest"),
+                 "L=5": dict(nlayers=5, test_case="lakeatrest"),
+                 "L=10": dict(nlayers=10, test_case="lakeatrest"),
+                 "L=20": dict(nlayers=20, test_case="lakeatrest"),
+                 "x-periodic L=5": dict(walls=((3, 3), (4, 4)), nlayers=5,
+                                        test_case="lakeatrest"),
+                 "x-periodic": dict(walls=((3, 3), (4, 4))),
+                 "x-periodic L=3": dict(walls=((3, 3), (4, 4)), nlayers=3,
+                                        test_case="lakeatrest"),
+                 "copy and no-slip walls": dict(walls=OTHER_WALLS)}
+        for name, over in small.items():
+            cases.append((f"7x5 {name}", Model(small_config(7, 5, dtype, 1, **over)),
+                          perturbed_inputs))
+        for what, m, inputs in cases:
+            ops = flux_operands(m, inputs, seed=31)
+            errs[f"{dtype} {what}"] = compare_fluxes(ops, tol, f"{dtype} {what}")
+        m86 = Model(small_config(8, 6, dtype, 1, walls=OTHER_WALLS))
+        ops = flux_operands(m86, sheared_inputs, seed=32)
+        for iy in range(2):
+            for ix in range(2):
+                what = f"{dtype} 8x6 block ({iy},{ix}) of 2x2"
+                errs[what] = compare_fluxes(block_flux_operands(m86, ops, ((2, 2), (iy, ix))),
+                                            tol, what)
+        del m25, m86
+    worst = {dt: max(e[0] for k, e in errs.items() if k.startswith(dt))
+             for dt in ("float32", "float64")}
+    print(f"phase 31 bcl_flux kernel vs plain ({len(errs)} cases: 25x25 p=4 L=2 perturbed, "
+          f"sheared, stepped; 7x5 p=8, L=1, 3, 5, 10, 20, x-periodic (L=2, 3, 5), copy/no-slip "
+          f"walls; the four blocks of 8x6 split 2x2), max err/scale f32 / f64 (tol {F32_TOL:g} / "
+          f"{F64_TOL:g}): {worst['float32']:.3e} / {worst['float64']:.3e}")
+    cfg = main_path_config(25, "float32")
+    m = Model(cfg)
+    ops = flux_operands(m, stepped_inputs, seed=33)
+    t = time_fluxes(ops)
+    b = flux_bound(ops)
+    print(f"phase 31 bcl_flux 25x25 f32: {t['ms'] * 1e3:.2f} us/launch on the device, bound "
+          f"{b['bound_ms'] * 1e3:.3f} us by bytes ({b['bytes']} B); the plain version "
+          f"graphed {t['plain_ms_graphed']:.4f} ms/call")
+    g = flux_graph_checks(cfg)
+    print(f"phase 31 main path 25x25 f32: {g['eager_launches_per_step']:g} launches a step "
+          f"eager, {g['graph_flux_nodes']} nodes of {FLUX_SYMBOL} in the captured graph; "
+          f"kernel nodes a step plain / kernel fluxes {g['graph_kernel_nodes']['plain']} / "
+          f"{g['graph_kernel_nodes']['kernel']}; ms/step in turns {g['ms_per_step_turns']}; "
+          f"in a profiled replay {g['replay_launches']} launches, "
+          f"{g['ms_per_launch_in_replay']} ms each | {smi}")
+    return {"name": "bcl_flux", "route": "cuda", "source": "hnumo_tpu_torch/ops/csrc/bcl_flux.cu",
+            "replaces": None, "ptxas": usage, "stack_frame_bytes": frames,
+            "max_err_over_scale": {k: e[0] for k, e in errs.items()},
+            "max_abs_err": {k: e[1] for k, e in errs.items()},
+            "tolerance_over_scale": {"float32": F32_TOL, "float64": F64_TOL},
+            "ms_25": t["ms"], "plain_ms_graphed_25": t["plain_ms_graphed"], **b,
+            "library_ms": None, "main_path_25": g, "card": smi}
+
+
 # ---- the bench tool (phase 30) -------------------------------------------------
 # (elements a side, nop), variants: hnumo_tpu_torch/tools/bench.py's runs at
 # the megakernel's size (every path of p=4) and at p=8 (no megakernel there)
@@ -2909,6 +3184,10 @@ def main() -> int:
                          "phases 27-27d, or those named (27c takes 27 with it; 27b "
                          "needs 2 GPUs, 27d 4); their readings to "
                          "chiprun_out/decomposition.json")
+    ap.add_argument("--bcl-flux-only", action="store_true",
+                    help="only phases 1-2 and 31 (the baroclinic face-flux kernel against "
+                         "its plain version, its time, the main path's graph with it); its "
+                         "readings to chiprun_out/bcl_flux.json")
     args = ap.parse_args()
     pathlib.Path(args.log).parent.mkdir(parents=True, exist_ok=True)
     OUT_DIR.mkdir(exist_ok=True)   # the readings' files, wherever the log goes
@@ -2934,7 +3213,8 @@ def main() -> int:
 
     # ---- phase 2: build (one nvcc per source, side by side) -----------------
     t0 = time.perf_counter()
-    sources = ["btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update"]
+    sources = ["btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update",
+               "bcl_flux"]
     build_libraries(sources)
     for name in sources:
         load_library(name)
@@ -2953,6 +3233,13 @@ def main() -> int:
         readings = dict(zip(DECOMP_PHASES, decomposition_phases(
             smi, args.decomposition_only or DECOMP_PHASES)))
         (OUT_DIR / "decomposition.json").write_text(json.dumps(readings, default=str))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if args.bcl_flux_only:
+        flux = check_bcl_flux(smi)
+        (OUT_DIR / "bcl_flux.json").write_text(json.dumps(flux, default=str))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -3798,6 +4085,7 @@ def main() -> int:
             "mass_drift": sb["botfr2_mega_32"]["run"]["mass_drift"],
             "step_err_f64_vs_per_stage": sb["botfr2_vs_per_stage_f64"]["mega"]},
     }] + fused_entries
+    kernels.append(check_bcl_flux(smi))      # phase 31
     for entry in kernels:      # phase 30's runs that launched the kernel
         entry["bench_30"] = {
             f"{r['nel'][0]}x{r['nel'][1]} p={r['nop']} {r['variant']}": {

@@ -31,6 +31,7 @@ GRAVITY_DEFAULT = 9.806
 VOLUME_IMPLS = ("kernel", "plain")
 MEGA_IMPLS = ("kernel", "plain")
 TAIL_IMPLS = ("kernel", "plain")
+FLUX_IMPLS = ("kernel", "plain")
 # "auto" dispatches the megakernel up to this many elements. The number is
 # the JAX package's (there a fast-memory cap of its kernel); it is kept so
 # that both packages take the same path at the same size.
@@ -52,13 +53,14 @@ class StaticConfig:
     for and the size allows it; `mega` adds the envelope), `fused_tail_on`,
     `uni_volume_on` and `batched_faces_on` (asked for, or for the flat face
     axis the size allows it; `fused_tail`, `uni_volume` and `batched_faces`
-    add the envelopes) and three implementation switches: `volume_impl` ("kernel"
+    add the envelopes) and four implementation switches: `volume_impl` ("kernel"
     runs the barotropic volume stage — the general one of the per-stage
     path, ops/btp_volume, and the uniform-geometry one, ops/btp_volume_uni —
     through its CUDA kernel, "plain" through its plain PyTorch version),
     `mega_impl` (the same choice for ops/mega.barotropic_solve_mega_cuda /
-    _plain) and `tail_impl` (for the face and update kernels of the fused
-    path, ops/btp_tail, together)."""
+    _plain), `tail_impl` (for the face and update kernels of the fused
+    path, ops/btp_tail, together) and `flux_impl` (the baroclinic layer-momentum
+    face fluxes, ops/bcl_flux.bcl_momentum_fluxes_cuda / _plain)."""
 
     nlayers: int
     kstages: int
@@ -89,6 +91,7 @@ class StaticConfig:
     uni_volume_on: bool = False   # opt-in uniform-geometry volume kernel
     batched_faces_on: bool = False  # both face directions on one flat axis
     tail_impl: str = "plain"      # "kernel" | "plain"
+    flux_impl: str = "plain"      # "kernel" | "plain"
     # SSPRK tables (reference src/mod_initial_mlswe.F90:582-681; the LSRK
     # ones under lsrk and lsrk_ref, column 0 the A and beta the B
     # coefficients) as Python floats rounded to the compute dtype — the
@@ -108,6 +111,9 @@ class StaticConfig:
         if self.tail_impl not in TAIL_IMPLS:
             raise ValueError(
                 f"tail_impl must be one of {TAIL_IMPLS}, got {self.tail_impl!r}")
+        if self.flux_impl not in FLUX_IMPLS:
+            raise ValueError(
+                f"flux_impl must be one of {FLUX_IMPLS}, got {self.flux_impl!r}")
 
     @property
     def mega_envelope(self) -> bool:
@@ -351,7 +357,7 @@ def static_for_blocks(static: StaticConfig, cfg: Config, nblocks: int) -> Static
 
 def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
                       volume_impl: str = "plain", mega_impl: str = "plain",
-                      tail_impl: str = "plain", zbot_ext=None
+                      tail_impl: str = "plain", flux_impl: str = "plain", zbot_ext=None
                       ) -> tuple[Precomputed, State, StaticConfig, InitialFields]:
     """Build all static tables + initial state as tensors on `device`."""
     check_ported(cfg)
@@ -361,7 +367,9 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
     L = cfg.nlayers
 
     def cast(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        # contiguous whatever the host array's layout (a mesh read from a
+        # file gives transposed face tables): the kernels take them so
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
     def n2q(u):  # nodal -> quad interp, host side
         return np.einsum("...ji,jJ,iI->...JI", u, geom.psiq, geom.psiq, optimize=True)
@@ -668,6 +676,7 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
                           or (cfg.batched_faces == "auto"
                               and cfg.nelx * cfg.nely <= BATCHED_FACES_AUTO_MAX_ELEMENTS)),
         tail_impl=tail_impl,
+        flux_impl=flux_impl,
         ssprk_a=tuple(map(tuple, P.ssprk_a.tolist())),
         ssprk_beta=tuple(P.ssprk_beta.tolist()),
     )

@@ -27,11 +27,12 @@ import torch
 from .config import Config
 from .core.btp import build_fused_operators, build_vol_operators
 from .core.faces import BCs
-from .core.init import (MEGA_IMPLS, TAIL_IMPLS, VOLUME_IMPLS, build_precomputed,
+from .core.init import (FLUX_IMPLS, MEGA_IMPLS, TAIL_IMPLS, VOLUME_IMPLS, build_precomputed,
                         check_ported, static_for_blocks)
 from .core.stepper import ti_rk_bcl
 from .core.types import State
 from .mesh.grid import build_geometry
+from .ops._build import build_libraries
 from .ops.dg import device_geom
 from .ops.mega import build_mega_static
 from .spans import span
@@ -81,6 +82,21 @@ def _resolve_impl(name: str, impl, allowed, device: torch.device) -> str:
             f"{name}={impl!r} needs a CUDA device, got {device}; it has no "
             f"CPU form (use {name}={anywhere!r})")
     return impl
+
+
+def kernel_sources(static) -> list[str]:
+    """The sources of ops/csrc/ whose kernels a step on `static`'s path
+    launches: the barotropic path's, as core/btp.barotropic_solve picks them,
+    and the baroclinic face fluxes', each where its switch is "kernel"."""
+    if static.mega:
+        impls = {"btp_mega": static.mega_impl}
+    elif static.fused_tail:
+        impls = {"btp_volume_uni": static.volume_impl, "btp_faces": static.tail_impl,
+                 "btp_update": static.tail_impl}
+    else:
+        impls = {"btp_volume_uni" if static.uni_volume else "btp_volume": static.volume_impl}
+    impls["bcl_flux"] = static.flux_impl
+    return [name for name, impl in impls.items() if impl == "kernel"]
 
 
 def resolve_step_impl(step_impl, decomp, device: torch.device) -> str:
@@ -145,12 +161,13 @@ class Model:
 
     def __init__(self, cfg: Config, device=None, volume_impl: str | None = None,
                  mega_impl: str | None = None, tail_impl: str | None = None,
-                 step_impl: str | None = None, decomp=None):
+                 step_impl: str | None = None, decomp=None, flux_impl: str | None = None):
         """`device`: None = the CUDA device (raises without one), or any
         torch device; the tests pass "cpu". `volume_impl` / `mega_impl` /
-        `tail_impl`: "kernel" (the CUDA kernel of the volume stage — general
-        or uniform-geometry — / of the whole-solve megakernel / of the face
-        and update stages of the fused path; default on CUDA) or "plain"
+        `tail_impl` / `flux_impl`: "kernel" (the CUDA kernel of the volume
+        stage — general or uniform-geometry — / of the whole-solve megakernel
+        / of the face and update stages of the fused path / of the baroclinic
+        layer-momentum face fluxes; default on CUDA) or "plain"
         (its plain PyTorch version; default on the CPU). Which barotropic
         path runs is `cfg.mega`, then `cfg.fused_tail` (see
         StaticConfig.mega, .fused_tail, .uni_volume; the per-stage path's
@@ -175,6 +192,7 @@ class Model:
                                     self.device)
         mega_impl = _resolve_impl("mega_impl", mega_impl, MEGA_IMPLS, self.device)
         tail_impl = _resolve_impl("tail_impl", tail_impl, TAIL_IMPLS, self.device)
+        flux_impl = _resolve_impl("flux_impl", flux_impl, FLUX_IMPLS, self.device)
         self.step_impl = resolve_step_impl(step_impl, decomp, self.device)
         _set_full_precision()
         check_ported(cfg)
@@ -210,13 +228,18 @@ class Model:
         self.bc = BCs(*bc)
         self.P, self._state0, self.static, self.init_fields = build_precomputed(
             cfg, self.geom, self.dtype, self.device, volume_impl=volume_impl,
-            mega_impl=mega_impl, tail_impl=tail_impl, zbot_ext=zbot_ext)
+            mega_impl=mega_impl, tail_impl=tail_impl, flux_impl=flux_impl,
+            zbot_ext=zbot_ext)
         # the element whose metric the uniform operators fold (None: the
         # first of `self.g`; a block takes the whole grid's first)
         self._cell = None
         if decomp is not None:
             self._to_block(decomp)
         self._build_operators()
+        if self.device.type == "cuda":
+            # the step's kernels, compiled side by side now rather than one
+            # after another at each wrapper's first launch
+            build_libraries(kernel_sources(self.static))
 
     def _to_block(self, decomp):
         """Cut the whole grid's tables and initial state to this process's
@@ -257,14 +280,16 @@ class Model:
                     volume_impl: str | None = None,
                     mega_impl: str | None = None,
                     tail_impl: str | None = None,
-                    step_impl: str | None = None, decomp=None) -> "Model":
+                    step_impl: str | None = None, decomp=None,
+                    flux_impl: str | None = None) -> "Model":
         """A model stepping on given tables (see convert.from_numpy_tables,
         and convert.block_from_numpy for a block of a decomposition) in place
         of the ones its own build_precomputed makes — the static parameters
         still come from `cfg`. Lets a test hold the stepping code against
         another implementation on identical tables."""
         m = cls(cfg, device=device, volume_impl=volume_impl, mega_impl=mega_impl,
-                tail_impl=tail_impl, step_impl=step_impl, decomp=decomp)
+                tail_impl=tail_impl, step_impl=step_impl, decomp=decomp,
+                flux_impl=flux_impl)
         want = (m.dtype, m.device)
         for t in (P.pbprime, g.wjac, state0.qb_df):
             if (t.dtype, t.device) != want:

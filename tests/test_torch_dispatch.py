@@ -273,7 +273,8 @@ def test_brick_grids_count_as_uniform_at_every_size(nel):
 
 # ---- the builder of the CUDA sources, driven with a stand-in compiler --------
 
-PORT_SOURCES = ("btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update")
+PORT_SOURCES = ("btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update",
+                "bcl_flux")
 
 _FAKE_NVCC = """#!/bin/sh
 # stand-in for nvcc: writes the output file named after -o, talks like ptxas -v
@@ -428,7 +429,7 @@ def test_build_libraries_builds_the_five_sources_side_by_side(fake_toolchain):
     b = fake_toolchain
     b.build_libraries(PORT_SOURCES)
     libs = {b.library_path(name) for name in PORT_SOURCES}
-    assert len(libs) == 5 and all(p.read_text() == "built\n" for p in libs)
+    assert len(libs) == len(PORT_SOURCES) and all(p.read_text() == "built\n" for p in libs)
     for name in PORT_SOURCES:
         assert b.compile_command(name, b.library_path(name))[-1].endswith(f"{name}.cu")
 

@@ -57,7 +57,8 @@ def test_device_geom_and_state0(pair):
 def test_static_shared_fields(pair):
     _, jm, tm = pair
     for f in dataclasses.fields(StaticConfig):
-        if f.name in ("volume_impl", "mega_impl", "tail_impl"):   # the port's own switches
+        # the port's own switches
+        if f.name in ("volume_impl", "mega_impl", "tail_impl", "flux_impl"):
             continue
         if f.name in ("ssprk_a", "ssprk_beta"):   # the port's host copies of P's tables
             assert np.array_equal(getattr(tm.static, f.name),
@@ -65,7 +66,7 @@ def test_static_shared_fields(pair):
             continue
         assert getattr(tm.static, f.name) == getattr(jm.static, f.name), f.name
     assert tm.static.volume_impl == "plain" and tm.static.mega_impl == "plain"
-    assert tm.static.tail_impl == "plain"
+    assert tm.static.tail_impl == tm.static.flux_impl == "plain"
     assert tm.static.mega == jm.static.mega
 
 
