@@ -5,9 +5,9 @@
                                             # chiprun_out/chip_smoke_profile.txt)
     python3 chip_smoke.py --log FILE  # the whole output (default chiprun_out/chip_smoke.log)
     python3 chip_smoke.py --decomposition-only  # phases 1-2 and 27-27d only
-    python3 chip_smoke.py --bcl-flux-only       # phases 1-2 and 31 only
+    python3 chip_smoke.py --bcl-only            # phases 1-2, 31 and 32 only
 
-Builds the six CUDA kernels from the sources in this checkout (and, to be
+Builds the eight CUDA kernels from the sources in this checkout (and, to be
 timed only, two ablated variants of each of the four streaming kernels: the
 two volume kernels, the face kernel and the update kernel, and four of the
 megakernel), holds each against its plain PyTorch version on the card (the
@@ -75,11 +75,16 @@ on perturbed, sheared and stepped inputs, p=8, 1, 3, 5, 10 and 20 layers,
 x-periodic sides, copy and no-slip walls, each block of a 2x2 split), its time per
 launch beside its byte bound and the graphed plain version's, and the
 25x25 main path's step with it: 2 launches a step, 2 nodes in the
-captured graph, ms/step against the plain fluxes in turns.
+captured graph, ms/step against the plain fluxes in turns. Then the
+layer-momentum volume-term and nodal-viscosity kernels (32, ops/bcl_mom_volume,
+ops/bcl_visc) against their plain versions on phase 31's cases, p=4 with
+inexact integration and the reference's stress slip, their times per launch
+beside their byte bounds, and the main path with them: 2 launches and 2
+graph nodes of each a step.
 Any failure raises and the run exits non-zero; there is no CPU path.
 
 Output: one line per phase, then a `{"kernels": [...], "flatfaces_256": {...}}`
-line (six kernels; each entry that a phase from 22 on launched carries that
+line (eight kernels; each entry that a phase from 22 on launched carries that
 phase's readings under a key of its own, phase 30's under "bench_30";
 phase 29's readings beside them:
 the flat faces are library calls, no kernel), the card's name and power
@@ -2695,6 +2700,19 @@ def split_probe():
 # ---- the baroclinic layer-momentum face fluxes (phase 31) ---------------------
 
 FLUX_SYMBOL = "bcl_flux_kernel"
+# the baroclinic layer-momentum kernels (phases 31 and 32), by source
+BCL_SYMBOLS = {"bcl_flux": FLUX_SYMBOL, "bcl_mom_volume": "bcl_mom_volume_kernel",
+               "bcl_visc": "bcl_visc_kernel"}
+
+
+def bcl_wrappers():
+    """{source: its CUDA wrapper, whose `launches` counts the launches made}."""
+    from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda
+    from hnumo_tpu_torch.ops.bcl_mom_volume import bcl_mom_volume_cuda
+    from hnumo_tpu_torch.ops.bcl_visc import bcl_visc_cuda
+
+    return {"bcl_flux": bcl_momentum_fluxes_cuda, "bcl_mom_volume": bcl_mom_volume_cuda,
+            "bcl_visc": bcl_visc_cuda}
 FLUX_OUTPUTS = ("SuL", "SuR", "SvL", "SvR")
 
 
@@ -2780,22 +2798,20 @@ def flux_bound(ops) -> dict:
     return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
-def time_fluxes(ops, n=400):
+def time_vs_plain(cuda_fn, plain_fn, ops, n=400):
     """Device ms of one kernel launch (launches back to back) and of one
     replay of the plain version captured as a CUDA graph, as the graphed
     step runs it."""
-    from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain
-
-    ms = time_launches(lambda *o: bcl_momentum_fluxes_cuda(*o), [ops], n, device_only=True)
+    ms = time_launches(cuda_fn, [ops], n, device_only=True)
     cur = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(cur)
     with torch.cuda.stream(side):
-        bcl_momentum_fluxes_plain(*ops)
+        plain_fn(*ops)
     cur.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        bcl_momentum_fluxes_plain(*ops)
+        plain_fn(*ops)
     graph.replay()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2807,46 +2823,52 @@ def time_fluxes(ops, n=400):
     return {"ms": ms, "plain_ms_graphed": t0.elapsed_time(t1) / 20}
 
 
-def flux_graph_checks(cfg, steps=300):
-    """The main path's step with the kernel: an eager model's wrapper
-    launches 2 a step; the graphed step's captured nodes hold the kernel
-    exactly twice and the barotropic kernels as its path says; one replay's
-    device time of the kernel (torch.profiler); and ms/step of the graphed
-    step with the kernel against the step with the plain fluxes, in turns
-    (plain, kernel, kernel, plain) after one untimed step each."""
+def bcl_graph_checks(cfg, steps=300):
+    """The main path's step with the baroclinic layer-momentum kernels
+    (BCL_SYMBOLS: face fluxes, volume term, nodal viscosity): an eager
+    model's wrappers launch each 2 a step; the graphed step's captured nodes
+    hold each exactly twice under flux_impl="kernel" and none under "plain",
+    and the barotropic kernels as its path says; one replay's device time of
+    each (torch.profiler); and ms/step of the graphed step with the kernels
+    against the step with the plain versions, in turns (plain, kernel,
+    kernel, plain) after one untimed step each."""
     from torch.profiler import ProfilerActivity, profile
 
     from hnumo_tpu_torch.model import Model
-    from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda as kf
 
+    wrappers = bcl_wrappers()
     me = Model(cfg, step_impl="eager")
-    before = kf.launches
+    before = {k: w.launches for k, w in wrappers.items()}
     me.run(me.state0, 3)
     torch.cuda.synchronize()
-    eager = kf.launches - before
-    if eager != 6:
-        raise AssertionError(f"3 eager steps launched the flux kernel {eager} times, not 6")
+    eager = {k: w.launches - before[k] for k, w in wrappers.items()}
+    if any(v != 6 for v in eager.values()):
+        raise AssertionError(f"3 eager steps launched the baroclinic kernels {eager} times, "
+                             "not 6 each")
     del me
-    models = {}
+    models, in_graph = {}, {}
     for impl in ("plain", "kernel"):
         m = Model(cfg, flux_impl=impl)
         m.keep_graph = True
-        before = kf.launches
+        before = {k: w.launches for k, w in wrappers.items()}
         s = m.run(m.state0, 1)
         torch.cuda.synchronize()
         nodes = graph_kernels(m._graph[0])
-        flux_nodes = sum(v for k, v in nodes.items() if FLUX_SYMBOL in k)
         want = 2 if impl == "kernel" else 0
-        if flux_nodes != want or kf.launches - before != 2 * want:
-            raise AssertionError(f"flux_impl={impl}: {flux_nodes} graph nodes of the kernel "
-                                 f"and {kf.launches - before} launches at capture, expected "
-                                 f"{want} and {2 * want}")
+        for name, sym in BCL_SYMBOLS.items():
+            n = sum(v for k, v in nodes.items() if sym in k)
+            made = wrappers[name].launches - before[name]
+            if n != want or made != 2 * want:
+                raise AssertionError(f"flux_impl={impl}: {n} graph nodes of {sym} and {made} "
+                                     f"launches at capture, expected {want} and {2 * want}")
+            if impl == "kernel":
+                in_graph[name] = n
         path = graph_path_counts(nodes)
         if path != {k: path_launches_per_step(m).get(k, 0) for k in KERNEL_SYMBOLS}:
             raise AssertionError(f"flux_impl={impl}: the graph launches {path} of the "
                                  "barotropic kernels")
         kernel_nodes = sum(v for k, v in nodes.items() if not k.startswith("("))
-        models[impl] = (m, s, kernel_nodes, nodes.get("(memcpy)", 0), flux_nodes)
+        models[impl] = (m, s, kernel_nodes, nodes.get("(memcpy)", 0))
     ms = {"plain": [], "kernel": []}
     for impl in ("plain", "kernel", "kernel", "plain"):
         m, s = models[impl][:2]
@@ -2862,14 +2884,20 @@ def flux_graph_checks(cfg, steps=300):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         m.step(s)
         torch.cuda.synchronize()
-    rows = [e for e in device_rows(prof) if FLUX_SYMBOL in e.key]
-    in_replay = sum(e.device_time_total for e in rows) / 1e3
-    count = sum(e.count for e in rows)
-    return {"eager_launches_per_step": eager / 3, "graph_flux_nodes": models["kernel"][4],
+    rows = device_rows(prof)
+    kernels = {}
+    for name, sym in BCL_SYMBOLS.items():
+        mine = [e for e in rows if sym in e.key]
+        count = sum(e.count for e in mine)
+        kernels[name] = {
+            "eager_launches_per_step": eager[name] / 3, "graph_nodes": in_graph[name],
+            "replay_launches": count,
+            "ms_per_launch_in_replay": (sum(e.device_time_total for e in mine) / 1e3 / count
+                                        if count else None)}
+    return {"kernels": kernels,
             "graph_kernel_nodes": {k: v[2] for k, v in models.items()},
             "graph_memcpy_nodes": {k: v[3] for k, v in models.items()},
-            "ms_per_step_turns": ms, "replay_launches": count,
-            "ms_per_launch_in_replay": in_replay / count if count else None}
+            "ms_per_step_turns": ms}
 
 
 def check_bcl_flux(smi) -> dict:
@@ -2882,6 +2910,7 @@ def check_bcl_flux(smi) -> dict:
     graph with it."""
     from hnumo_tpu_torch.model import Model
     from hnumo_tpu_torch.ops._build import library_path, resource_usage
+    from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain
 
     usage = resource_usage("bcl_flux")
     main = [u for u in usage if u.startswith(("f<5,9,4>", "d<5,9,4>"))]
@@ -2937,18 +2966,19 @@ def check_bcl_flux(smi) -> dict:
     cfg = main_path_config(25, "float32")
     m = Model(cfg)
     ops = flux_operands(m, stepped_inputs, seed=33)
-    t = time_fluxes(ops)
+    t = time_vs_plain(bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain, ops)
     b = flux_bound(ops)
     print(f"phase 31 bcl_flux 25x25 f32: {t['ms'] * 1e3:.2f} us/launch on the device, bound "
           f"{b['bound_ms'] * 1e3:.3f} us by bytes ({b['bytes']} B); the plain version "
           f"graphed {t['plain_ms_graphed']:.4f} ms/call")
-    g = flux_graph_checks(cfg)
-    print(f"phase 31 main path 25x25 f32: {g['eager_launches_per_step']:g} launches a step "
-          f"eager, {g['graph_flux_nodes']} nodes of {FLUX_SYMBOL} in the captured graph; "
-          f"kernel nodes a step plain / kernel fluxes {g['graph_kernel_nodes']['plain']} / "
-          f"{g['graph_kernel_nodes']['kernel']}; ms/step in turns {g['ms_per_step_turns']}; "
-          f"in a profiled replay {g['replay_launches']} launches, "
-          f"{g['ms_per_launch_in_replay']} ms each | {smi}")
+    g = bcl_graph_checks(cfg)
+    k = g["kernels"]["bcl_flux"]
+    print(f"phase 31 main path 25x25 f32: {k['eager_launches_per_step']:g} launches a step "
+          f"eager, {k['graph_nodes']} nodes of {FLUX_SYMBOL} in the captured graph; "
+          f"kernel nodes a step plain / kernel baroclinic momentum "
+          f"{g['graph_kernel_nodes']['plain']} / {g['graph_kernel_nodes']['kernel']}; ms/step "
+          f"in turns {g['ms_per_step_turns']}; in a profiled replay {k['replay_launches']} "
+          f"launches, {k['ms_per_launch_in_replay']} ms each | {smi}")
     return {"name": "bcl_flux", "route": "cuda", "source": "hnumo_tpu_torch/ops/csrc/bcl_flux.cu",
             "replaces": None, "ptxas": usage, "stack_frame_bytes": frames,
             "max_err_over_scale": {k: e[0] for k, e in errs.items()},
@@ -2956,6 +2986,221 @@ def check_bcl_flux(smi) -> dict:
             "tolerance_over_scale": {"float32": F32_TOL, "float64": F64_TOL},
             "ms_25": t["ms"], "plain_ms_graphed_25": t["plain_ms_graphed"], **b,
             "library_ms": None, "main_path_25": g, "card": smi}
+
+
+# ---- the baroclinic layer-momentum volume term and viscosity (phase 32) -------
+
+def momentum_operands(m, inputs, seed):
+    """The operands of ops/bcl_mom_volume ((static, P, g, avg, qprime_df,
+    q_df)) and of ops/bcl_visc ((static, P, g, bc, coup, avg)) at this
+    model's shapes: the primes and coupling of `inputs(m, seed)`, the
+    averages of one barotropic solve from there on the model's own path, and
+    layer momenta of ~0.1 m/s times the layers' thickness."""
+    from hnumo_tpu_torch.core.btp import barotropic_solve
+
+    rng, qb, qp, coup = inputs(m, seed)
+    _, avg = barotropic_solve(m.static, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
+                              mega_ops=m.mega_ops, tail_ops=m.tail_ops)
+    q = m.state0.q_df
+    dp = m.P.dpp_ref_df + q[0]
+    uv = torch.as_tensor(0.1 * rng.normal(size=(2,) + tuple(dp.shape)), dtype=q.dtype,
+                         device=q.device)
+    q_df = torch.cat([q[:1], dp[None] * uv])
+    return ((m.static, m.P, m.g, avg, qp, q_df), (m.static, m.P, m.g, m.bc, coup, avg))
+
+
+def block_momentum_operands(m, vol, visc, block):
+    """`vol` and `visc` cut to one block ((py, px), (iy, ix)) of the grid, as
+    a rank of a decomposition holds them: its element tables
+    (parallel/sharding.local_tables), the element fields and the face fields
+    of its own faces, and the walls of the block's place (BCs.ax / .ay
+    stand-ins that say whether the block owns a domain edge)."""
+    from types import SimpleNamespace
+
+    from hnumo_tpu_torch.core.types import Pair
+    from hnumo_tpu_torch.parallel.sharding import block_bounds, local_tables
+
+    (py, px), (iy, ix) = block
+    y0, y1 = block_bounds(m.cfg.nely, py, iy)
+    x0, x1 = block_bounds(m.cfg.nelx, px, ix)
+
+    def el(t):
+        return t[..., y0:y1, x0:x1, :, :].contiguous()
+
+    def cut_x(t):
+        return t[..., y0:y1, x0:x1 + 1, :].contiguous()
+
+    def cut_y(t):
+        return t[..., y0:y1 + 1, x0:x1, :].contiguous()
+
+    def cut(nt):
+        """Element fields and Pair-of-face fields of a NamedTuple."""
+        out = {}
+        for k, v in nt._asdict().items():
+            if isinstance(v, Pair):
+                fx = type(v.x)(*map(cut_x, v.x)) if isinstance(v.x, tuple) else cut_x(v.x)
+                fy = type(v.y)(*map(cut_y, v.y)) if isinstance(v.y, tuple) else cut_y(v.y)
+                out[k] = Pair(fx, fy)
+            else:
+                out[k] = el(v)
+        return type(nt)(**out)
+
+    static, _, _, avg, qp, q_df = vol
+    _, _, _, bc, coup, _ = visc
+    g_loc, P_loc = local_tables(m.g, m.P, block)
+    avg_loc = cut(avg)
+    bc_loc = bc._replace(ax=SimpleNamespace(first=ix == 0, last=ix == px - 1),
+                         ay=SimpleNamespace(first=iy == 0, last=iy == py - 1))
+    return ((static, P_loc, g_loc, avg_loc, el(qp), el(q_df)),
+            (static, P_loc, g_loc, bc_loc, cut(coup), avg_loc))
+
+
+def compare_kernel(cuda_fn, plain_fn, ops, tol, what):
+    """`cuda_fn` against `plain_fn` on `ops` (one output tensor each): within
+    tol * its max; returns (max err/scale, max abs err)."""
+    got = cuda_fn(*ops)
+    want = plain_fn(*ops)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, or non-finite values")
+    scale, err = float(want.abs().max()), float((got - want).abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+    return (err / scale if scale else 0.0), err
+
+
+def momentum_bounds(vol, visc) -> dict:
+    """Each kernel's least time on the card: the values it needs read once
+    (of q_df its two momentum channels) and its output written once, over
+    the HBM bandwidth (their flops, a few hundred a value, are far below the
+    byte time at f32 peak)."""
+    from hnumo_tpu_torch.ops import bcl_mom_volume, bcl_visc
+
+    static, P, g, avg, qp, q_df = vol
+    named = bcl_mom_volume._operands(static, P, g, avg, qp, q_df)
+    nv = sum(t.numel() for _, t in named) - q_df[0].numel() + 2 * qp[0].numel()
+    scope = {"P": visc[1], "g": visc[2], "coup": visc[4], "avg": visc[5]}
+    nw = sum(bcl_visc._field(scope, n).numel() for n, _ in bcl_visc.OPERANDS)
+    nw += 2 * qp[0].numel()
+    size = g.psiq.element_size()
+    return {name: {"bytes": n * size, "bound_ms": n * size / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"}
+            for name, n in (("bcl_mom_volume", nv), ("bcl_visc", nw))}
+
+
+def check_bcl_momentum(smi) -> list:
+    """Phase 32: the layer-momentum volume-term kernel (ops/bcl_mom_volume)
+    and the nodal baroclinic viscosity kernel (ops/bcl_visc) against their
+    plain versions, f32 and f64, over phase 31's cases (the cell's 25x25 p=4
+    L=2 on perturbed, sheared and stepped inputs; p=8; 1, 3, 5, 10 and 20
+    layers; x-periodic sides; copy and no-slip walls; each block of a 2x2
+    split of 8x6) and p=4 with inexact integration and the reference's
+    stress slip at 2 and 3 layers. Then each one's time per launch beside
+    its byte bound and the plain version's, and the main path's graph with
+    them: 2 launches of each a step, 2 nodes of each in the captured graph."""
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.ops._build import library_path, resource_usage
+    from hnumo_tpu_torch.ops.bcl_mom_volume import bcl_mom_volume_cuda, bcl_mom_volume_plain
+    from hnumo_tpu_torch.ops.bcl_visc import bcl_visc_cuda, bcl_visc_plain
+
+    usage = {n: resource_usage(n) for n in ("bcl_mom_volume", "bcl_visc")}
+    main = {"bcl_mom_volume": ("f<5,9,4>", "d<5,9,4>"), "bcl_visc": ("f<5>", "d<5>")}
+    frames = {}
+    for name, tags in main.items():
+        builds = [u for u in usage[name] if u.startswith(tags)]
+        if len(builds) != 2 or not all(u.endswith(" 0 B spill stores, 0 B spill loads")
+                                       for u in builds):
+            raise AssertionError(f"{name} at {tags} must build without a spill: {usage[name]}")
+        frames[name] = dict(re.findall(r"Function properties for (\S+)\s+(\d+) bytes stack "
+                                       r"frame", library_path(name).with_suffix(".log")
+                                       .read_text()))
+    # the register build of the volume kernel holds the column in registers
+    in_regs = {k: int(v) for k, v in frames["bcl_mom_volume"].items() if "Li5ELi9ELi4E" in k}
+    if len(in_regs) != 2 or any(in_regs.values()):
+        raise AssertionError(f"bcl_mom_volume at <5,9,4> must keep its column in registers, "
+                             f"without a stack frame: {frames['bcl_mom_volume']}")
+    pairs = {"bcl_mom_volume": (bcl_mom_volume_cuda, bcl_mom_volume_plain, 0),
+             "bcl_visc": (bcl_visc_cuda, bcl_visc_plain, 1)}
+    errs = {name: {} for name in pairs}
+
+    def compare(ops, tol, what):
+        for name, (kf, pf, i) in pairs.items():
+            errs[name][what] = compare_kernel(kf, pf, ops[i], tol, f"{name} {what}")
+
+    for dtype in ("float32", "float64"):
+        tol = F32_TOL if dtype == "float32" else F64_TOL
+        m25 = Model(main_path_config(25, dtype))
+        cases = [(f"25x25 {name}", m25, inputs) for name, inputs in (
+            ("perturbed", perturbed_inputs), ("sheared", sheared_inputs),
+            ("stepped", stepped_inputs))]
+        small = {"p=8": dict(nop=8), "p=4 inexact": dict(dg_integ_exact=False),
+                 "L=1": dict(nlayers=1, test_case="lakeatrest"),
+                 "L=3": dict(nlayers=3, test_case="lakeatrest"),
+                 "L=5": dict(nlayers=5, test_case="lakeatrest"),
+                 "L=10": dict(nlayers=10, test_case="lakeatrest"),
+                 "L=20": dict(nlayers=20, test_case="lakeatrest"),
+                 "x-periodic L=5": dict(walls=((3, 3), (4, 4)), nlayers=5,
+                                        test_case="lakeatrest"),
+                 "x-periodic": dict(walls=((3, 3), (4, 4))),
+                 "x-periodic L=3": dict(walls=((3, 3), (4, 4)), nlayers=3,
+                                        test_case="lakeatrest"),
+                 "copy and no-slip walls": dict(walls=OTHER_WALLS),
+                 "stress slip L=2": dict(compat_reference_stress=True),
+                 "stress slip L=3": dict(compat_reference_stress=True, nlayers=3,
+                                         test_case="lakeatrest")}
+        for name, over in small.items():
+            cases.append((f"7x5 {name}", Model(small_config(7, 5, dtype, 1, **over)),
+                          perturbed_inputs))
+        for what, m, inputs in cases:
+            compare(momentum_operands(m, inputs, seed=41), tol, f"{dtype} {what}")
+        m86 = Model(small_config(8, 6, dtype, 1, walls=OTHER_WALLS))
+        vol, visc = momentum_operands(m86, sheared_inputs, seed=42)
+        for iy in range(2):
+            for ix in range(2):
+                what = f"{dtype} 8x6 block ({iy},{ix}) of 2x2"
+                compare(block_momentum_operands(m86, vol, visc, ((2, 2), (iy, ix))), tol, what)
+        del m25, m86
+    worst = {name: {dt: max(v[0] for k, v in e.items() if k.startswith(dt))
+                    for dt in ("float32", "float64")} for name, e in errs.items()}
+    ncases = len(errs["bcl_mom_volume"])
+    for name in pairs:
+        print(f"phase 32 {name} kernel vs plain ({ncases} cases: 25x25 p=4 L=2 perturbed, "
+              f"sheared, stepped; 7x5 p=8, p=4 inexact, L=1, 3, 5, 10, 20, x-periodic (L=2, 3, "
+              f"5), copy/no-slip walls, the stress slip at L=2, 3; the four blocks of 8x6 split "
+              f"2x2), max err/scale f32 / f64 (tol {F32_TOL:g} / {F64_TOL:g}): "
+              f"{worst[name]['float32']:.3e} / {worst[name]['float64']:.3e}")
+    cfg = main_path_config(25, "float32")
+    m = Model(cfg)
+    vol, visc = momentum_operands(m, stepped_inputs, seed=43)
+    bounds = momentum_bounds(vol, visc)
+    times = {}
+    for name, (kf, pf, i) in pairs.items():
+        times[name] = t = time_vs_plain(kf, pf, (vol, visc)[i])
+        b = bounds[name]
+        print(f"phase 32 {name} 25x25 f32: {t['ms'] * 1e3:.2f} us/launch on the device, bound "
+              f"{b['bound_ms'] * 1e3:.3f} us by bytes ({b['bytes']} B); the plain version "
+              f"graphed {t['plain_ms_graphed']:.4f} ms/call")
+    g = bcl_graph_checks(cfg)
+    per = "; ".join(f"{n} {k['eager_launches_per_step']:g} a step eager, {k['graph_nodes']} "
+                    f"graph nodes, {k['replay_launches']} in a profiled replay at "
+                    f"{k['ms_per_launch_in_replay']} ms each"
+                    for n, k in g["kernels"].items() if n in pairs)
+    print(f"phase 32 main path 25x25 f32: {per}; kernel nodes a step plain / kernel "
+          f"baroclinic momentum {g['graph_kernel_nodes']['plain']} / "
+          f"{g['graph_kernel_nodes']['kernel']}, memcpy nodes "
+          f"{g['graph_memcpy_nodes']['plain']} / {g['graph_memcpy_nodes']['kernel']}; ms/step "
+          f"in turns {g['ms_per_step_turns']} | {smi}")
+    return [{"name": name, "route": "cuda",
+             "source": f"hnumo_tpu_torch/ops/csrc/{name}.cu", "replaces": None,
+             "ptxas": usage[name], "stack_frame_bytes": frames[name],
+             "max_err_over_scale": {k: e[0] for k, e in errs[name].items()},
+             "max_abs_err": {k: e[1] for k, e in errs[name].items()},
+             "tolerance_over_scale": {"float32": F32_TOL, "float64": F64_TOL},
+             "ms_25": times[name]["ms"], "plain_ms_graphed_25": times[name]["plain_ms_graphed"],
+             **bounds[name], "library_ms": None,
+             "main_path_25": {**g, "kernel": g["kernels"][name]}, "card": smi}
+            for name in pairs]
 
 
 # ---- the bench tool (phase 30) -------------------------------------------------
@@ -3184,10 +3429,11 @@ def main() -> int:
                          "phases 27-27d, or those named (27c takes 27 with it; 27b "
                          "needs 2 GPUs, 27d 4); their readings to "
                          "chiprun_out/decomposition.json")
-    ap.add_argument("--bcl-flux-only", action="store_true",
-                    help="only phases 1-2 and 31 (the baroclinic face-flux kernel against "
-                         "its plain version, its time, the main path's graph with it); its "
-                         "readings to chiprun_out/bcl_flux.json")
+    ap.add_argument("--bcl-only", action="store_true",
+                    help="only phases 1-2, 31 and 32 (the baroclinic layer-momentum "
+                         "kernels against their plain versions, their times, the main "
+                         "path's graph with them); their readings to "
+                         "chiprun_out/bcl_momentum.json")
     args = ap.parse_args()
     pathlib.Path(args.log).parent.mkdir(parents=True, exist_ok=True)
     OUT_DIR.mkdir(exist_ok=True)   # the readings' files, wherever the log goes
@@ -3214,7 +3460,7 @@ def main() -> int:
     # ---- phase 2: build (one nvcc per source, side by side) -----------------
     t0 = time.perf_counter()
     sources = ["btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update",
-               "bcl_flux"]
+               "bcl_flux", "bcl_mom_volume", "bcl_visc"]
     build_libraries(sources)
     for name in sources:
         load_library(name)
@@ -3237,9 +3483,9 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return 0
-    if args.bcl_flux_only:
-        flux = check_bcl_flux(smi)
-        (OUT_DIR / "bcl_flux.json").write_text(json.dumps(flux, default=str))
+    if args.bcl_only:
+        bcl = [check_bcl_flux(smi)] + check_bcl_momentum(smi)
+        (OUT_DIR / "bcl_momentum.json").write_text(json.dumps(bcl, default=str))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -4086,6 +4332,7 @@ def main() -> int:
             "step_err_f64_vs_per_stage": sb["botfr2_vs_per_stage_f64"]["mega"]},
     }] + fused_entries
     kernels.append(check_bcl_flux(smi))      # phase 31
+    kernels.extend(check_bcl_momentum(smi))  # phase 32
     for entry in kernels:      # phase 30's runs that launched the kernel
         entry["bench_30"] = {
             f"{r['nel'][0]}x{r['nel'][1]} p={r['nop']} {r['variant']}": {

@@ -14,8 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.bcl_flux import EPS1, bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain
-from ..ops.dg import DeviceGeom, grad_n2q, interp_n2q, scatter_volume
+from ..ops.bcl_flux import bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain
+from ..ops.bcl_mom_volume import bcl_mom_volume_cuda, bcl_mom_volume_plain
+from ..ops.dg import DeviceGeom, interp_n2q, scatter_volume
 from .faces import (BCs, extract_faces, extract_faces_multi, face_n2q,
                     face_quad_scatter,
                     scatter_face_x, scatter_face_y)
@@ -139,109 +140,12 @@ def layer_momentum_volume(static, P: Precomputed, g: DeviceGeom,
     (src/mod_create_rhs_mlswe.F90:281-456): pressure force from interface
     pressures, momentum-flux consistency weighting against the barotropic
     time averages, wind/bottom-stress vertical distribution, interface-slope
-    source p*grad(z). Returns rhs_mom (2, L, nodal) without massinv.
-
-    Note: the reference's wind/bottom-stress distribution accumulates
-    `pprime_temp(k+1)=pprime_temp(k)+qp(k)` where `qp` holds the LAST
-    layer's (dp',u',v') 3-vector (:380-382) — an indexing slip that is
-    inert for all shipped gated cases (zero wind/bottom stress there). We
-    implement the documented intent: cumulative prime pressure
-    pprime_temp = cumsum_k dp'_k.
+    source p*grad(z). The body is ops/bcl_mom_volume: its CUDA kernel under
+    `static.flux_impl == "kernel"`, its plain version under "plain".
+    Returns rhs_mom (2, L, nodal) without massinv.
     """
-    grav = static.gravity
-    alpha = P.alpha
-    L = static.nlayers
-    al = alpha.reshape((L,) + (1,) * (qprime_df.ndim - 2))
-
-    # ---- δ-form (docs/float32.md): interface-elevation perturbation ζ ----
-    # sq_ope_df - 1 in conditioned form; sq_ope_df = sqrt(ope_df^2)
-    s_df = avg.mu2_df / (1.0 + torch.sqrt(1.0 + avg.mu2_df))
-    sq_ope_df = 1.0 + s_df
-    ddpp_df = qprime_df[0]                                  # stored as δdp'
-    # δdz = (α/g)(sq_ope·dp' - dp'_ref), conditioned; ζ[L] = 0 (static zbot)
-    ddz = (al / grav) * (s_df[None] * P.dpp_ref_df + sq_ope_df[None] * ddpp_df)
-    rev = torch.flip(torch.cumsum(torch.flip(ddz, (0,)), dim=0), (0,))
-    zeta = torch.cat([rev, torch.zeros_like(rev[:1])], dim=0)  # (L+1, nodal)
-    gze_x, gze_y = grad_n2q(g, zeta)                        # ζ gradients (L+1, quad)
-    gz_x = P.gz_ref[0] + gze_x                              # full interface gradients
-    gz_y = P.gz_ref[1] + gze_y
-
-    qp = interp_n2q(g, qprime_df)                           # (3, L, quad)
-    udp_q = interp_n2q(g, q_df[1])                          # (L, quad)
-    vdp_q = interp_n2q(g, q_df[2])
-    temp_uu = torch.abs(udp_q) + EPS1
-    temp_vv = torch.abs(vdp_q) + EPS1
-
-    # π = p_tmp - P_ref, conditioned cumsum (p_tmp = cumsum sq_ope*dp')
-    s_q = avg.mu2 / (1.0 + torch.sqrt(1.0 + avg.mu2))
-    sq_ope = 1.0 + s_q
-    ddpp_q = qp[0]                                          # δ at quad
-    dinc = s_q[None] * P.dpp_ref_q + sq_ope[None] * ddpp_q
-    pi_l = torch.cumsum(dinc, dim=0)
-    pi_u = pi_l - dinc
-    alq = alpha.reshape((L,) + (1,) * (pi_l.ndim - 1))
-    dH_tmp = alq * (P.P_ref_q[1:] * pi_l - P.P_ref_q[:-1] * pi_u
-                    + 0.5 * (pi_l**2 - pi_u**2))            # H_tmp - Hk_ref
-
-    dp = (P.dpp_ref_q + qp[0]) * (1.0 + avg.mu[None])
-    u = qp[1] + avg.ub[None]
-    v = qp[2] + avg.vb[None]
-    u_udp = dp * u * u
-    v_vdp = dp * v * v
-    uv_dp = dp * u * v
-
-    # momentum-flux consistency weighting (reference :370-390)
-    uu_def = avg.Qu - torch.sum(u_udp, 0)
-    uv_def = avg.Quv - torch.sum(uv_dp, 0)
-    vv_def = avg.Qv - torch.sum(v_vdp, 0)
-    wu = temp_uu / torch.sum(temp_uu, 0)[None]
-    wv = temp_vv / torch.sum(temp_vv, 0)[None]
-    var_uu = u_udp + wu * uu_def[None]
-    var_uv = uv_dp + wu * uv_def[None]     # u_vdp(1,:)
-    var_vu = uv_dp + wv * uv_def[None]     # u_vdp(2,:)
-    var_vv = v_vdp + wv * vv_def[None]
-
-    # pressure-force weight (reference :412-417): weight-1 in δ-form
-    sum_dH = torch.sum(dH_tmp, 0)
-    sumH_full = P.H_bcl_ref + sum_dH
-    w1 = torch.where(sumH_full > 0.0, (avg.dH - sum_dH) / sumH_full, 0.0)
-    # Hq - Hk_ref = dH_tmp + (Hk_ref + dH_tmp)*(weight-1)
-    dHq = dH_tmp + (P.Hk_ref_q + dH_tmp) * w1[None]
-
-    # wind/bottom stress vertical distribution (reference :424-431)
-    dpp_full = P.dpp_ref_q + qp[0]
-    if static.compat_reference_stress:
-        # verbatim reference slip (src/mod_create_rhs_mlswe.F90:380-382):
-        # pprime_temp(k+1) = pprime_temp(k) + qp(k) where qp still holds the
-        # LAST layer's (dp', u', v') 3-vector from the preceding loop, so the
-        # k-th increment is component k of (dp'_L, u'_L, v'_L) — full dp'
-        # for k=1, the raw velocity primes for k=2,3 (L<=3 enforced at init)
-        comps = torch.stack([dpp_full[-1]] + [qp[c][-1] for c in (1, 2)][:L - 1])
-        pp_lower = torch.cumsum(comps[:L], dim=0)
-        pp_upper = pp_lower - comps[:L]
-    else:
-        # documented intent: cumulative prime pressure sum_j<=k dp'_j
-        pp_lower = torch.cumsum(dpp_full, dim=0)
-        pp_upper = pp_lower - dpp_full
-    Ps, Pb = static.Pstress, static.Pbstress
-    temp1 = (torch.clamp(pp_lower, max=Ps) - torch.clamp(pp_upper, max=Ps)) / Ps
-    tau_u = temp1 * P.tau_wind[0][None]
-    tau_v = temp1 * P.tau_wind[1][None]
-    tempbot = (torch.clamp(P.pbprime[None] - pp_lower, max=Pb)
-               - torch.clamp(P.pbprime[None] - pp_upper, max=Pb)) / Pb
-
-    # interface-slope source, dynamic part only (static P_ref·gz_ref in
-    # P.bcl_rhs_ref):  p·gz - P_ref·gz_ref = P_ref·gζ + π·gz
-    source_x = grav * (tau_u - tempbot * avg.tbU[None]
-                       + P.P_ref_q[:-1] * gze_x[:-1] + pi_u * gz_x[:-1]
-                       - P.P_ref_q[1:] * gze_x[1:] - pi_l * gz_x[1:])
-    source_y = grav * (tau_v - tempbot * avg.tbV[None]
-                       + P.P_ref_q[:-1] * gze_y[:-1] + pi_u * gz_y[:-1]
-                       - P.P_ref_q[1:] * gze_y[1:] - pi_l * gz_y[1:])
-
-    rhs_u = scatter_volume(g, Fx=dHq + var_uu, Fy=var_uv, Fs=source_x)
-    rhs_v = scatter_volume(g, Fx=var_vu, Fy=dHq + var_vv, Fs=source_y)
-    return torch.stack([rhs_u, rhs_v])
+    volume = bcl_mom_volume_cuda if static.flux_impl == "kernel" else bcl_mom_volume_plain
+    return volume(static, P, g, avg, qprime_df, q_df)
 
 
 def layer_momentum_fluxes(static, P: Precomputed, g: DeviceGeom, bc: BCs,

@@ -289,6 +289,16 @@ def scatter_face_y(rhs: Tensor, S: Tensor, bc: BCs, S_right: Tensor | None = Non
     return out
 
 
+def apply_face_plus_minus(rhs_u, rhs_v, SxU, SxV, SyU, SyV, bc: BCs):
+    """LDG face signs of the viscous fluxes: L side +, R side - (reference
+    src/mod_laplacian_quad.F90:704-716). Returns new tensors."""
+    rhs_u = scatter_face_x(rhs_u, -SxU, bc)
+    rhs_u = scatter_face_y(rhs_u, -SyU, bc)
+    rhs_v = scatter_face_x(rhs_v, -SxV, bc)
+    rhs_v = scatter_face_y(rhs_v, -SyV, bc)
+    return rhs_u, rhs_v
+
+
 def apply_wall_projection(qu: Tensor, qv: Tensor, bc: BCs):
     """Project nodal momentum at wall nodes (free-slip: zero normal comp;
     no-slip: zero vector). Reference btp_mom_boundary_df / layer_mom_boundary_df

@@ -59,8 +59,9 @@ class StaticConfig:
     through its CUDA kernel, "plain" through its plain PyTorch version),
     `mega_impl` (the same choice for ops/mega.barotropic_solve_mega_cuda /
     _plain), `tail_impl` (for the face and update kernels of the fused
-    path, ops/btp_tail, together) and `flux_impl` (the baroclinic layer-momentum
-    face fluxes, ops/bcl_flux.bcl_momentum_fluxes_cuda / _plain)."""
+    path, ops/btp_tail, together) and `flux_impl` (the baroclinic layer
+    momentum's kernels together: its face fluxes, ops/bcl_flux, its volume
+    term, ops/bcl_mom_volume, and its nodal-family viscosity, ops/bcl_visc)."""
 
     nlayers: int
     kstages: int
@@ -601,7 +602,7 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
         dpp_ref_dt = cast(dpp_ref_df)
         flr, _ = extract_faces(dpp_ref_dt, bc)
         P = P._replace(
-            dpp_ref_q=interp_n2q(gdt, dpp_ref_dt),
+            dpp_ref_q=interp_n2q(gdt, dpp_ref_dt).contiguous(),  # a kernel operand
             faces=Pair(
                 P.faces.x._replace(dpp_ref_face=flr.xl,
                                    dpp_ref_face_q=face_n2q(gdt.psiq, flr.xl)),

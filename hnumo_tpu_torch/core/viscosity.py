@@ -18,9 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.dg import DeviceGeom, grad_n2q, scatter_volume, scatter_volume_nodal
-from .faces import (BCs, extract_faces_stacked, face_quad_scatter,
-                    scatter_face_x, scatter_face_y)
+from ..ops.bcl_visc import bcl_visc_cuda, bcl_visc_plain
+from ..ops.dg import DeviceGeom, grad_n2q, scatter_volume
+from .faces import BCs, apply_face_plus_minus, extract_faces_stacked, face_quad_scatter
 from .types import CouplingFields, Pair, Precomputed
 
 
@@ -44,15 +44,6 @@ def _flipflop_face_quad(static, P: Precomputed, g: DeviceGeom, bc: BCs, fl_x, fr
     return SxU, SxV, SyU, SyV
 
 
-def _apply_face_plus_minus(rhs_u, rhs_v, SxU, SxV, SyU, SyV, bc: BCs):
-    """LDG face signs: L side +, R side - (reference :704-716)."""
-    rhs_u = scatter_face_x(rhs_u, -SxU, bc)
-    rhs_u = scatter_face_y(rhs_u, -SyU, bc)
-    rhs_v = scatter_face_x(rhs_v, -SxV, bc)
-    rhs_v = scatter_face_y(rhs_v, -SyV, bc)
-    return rhs_u, rhs_v
-
-
 def _quad_flux_faces(flux_q, bc: BCs):
     """Face traces of a (4, ..., quad) LDG flux field at quad resolution with
     the free-slip mirror applied pairwise ((1,2) and (3,4) as vectors).
@@ -68,7 +59,7 @@ def _quad_laplacian(static, P: Precomputed, g: DeviceGeom, bc: BCs, flux_q):
     rhs_u = -scatter_volume(g, Fx=flux_q[0], Fy=flux_q[1])
     rhs_v = -scatter_volume(g, Fx=flux_q[2], Fy=flux_q[3])
     S = _flipflop_face_quad(static, P, g, bc, fl_x, fr_x, fl_y, fr_y)
-    rhs_u, rhs_v = _apply_face_plus_minus(rhs_u, rhs_v, *S, bc)
+    rhs_u, rhs_v = apply_face_plus_minus(rhs_u, rhs_v, *S, bc)
     return static.visc_mlswe * g.massinv * torch.stack([rhs_u, rhs_v])
 
 
@@ -122,24 +113,9 @@ def bcl_nodal_laplacian(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     Reference bcl_create_laplacian + bcl_compute_laplacian +
     bcl_create_rhs_laplacian_flux (src/mod_laplacian_quad.F90:227-248,
     392-425, 521-611). Consumes the barotropic-average LDG gradients.
+    The body is ops/bcl_visc: its CUDA kernel under
+    `static.flux_impl == "kernel"`, its plain version under "plain".
     Returns rhs_lap (2, L, nodal).
     """
-    # volume: qq = dpprime_visc_k * graduvb_ave + dpp_graduv_k   (4, L, nodal)
-    qq = coup.dpprime_visc[None] * avg.graduvb[:, None] + coup.dpp_graduv
-    rhs_u = -scatter_volume_nodal(g, qq[0], qq[1])
-    rhs_v = -scatter_volume_nodal(g, qq[2], qq[3])
-
-    def face_dir(gdpp, gvavg, fg):
-        # gdpp: (5, 2, L, F, ngl) layer coefficient faces;
-        # gvavg L/R: (4, F, ngl) graduvb_face_ave
-        fl = gdpp[4, 0] * gvavg[0][:, None] + gdpp[:4, 0]   # (4, L, F, ngl)
-        fr = gdpp[4, 1] * gvavg[1][:, None] + gdpp[:4, 1]
-        qmean = 0.5 * (fl + fr)
-        flux_qu = (qmean[0] - fl[0] * fg.nx_df) + (qmean[1] - fl[1] * fg.ny_df)
-        flux_qv = (qmean[2] - fl[2] * fg.nx_df) + (qmean[3] - fl[3] * fg.ny_df)
-        return fg.jac_df * flux_qu, fg.jac_df * flux_qv
-
-    SxU, SxV = face_dir(coup.graduv_dpp_face.x, (avg.faces.x.gvL, avg.faces.x.gvR), P.faces.x)
-    SyU, SyV = face_dir(coup.graduv_dpp_face.y, (avg.faces.y.gvL, avg.faces.y.gvR), P.faces.y)
-    rhs_u, rhs_v = _apply_face_plus_minus(rhs_u, rhs_v, SxU, SxV, SyU, SyV, bc)
-    return static.visc_mlswe * g.massinv * torch.stack([rhs_u, rhs_v])
+    visc = bcl_visc_cuda if static.flux_impl == "kernel" else bcl_visc_plain
+    return visc(static, P, g, bc, coup, avg)

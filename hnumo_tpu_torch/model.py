@@ -87,7 +87,9 @@ def _resolve_impl(name: str, impl, allowed, device: torch.device) -> str:
 def kernel_sources(static) -> list[str]:
     """The sources of ops/csrc/ whose kernels a step on `static`'s path
     launches: the barotropic path's, as core/btp.barotropic_solve picks them,
-    and the baroclinic face fluxes', each where its switch is "kernel"."""
+    and the baroclinic layer momentum's (face fluxes, volume term and, with
+    the nodal-family viscosity, its Laplacian), each where its switch is
+    "kernel"."""
     if static.mega:
         impls = {"btp_mega": static.mega_impl}
     elif static.fused_tail:
@@ -95,7 +97,9 @@ def kernel_sources(static) -> list[str]:
                  "btp_update": static.tail_impl}
     else:
         impls = {"btp_volume_uni" if static.uni_volume else "btp_volume": static.volume_impl}
-    impls["bcl_flux"] = static.flux_impl
+    impls["bcl_flux"] = impls["bcl_mom_volume"] = static.flux_impl
+    if static.use_visc and static.method_visc != 1:
+        impls["bcl_visc"] = static.flux_impl
     return [name for name, impl in impls.items() if impl == "kernel"]
 
 
@@ -167,7 +171,8 @@ class Model:
         `tail_impl` / `flux_impl`: "kernel" (the CUDA kernel of the volume
         stage — general or uniform-geometry — / of the whole-solve megakernel
         / of the face and update stages of the fused path / of the baroclinic
-        layer-momentum face fluxes; default on CUDA) or "plain"
+        layer momentum: its face fluxes, volume term and nodal-family
+        viscosity; default on CUDA) or "plain"
         (its plain PyTorch version; default on the CPU). Which barotropic
         path runs is `cfg.mega`, then `cfg.fused_tail` (see
         StaticConfig.mega, .fused_tail, .uni_volume; the per-stage path's

@@ -48,10 +48,12 @@ class DeviceGeom(NamedTuple):
 
 
 def device_geom(geom, dtype: torch.dtype, device) -> DeviceGeom:
-    """Cast host Geometry tables (float64 NumPy) to tensors on `device`."""
+    """Cast host Geometry tables (float64 NumPy) to contiguous tensors on
+    `device` (a host table may be a strided view; the kernels take only
+    contiguous operands)."""
     return DeviceGeom(**{
-        name: torch.tensor(np.asarray(getattr(geom, name)),
-                              dtype=dtype, device=device)
+        name: torch.tensor(np.ascontiguousarray(getattr(geom, name)),
+                           dtype=dtype, device=device)
         for name in DeviceGeom._fields})
 
 

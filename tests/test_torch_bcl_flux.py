@@ -260,8 +260,9 @@ def test_a_mesh_read_from_a_file_gives_the_kernel_operands_it_takes(tmp_path, mo
 
 def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch):
     """model.kernel_sources names the sources of the kernels a step on each
-    barotropic path launches, the face fluxes' with them; a CPU model
-    compiles nothing."""
+    barotropic path launches, the baroclinic layer momentum's with them
+    (face fluxes, volume term, and the nodal-family viscosity where it is
+    on); a CPU model compiles nothing."""
     from types import SimpleNamespace
 
     import hnumo_tpu_torch.model as model
@@ -272,19 +273,24 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
     monkeypatch.setattr(model, "build_libraries", no_build)
     assert model.kernel_sources(TorchModel(_small(), device="cpu").static) == []
     k = dict(volume_impl="kernel", mega_impl="kernel", tail_impl="kernel",
-             flux_impl="kernel")
+             flux_impl="kernel", use_visc=True, method_visc=2)
     paths = {"per-stage": dict(mega=False, fused_tail=False, uni_volume=False),
              "uniform volume": dict(mega=False, fused_tail=False, uni_volume=True),
              "fused": dict(mega=False, fused_tail=True, uni_volume=True),
              "mega": dict(mega=True, fused_tail=False, uni_volume=False)}
-    want = {"per-stage": ["btp_volume", "bcl_flux"],
-            "uniform volume": ["btp_volume_uni", "bcl_flux"],
-            "fused": ["btp_volume_uni", "btp_faces", "btp_update", "bcl_flux"],
-            "mega": ["btp_mega", "bcl_flux"]}
+    bcl = ["bcl_flux", "bcl_mom_volume", "bcl_visc"]
+    want = {"per-stage": ["btp_volume"] + bcl,
+            "uniform volume": ["btp_volume_uni"] + bcl,
+            "fused": ["btp_volume_uni", "btp_faces", "btp_update"] + bcl,
+            "mega": ["btp_mega"] + bcl}
     for name, flags in paths.items():
         assert model.kernel_sources(SimpleNamespace(**flags, **k)) == want[name]
     plain_fluxes = SimpleNamespace(**paths["mega"], **{**k, "flux_impl": "plain"})
     assert model.kernel_sources(plain_fluxes) == ["btp_mega"]
+    # no viscosity, or the quad family's: no nodal viscosity kernel
+    for visc in (dict(use_visc=False), dict(method_visc=1)):
+        flags = SimpleNamespace(**paths["mega"], **{**k, **visc})
+        assert model.kernel_sources(flags) == ["btp_mega", "bcl_flux", "bcl_mom_volume"]
 
 
 def test_wrapper_and_source_agree_on_limits_and_the_symbol_stays_generic():

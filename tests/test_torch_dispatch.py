@@ -274,7 +274,7 @@ def test_brick_grids_count_as_uniform_at_every_size(nel):
 # ---- the builder of the CUDA sources, driven with a stand-in compiler --------
 
 PORT_SOURCES = ("btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update",
-                "bcl_flux")
+                "bcl_flux", "bcl_mom_volume", "bcl_visc")
 
 _FAKE_NVCC = """#!/bin/sh
 # stand-in for nvcc: writes the output file named after -o, talks like ptxas -v
