@@ -205,6 +205,7 @@ def main(argv=None):
     cfg = config_from_namelist(args.input, **overrides)
 
     decomp = None
+    owns_group = False
     if args.mesh is not None:
         py, px = (int(v) for v in args.mesh.lower().split("x"))
         if (py, px) != (1, 1):
@@ -225,10 +226,19 @@ def main(argv=None):
                                    py * px)
                 print(logs[0], end="")
                 return None, None, None
+            import torch.distributed as dist
+
+            owns_group = not dist.is_initialized()
             decomp = init_decomposition((py, px), backend=args.backend,
                                         device="cpu" if args.cpu else None)
 
     model = Model(cfg, device="cpu" if args.cpu else None, decomp=decomp)
     runner = Runner(model, outdir=args.outdir)
     state, summ = runner.run(quiet=args.quiet)
+    if owns_group:
+        # the ranks leave the group they joined together: a rank whose
+        # process exits with its gloo group still open can abort in the
+        # group's teardown ("terminate called without an active exception")
+        decomp.barrier()
+        dist.destroy_process_group()
     return runner, state, summ

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 
 from ..core.types import State
+from ..spans import span
+from . import _native
 from .diagnostics import _host, derived_fields
 
 
@@ -53,26 +55,42 @@ def _fname(root, itime, ext=""):
     return f"{root}{itime:04d}{ext}"
 
 
-def _column(values) -> str:
-    """One value per line, as the reference's formatted write."""
+def _column_plain(values) -> str:
+    """One value per line, as the reference's formatted write: the Python
+    path, and the oracle of the native formatter (io/_native.py)."""
     return "".join(map("{:23.16e}\n".format, np.asarray(values).ravel().tolist()))
+
+
+def _txt_bytes(a) -> bytes | memoryview:
+    """The txt snapshot's bytes: the header, then every column in the
+    reference's order (src/diagnostics.F90:77-89), one value a line. The
+    columns go through the native formatter where it is available, else
+    through `_column_plain`; the bytes are the same."""
+    head = f"{a['nlayers']:4d}\n{a['npoin']:10d}\n".encode()
+    values = np.concatenate([
+        np.array([a["dt"], a["dt_btp"]], np.float64),
+        np.stack([a["x"], a["y"]], axis=1).ravel(),    # interleaved (2, npoin) F-order
+        a["pb"], a["pbub"], a["pbvb"],
+        *(a[name].ravel() for name in ("h", "u", "v", "eta")),   # layer-major (k slowest)
+        a["zbot"]]).astype(np.float64, copy=False)
+    with span("hnumo.io.snapshot.format"):
+        if not _native.available():
+            return head + _column_plain(values).encode()
+        buf = np.empty(len(head) + values.size * _native.value_bytes(), np.uint8)
+        buf[:len(head)] = np.frombuffer(head, np.uint8)
+        n = _native.format_into(values, buf, len(head))
+        return memoryview(buf)[:len(head) + n]
 
 
 def write_txt(model, state, itime, root="mlswe", outdir="."):
     """ASCII snapshot in the reference's column order
-    (src/diagnostics.F90:77-89)."""
+    (src/diagnostics.F90:77-89), written at once: the file is whole when
+    this returns."""
     a = snapshot_arrays(model, state)
     path = os.path.join(outdir, _fname(root, itime))
-    with open(path, "w") as f:
-        f.write(f"{a['nlayers']:4d}\n")
-        f.write(f"{a['npoin']:10d}\n")
-        f.write(_column([a["dt"], a["dt_btp"]]))
-        f.write(_column(np.stack([a["x"], a["y"]]).T))    # interleaved (2, npoin) F-order
-        for name in ("pb", "pbub", "pbvb"):
-            f.write(_column(a[name]))
-        for name in ("h", "u", "v", "eta"):
-            f.write(_column(a[name]))                     # layer-major (k slowest)
-        f.write(_column(a["zbot"]))
+    data = _txt_bytes(a)
+    with open(path, "wb") as f:
+        f.write(data)
     return path
 
 

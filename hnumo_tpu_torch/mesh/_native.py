@@ -7,29 +7,25 @@ mesh/gmsh.py keeps the pure-Python path as the parity oracle and takes this
 one when it is available.
 
 The library is built with g++ into `hnumo_tpu_torch/_build/` at first use,
-under a name that carries a hash of the source and of the flags (an edited
-source is never served by a stale library). The build writes a file of its
-own and renames it into place, so processes that build at once (test
-workers, the ranks of a decomposed run) are safe. `HNUMO_NATIVE=0` turns the
-native path off; so does the absence of g++. Where g++ is present and the
-build or the load fails, that raises: it is never hidden behind the Python
-path. `calls` counts the native calls per function, the record of which path
-ran.
+by the package's host build (`_hostlib.py`: a name that carries a hash of
+the source and of the flags, a build safe for processes that build at
+once). `HNUMO_NATIVE=0` turns the native path off; so does the absence of
+g++. Where g++ is present and the build or the load fails, that raises: it
+is never hidden behind the Python path. `calls` counts the native calls per
+function, the record of which path ran.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
+from .. import _hostlib
+from .._hostlib import enabled
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "qmesh.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+BUILD_DIR = _hostlib.BUILD_DIR
 
 _LIB: ctypes.CDLL | None = None
 
@@ -38,47 +34,18 @@ calls = {"infer_structured_layout": 0, "corner_table": 0, "read_msh": 0,
          "partition": 0}
 
 
-def enabled() -> bool:
-    """The native path is on: not turned off by HNUMO_NATIVE=0, and g++ is
-    on PATH."""
-    return os.environ.get("HNUMO_NATIVE", "1") != "0" and shutil.which("g++") is not None
-
-
 def library_path() -> Path:
     """Where the library of the present source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libqmesh-{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the source unless its library exists; returns its path.
-    Raises (with the compiler's output) if the compiler fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        if r.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed:\n{' '.join(cmd)}\n"
-                               f"{r.stdout}{r.stderr}")
-        os.replace(tmp, out)
-    finally:
-        tmp.unlink(missing_ok=True)
-    return out
+    return _hostlib.library_path(SOURCE, BUILD_DIR)
 
 
 def get_lib() -> ctypes.CDLL:
     """The loaded library (built at the first call). Raises where the native
     path is off, or if the build or the load fails."""
     global _LIB
-    if not enabled():
-        raise RuntimeError("native qmesh is off (HNUMO_NATIVE=0, or no g++ on PATH)")
-    if _LIB is not None:
+    if _LIB is not None and enabled():
         return _LIB
-    lib = ctypes.CDLL(str(build()))
+    lib = _hostlib.load(SOURCE, BUILD_DIR)
     i64p = ctypes.POINTER(ctypes.c_int64)
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.qmesh_infer_layout.argtypes = [

@@ -26,6 +26,7 @@ span the host was in. Every name starts with "hnumo.":
     hnumo.run.output              one output point of Runner.run
       hnumo.run.gather            Model.gather
       hnumo.io.snapshot           Runner._write_snapshot
+        hnumo.io.snapshot.format  io/snapshots: the txt snapshot's columns formatted
       hnumo.io.diagnostics        io/diagnostics.summary
       hnumo.run.mass_log          the mass-log line
     hnumo.run.finish              Runner.run's final summary and files

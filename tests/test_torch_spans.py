@@ -97,12 +97,14 @@ def test_a_runner_with_two_output_points(tmp_path):
     for child in ("hnumo.run.gather", "hnumo.io.snapshot", "hnumo.io.diagnostics",
                   "hnumo.run.mass_log"):
         assert paths.count(f"{out}/{child}") == 2, child
+    # the snapshot's formatting, inside the snapshot
+    assert paths.count(f"{out}/hnumo.io.snapshot/hnumo.io.snapshot.format") == 2
     # each point holds one of each, in the order the Runner writes them
     points = [r for r in ranges if r[0] == out]
     for _, s, e in points:
         inner = [n for n, s2, e2 in ranges if s < s2 and e2 < e]
-        assert inner == ["hnumo.run.gather", "hnumo.io.snapshot", "hnumo.io.diagnostics",
-                         "hnumo.run.mass_log"]
+        assert inner == ["hnumo.run.gather", "hnumo.io.snapshot", "hnumo.io.snapshot.format",
+                         "hnumo.io.diagnostics", "hnumo.run.mass_log"]
     assert paths[-2:] == ["hnumo.run.finish", "hnumo.run.finish/hnumo.io.diagnostics"]
 
 
