@@ -75,7 +75,7 @@ on perturbed, sheared and stepped inputs, p=8, 1, 3, 5, 10 and 20 layers,
 x-periodic sides, copy and no-slip walls, each block of a 2x2 split), its time per
 launch beside its byte bound and the graphed plain version's, and the
 25x25 main path's step with it: 2 launches a step, 2 nodes in the
-captured graph, ms/step against the plain fluxes in turns. Then the
+captured graph, ms/step against every plain version in turns. Then the
 layer-momentum volume-term and nodal-viscosity kernels (32, ops/bcl_mom_volume,
 ops/bcl_visc) against their plain versions on phase 31's cases, p=4 with
 inexact integration and the reference's stress slip, their times per launch
@@ -358,7 +358,7 @@ def check_solve_kernel_vs_plain():
     _, qb, qp, coup = perturbed_inputs(m, seed=7)
     out = {}
     for impl in ("kernel", "plain"):
-        st = dataclasses.replace(m.static, volume_impl=impl)
+        st = dataclasses.replace(m.static, impl=impl)
         out[impl] = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp,
                                      vol_ops=m.vol_ops)
         torch.cuda.synchronize()
@@ -387,13 +387,13 @@ def check_mega_vs_plain(cfg, tol, seed=3, route=None, inputs=perturbed_inputs):
     from hnumo_tpu_torch.ops import mega
 
     m = Model(cfg)
-    if not (m.static.mega and m.static.mega_impl == "kernel" and m.mega_ops is not None):
+    if not (m.static.mega and m.static.impl == "kernel" and m.mega_ops is not None):
         raise AssertionError("this configuration must take the megakernel")
     _, qb, qp, coup = inputs(m, seed=seed)
     qb_keep = qb.clone()
     before = mega_routes()
     if route is None:
-        st = dataclasses.replace(m.static, mega_impl="kernel")
+        st = dataclasses.replace(m.static, impl="kernel")
         got = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
                                mega_ops=m.mega_ops)
     else:
@@ -409,7 +409,7 @@ def check_mega_vs_plain(cfg, tol, seed=3, route=None, inputs=perturbed_inputs):
     taken = [r for r, n in mega_routes().items() if n != before[r]]
     if len(taken) != 1 or sum(mega_routes().values()) - sum(before.values()) != 1:
         raise AssertionError(f"one solve must be one megakernel launch, got {taken}")
-    st = dataclasses.replace(m.static, mega_impl="plain")
+    st = dataclasses.replace(m.static, impl="plain")
     want = barotropic_solve(st, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
                             mega_ops=m.mega_ops)
     torch.cuda.synchronize()
@@ -432,7 +432,7 @@ def check_mega_vs_per_stage():
 
     mm = Model(small_config(12, 12, "float64", 1, mega="on"))
     mp = Model(small_config(12, 12, "float64", 1, mega="off"))
-    if not mm.static.mega or mp.static.mega or mp.static.volume_impl != "kernel":
+    if not mm.static.mega or mp.static.mega or mp.static.impl != "kernel":
         raise AssertionError("expected one model on each barotropic path")
     _, qb, qp, coup = perturbed_inputs(mm, seed=9)
     a = barotropic_solve(mm.static, mm.P, mm.g, mm.bc, coup, qb, qp,
@@ -633,7 +633,7 @@ def check_fused_solve():
         mu = Model(small_config(nelx, nely, "float64", 1, visc=visc, walls=walls,
                                 uni_volume="on"))
         mp = Model(small_config(nelx, nely, "float64", 1, visc=visc, walls=walls))
-        if not (mf.static.fused_tail and mf.static.tail_impl == "kernel"
+        if not (mf.static.fused_tail and mf.static.impl == "kernel"
                 and mu.static.uni_volume and not mp.static.uni_volume):
             raise AssertionError("expected one model on each path")
         _, qb, qp, coup = perturbed_inputs(mp, seed=21)
@@ -655,7 +655,7 @@ def check_fused_solve():
                                  f"kernels {nsub} times and no other")
         if not torch.equal(qb, qb_keep):
             raise AssertionError("the fused solve changed its caller's qb_df")
-        fp = solve(mf, volume_impl="plain", tail_impl="plain")
+        fp = solve(mf, impl="plain")
         ps = solve(mp)
         before = btp_volume_uni_cuda.launches
         pu = solve(mu)
@@ -1054,7 +1054,7 @@ def check_goldens():
     for name, cfg, steps, route in (("bump_traj", goldens.bump_config(), None, "resident"),
                                     ("dgyre_traj", goldens.dgyre_config(), 10, "streamed")):
         m = Model(cfg)
-        if not (m.step_impl == "graph" and m.static.mega and m.static.mega_impl == "kernel"):
+        if not (m.step_impl == "graph" and m.static.mega and m.static.impl == "kernel"):
             raise AssertionError(f"{name}: expected the graphed megakernel path")
         zero_counts()
         out[name] = goldens.replay(m, name, max_steps=steps)
@@ -1243,7 +1243,7 @@ def check_cli(tmp):
         runner, state, summ, counts = cli_run(nml, run_dir, *args)
         wall = time.perf_counter() - t0
         m = runner.model
-        if not (m.step_impl == "graph" and m.static.mega and m.static.mega_impl == "kernel"
+        if not (m.step_impl == "graph" and m.static.mega and m.static.impl == "kernel"
                 and m.cfg.dtype == ("float32" if tag == "f32" else "float64")):
             raise AssertionError(f"CLI {tag}: expected the graphed megakernel path")
         want = {k: 2 * path_launches_per_step(m).get(k, 0) for k in counts}
@@ -1416,11 +1416,11 @@ def check_curvilinear(tmp):
     m = Model(cfg)
     st = m.static
     if (m.cfg.nelx, m.cfg.nely) != (32, 32) or st.uniform_geom or st.mega or \
-            st.volume_impl != "kernel" or m.step_impl != "graph":
+            st.impl != "kernel" or m.step_impl != "graph":
         raise AssertionError(f"curvilinear 32x32: expected the graphed per-stage path with "
                              f"the volume kernel on a non-uniform grid, got "
                              f"{(m.cfg.nelx, m.cfg.nely)} uniform_geom={st.uniform_geom} "
-                             f"mega={st.mega} volume_impl={st.volume_impl}")
+                             f"mega={st.mega} impl={st.impl}")
     met = m.vol_ops.met
     spread = float((met[:4].amax(dim=(1, 2)) - met[:4].amin(dim=(1, 2))).max()
                    / met[:4].abs().max())
@@ -1429,9 +1429,9 @@ def check_curvilinear(tmp):
     m64 = Model(config_from_namelist(nml))
     errs = {"float32": compare_volume_kernel(m, m.vol_ops, 31, "curvilinear 32x32"),
             "float64": compare_volume_kernel(m64, m64.vol_ops, 31, "curvilinear 32x32")}
-    mp = Model(config_from_namelist(nml), volume_impl="plain")
+    mp = Model(config_from_namelist(nml), impl="plain")
     step = compare_states(m64.run(m64.state0, 2), mp.run(mp.state0, 2), STEP_TOL,
-                          "curvilinear f64, two steps, volume kernel vs plain version")
+                          "curvilinear f64, two steps, kernels vs plain versions")
     del m64, mp
     timing = time_volume_stage(m, ablations=False)
     bound = volume_bound(m)
@@ -1463,9 +1463,8 @@ def check_path(m, what, mega=False, fused=False, flat=None):
     want = dict(mega=mega, fused=fused, uni=False, graph="graph")
     if flat is not None:
         got["flat"], want["flat"] = st.batched_faces, flat
-    impls = (st.mega_impl, st.volume_impl, st.tail_impl)
-    if got != want or impls != ("kernel",) * 3:
-        raise AssertionError(f"{what}: expected {want} with the kernels, got {got} {impls}")
+    if got != want or st.impl != "kernel":
+        raise AssertionError(f"{what}: expected {want} with the kernels, got {got} {st.impl}")
 
 
 def graph_and_replay(cfg, steps, what, timed=3, profile=None, **path):
@@ -1499,8 +1498,7 @@ def step_kernel_vs_plain(cfg, steps, tol, what):
     from hnumo_tpu_torch.model import Model
 
     mk = Model(cfg, step_impl="eager")
-    mp = Model(cfg, volume_impl="plain", mega_impl="plain", tail_impl="plain",
-               flux_impl="plain", step_impl="eager")
+    mp = Model(cfg, impl="plain", step_impl="eager")
     out = compare_states(mk.run(mk.state0, steps, check_ok=False),
                          mp.run(mp.state0, steps, check_ok=False), tol, what)
     torch.cuda.synchronize()
@@ -1888,7 +1886,7 @@ def decomposed_ranks(dec, cases, steps, graphed=False):
     out = {}
     for name, cfg, _ in cases:
         m = Model(cfg, decomp=dec, step_impl="eager")
-        if m.static.mega or m.static.volume_impl != "kernel":
+        if m.static.mega or m.static.impl != "kernel":
             raise AssertionError(f"{name}: rank {dec.rank} is not on the eager kernel path")
         s = m.state0
         mass0 = total_mass(m, s)      # this block's share: the shares add up
@@ -2827,11 +2825,12 @@ def bcl_graph_checks(cfg, steps=300):
     """The main path's step with the baroclinic layer-momentum kernels
     (BCL_SYMBOLS: face fluxes, volume term, nodal viscosity): an eager
     model's wrappers launch each 2 a step; the graphed step's captured nodes
-    hold each exactly twice under flux_impl="kernel" and none under "plain",
-    and the barotropic kernels as its path says; one replay's device time of
-    each (torch.profiler); and ms/step of the graphed step with the kernels
-    against the step with the plain versions, in turns (plain, kernel,
-    kernel, plain) after one untimed step each."""
+    hold each exactly twice under impl="kernel" and none under "plain", and
+    the barotropic kernels as its path says under "kernel" and none under
+    "plain"; one replay's device time of each (torch.profiler); and ms/step
+    of the graphed step with every kernel against the step with every plain
+    version, in turns (plain, kernel, kernel, plain) after one untimed step
+    each."""
     from torch.profiler import ProfilerActivity, profile
 
     from hnumo_tpu_torch.model import Model
@@ -2848,7 +2847,7 @@ def bcl_graph_checks(cfg, steps=300):
     del me
     models, in_graph = {}, {}
     for impl in ("plain", "kernel"):
-        m = Model(cfg, flux_impl=impl)
+        m = Model(cfg, impl=impl)
         m.keep_graph = True
         before = {k: w.launches for k, w in wrappers.items()}
         s = m.run(m.state0, 1)
@@ -2859,13 +2858,14 @@ def bcl_graph_checks(cfg, steps=300):
             n = sum(v for k, v in nodes.items() if sym in k)
             made = wrappers[name].launches - before[name]
             if n != want or made != 2 * want:
-                raise AssertionError(f"flux_impl={impl}: {n} graph nodes of {sym} and {made} "
+                raise AssertionError(f"impl={impl}: {n} graph nodes of {sym} and {made} "
                                      f"launches at capture, expected {want} and {2 * want}")
             if impl == "kernel":
                 in_graph[name] = n
         path = graph_path_counts(nodes)
-        if path != {k: path_launches_per_step(m).get(k, 0) for k in KERNEL_SYMBOLS}:
-            raise AssertionError(f"flux_impl={impl}: the graph launches {path} of the "
+        want_path = path_launches_per_step(m) if impl == "kernel" else {}
+        if path != {k: want_path.get(k, 0) for k in KERNEL_SYMBOLS}:
+            raise AssertionError(f"impl={impl}: the graph launches {path} of the "
                                  "barotropic kernels")
         kernel_nodes = sum(v for k, v in nodes.items() if not k.startswith("("))
         models[impl] = (m, s, kernel_nodes, nodes.get("(memcpy)", 0))
@@ -2975,7 +2975,7 @@ def check_bcl_flux(smi) -> dict:
     k = g["kernels"]["bcl_flux"]
     print(f"phase 31 main path 25x25 f32: {k['eager_launches_per_step']:g} launches a step "
           f"eager, {k['graph_nodes']} nodes of {FLUX_SYMBOL} in the captured graph; "
-          f"kernel nodes a step plain / kernel baroclinic momentum "
+          f"kernel nodes a step every plain version / every kernel "
           f"{g['graph_kernel_nodes']['plain']} / {g['graph_kernel_nodes']['kernel']}; ms/step "
           f"in turns {g['ms_per_step_turns']}; in a profiled replay {k['replay_launches']} "
           f"launches, {k['ms_per_launch_in_replay']} ms each | {smi}")
@@ -3186,8 +3186,8 @@ def check_bcl_momentum(smi) -> list:
                     f"graph nodes, {k['replay_launches']} in a profiled replay at "
                     f"{k['ms_per_launch_in_replay']} ms each"
                     for n, k in g["kernels"].items() if n in pairs)
-    print(f"phase 32 main path 25x25 f32: {per}; kernel nodes a step plain / kernel "
-          f"baroclinic momentum {g['graph_kernel_nodes']['plain']} / "
+    print(f"phase 32 main path 25x25 f32: {per}; kernel nodes a step every plain version / "
+          f"every kernel {g['graph_kernel_nodes']['plain']} / "
           f"{g['graph_kernel_nodes']['kernel']}, memcpy nodes "
           f"{g['graph_memcpy_nodes']['plain']} / {g['graph_memcpy_nodes']['kernel']}; ms/step "
           f"in turns {g['ms_per_step_turns']} | {smi}")
@@ -3567,7 +3567,7 @@ def main() -> int:
 
     # ---- phase 5: per-stage path, 64x64 f32 ----------------------------------
     m64 = Model(main_path_config(64, "float32"))
-    if m64.static.mega or m64.static.volume_impl != "kernel":
+    if m64.static.mega or m64.static.impl != "kernel":
         raise AssertionError("64x64 is over 1024 elements: 'auto' must leave it on "
                              "the per-stage path with the CUDA volume kernel")
     run64, s64 = drive(m64, warm=2, steps=3)
@@ -3676,7 +3676,7 @@ def main() -> int:
 
     # ---- phase 9: main path, 32x32 f32 through the megakernel ----------------
     m32 = Model(main_path_config(32, "float32"))
-    if not (m32.static.mega and m32.static.mega_impl == "kernel"):
+    if not (m32.static.mega and m32.static.impl == "kernel"):
         raise AssertionError("32x32 with default arguments must take the megakernel")
     run32, s32 = drive(m32, warm=3, steps=20)
     if run32["mega_routes"] != {"streamed": 0, "resident": run32["launches"]}:
@@ -3768,8 +3768,7 @@ def main() -> int:
 
     # ---- phase 12: the fused path at full width, 64x64 f32 -------------------
     f64m = Model(fused_config(64, "float32"))
-    if not (f64m.static.fused_tail and not f64m.static.mega
-            and f64m.static.volume_impl == "kernel" and f64m.static.tail_impl == "kernel"):
+    if not (f64m.static.fused_tail and not f64m.static.mega and f64m.static.impl == "kernel"):
         raise AssertionError("mega='off', fused_tail='on' must take the fused path "
                              "with its three CUDA kernels")
     runf64, sf64 = drive(f64m, warm=2, steps=3)

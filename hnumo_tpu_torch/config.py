@@ -9,7 +9,7 @@ and the same namelist parser (reference src/mod_input.F90:97-480), so one
 over, with the same meaning and the same defaults; use_pallas,
 pallas_interpret, scan_stages and mega_precision have no counterpart here
 (one precision, full f32; kernel or plain version is chosen by
-`Model(..., volume_impl=, mega_impl=, tail_impl=)`): a namelist that sets
+`Model(..., impl=)`): a namelist that sets
 them is read with a warning that they have no effect.
 """
 from __future__ import annotations

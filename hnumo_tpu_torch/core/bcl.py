@@ -141,10 +141,10 @@ def layer_momentum_volume(static, P: Precomputed, g: DeviceGeom,
     pressures, momentum-flux consistency weighting against the barotropic
     time averages, wind/bottom-stress vertical distribution, interface-slope
     source p*grad(z). The body is ops/bcl_mom_volume: its CUDA kernel under
-    `static.flux_impl == "kernel"`, its plain version under "plain".
+    `static.impl == "kernel"`, its plain version under "plain".
     Returns rhs_mom (2, L, nodal) without massinv.
     """
-    volume = bcl_mom_volume_cuda if static.flux_impl == "kernel" else bcl_mom_volume_plain
+    volume = bcl_mom_volume_cuda if static.impl == "kernel" else bcl_mom_volume_plain
     return volume(static, P, g, avg, qprime_df, q_df)
 
 
@@ -155,10 +155,10 @@ def layer_momentum_fluxes(static, P: Precomputed, g: DeviceGeom, bc: BCs,
 
     Reference Apply_layers_fluxes (src/mod_create_rhs_mlswe.F90:458-820).
     The per-face work of both directions is ops/bcl_flux: its CUDA kernel
-    under `static.flux_impl == "kernel"`, its plain version under "plain";
+    under `static.impl == "kernel"`, its plain version under "plain";
     the scatter into the elements' edges is here.
     """
-    fluxes = (bcl_momentum_fluxes_cuda if static.flux_impl == "kernel"
+    fluxes = (bcl_momentum_fluxes_cuda if static.impl == "kernel"
               else bcl_momentum_fluxes_plain)
     (SuLx, SuRx, SvLx, SvRx), (SuLy, SuRy, SvLy, SvRy) = fluxes(
         g.psiq, P.alpha, static.gravity, qprime_faces, avg.faces, P.faces)

@@ -559,10 +559,9 @@ def _barotropic_solve_fused(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     Counterpart of hnumo_tpu/core/btp._barotropic_solve_fused. The state
     and every accumulator are carried FLAT (element- / face-major) across
     the whole sub-cycling; structured layouts are rebuilt once at the end.
-    Kernel A under `static.volume_impl`, kernels F and U under
-    `static.tail_impl` ("kernel": CUDA, "plain": plain PyTorch). The
-    accumulators are allocated here and updated in place by the stages;
-    `qb_df` is not mutated."""
+    Kernels A, F and U under `static.impl` ("kernel": CUDA, "plain": plain
+    PyTorch). The accumulators are allocated here and updated in place by
+    the stages; `qb_df` is not mutated."""
     dtype, device = qb_df.dtype, qb_df.device
     opts = dict(dtype=dtype, device=device)
     ney, nex = g.wjac.shape[0], g.wjac.shape[1]
@@ -572,10 +571,10 @@ def _barotropic_solve_fused(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     use_visc = static.use_visc
     kstages = static.kstages
 
-    volume = (btp_volume_uni_cuda if static.volume_impl == "kernel"
-              else btp_volume_uni_plain)
-    faces, update = ((btp_faces_cuda, btp_update_cuda) if static.tail_impl == "kernel"
-                     else (btp_faces_plain, btp_update_plain))
+    if static.impl == "kernel":
+        volume, faces, update = btp_volume_uni_cuda, btp_faces_cuda, btp_update_cuda
+    else:
+        volume, faces, update = btp_volume_uni_plain, btp_faces_plain, btp_update_plain
     vol_kw = dict(grav=static.gravity, botfr=static.botfr, cd=static.cd_mlswe,
                   alpha_bot=static.alpha_bot)
 
@@ -658,12 +657,12 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     Reference ti_barotropic_ssprk_mlswe (src/mod_rk_mlswe.F90:19-151).
     With `static.mega` and `mega_ops` (ops/mega.build_mega_static) the whole
     solve is one call of ops/mega — the CUDA megakernel when
-    static.mega_impl == "kernel", its plain version when "plain".
+    static.impl == "kernel", its plain version when "plain".
     Else with `static.fused_tail` the fused path runs
     (`_barotropic_solve_fused`; `tail_ops` from `build_fused_operators`,
     rebuilt here when None).
     Otherwise each stage is one fused volume stage — the CUDA kernel when
-    static.volume_impl == "kernel", its plain version when "plain"; the
+    static.impl == "kernel", its plain version when "plain"; the
     uniform-geometry stage under `static.uni_volume` — which also updates
     the flat volume/nodal accumulators in place, followed by the face path
     in plain PyTorch (flat axis under `static.batched_faces`, else per
@@ -672,7 +671,7 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     Returns (qb_df at t+dt, normalized BtpAverages); `qb_df` is not mutated.
     """
     if static.mega and mega_ops is not None:
-        solve = (barotropic_solve_mega_cuda if static.mega_impl == "kernel"
+        solve = (barotropic_solve_mega_cuda if static.impl == "kernel"
                  else barotropic_solve_mega_plain)
         return solve(static, P, g, bc, coup, qb_df, qprime_df, mega_ops)
     if static.fused_tail:
@@ -691,7 +690,7 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     batched = static.batched_faces
     lsrk = static.ti_method_btp == "lsrk"
 
-    kernel = static.volume_impl == "kernel"
+    kernel = static.impl == "kernel"
     if static.uni_volume:
         volume = btp_volume_uni_cuda if kernel else btp_volume_uni_plain
     else:

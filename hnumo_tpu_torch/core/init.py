@@ -28,10 +28,7 @@ from .types import FaceDirGeom, Pair, Precomputed, State
 
 GRAVITY_DEFAULT = 9.806
 
-VOLUME_IMPLS = ("kernel", "plain")
-MEGA_IMPLS = ("kernel", "plain")
-TAIL_IMPLS = ("kernel", "plain")
-FLUX_IMPLS = ("kernel", "plain")
+IMPLS = ("kernel", "plain")
 # "auto" dispatches the megakernel up to this many elements. The number is
 # the JAX package's (there a fast-memory cap of its kernel); it is kept so
 # that both packages take the same path at the same size.
@@ -53,15 +50,14 @@ class StaticConfig:
     for and the size allows it; `mega` adds the envelope), `fused_tail_on`,
     `uni_volume_on` and `batched_faces_on` (asked for, or for the flat face
     axis the size allows it; `fused_tail`, `uni_volume` and `batched_faces`
-    add the envelopes) and four implementation switches: `volume_impl` ("kernel"
-    runs the barotropic volume stage — the general one of the per-stage
-    path, ops/btp_volume, and the uniform-geometry one, ops/btp_volume_uni —
-    through its CUDA kernel, "plain" through its plain PyTorch version),
-    `mega_impl` (the same choice for ops/mega.barotropic_solve_mega_cuda /
-    _plain), `tail_impl` (for the face and update kernels of the fused
-    path, ops/btp_tail, together) and `flux_impl` (the baroclinic layer
-    momentum's kernels together: its face fluxes, ops/bcl_flux, its volume
-    term, ops/bcl_mom_volume, and its nodal-family viscosity, ops/bcl_visc)."""
+    add the envelopes) and one implementation switch, `impl`: "kernel" runs
+    every hand-written CUDA kernel of the port on the path the flags choose
+    (the barotropic volume stage, general or uniform-geometry, ops/btp_volume
+    and ops/btp_volume_uni; the whole-solve megakernel, ops/mega; the fused
+    path's face and update stages, ops/btp_tail; the baroclinic layer
+    momentum's face fluxes, volume term and nodal-family viscosity,
+    ops/bcl_flux, ops/bcl_mom_volume and ops/bcl_visc), "plain" runs their
+    plain PyTorch versions."""
 
     nlayers: int
     kstages: int
@@ -85,14 +81,11 @@ class StaticConfig:
     ti_method_btp: str = "rk35"   # barotropic integrator: rk35/ssprk |
     #                               lsrk (2N low-storage) | lsrk_ref
     #                               (the reference's, divergent)
-    volume_impl: str = "plain"    # "kernel" | "plain"
+    impl: str = "plain"           # "kernel" | "plain"
     mega_on: bool = False         # whole-solve megakernel path (ops/mega)
-    mega_impl: str = "plain"      # "kernel" | "plain"
     fused_tail_on: bool = False   # opt-in whole-stage fused path (config)
     uni_volume_on: bool = False   # opt-in uniform-geometry volume kernel
     batched_faces_on: bool = False  # both face directions on one flat axis
-    tail_impl: str = "plain"      # "kernel" | "plain"
-    flux_impl: str = "plain"      # "kernel" | "plain"
     # SSPRK tables (reference src/mod_initial_mlswe.F90:582-681; the LSRK
     # ones under lsrk and lsrk_ref, column 0 the A and beta the B
     # coefficients) as Python floats rounded to the compute dtype — the
@@ -102,19 +95,8 @@ class StaticConfig:
     ssprk_beta: tuple = ()        # kstages
 
     def __post_init__(self):
-        if self.volume_impl not in VOLUME_IMPLS:
-            raise ValueError(
-                f"volume_impl must be one of {VOLUME_IMPLS}, got "
-                f"{self.volume_impl!r}")
-        if self.mega_impl not in MEGA_IMPLS:
-            raise ValueError(
-                f"mega_impl must be one of {MEGA_IMPLS}, got {self.mega_impl!r}")
-        if self.tail_impl not in TAIL_IMPLS:
-            raise ValueError(
-                f"tail_impl must be one of {TAIL_IMPLS}, got {self.tail_impl!r}")
-        if self.flux_impl not in FLUX_IMPLS:
-            raise ValueError(
-                f"flux_impl must be one of {FLUX_IMPLS}, got {self.flux_impl!r}")
+        if self.impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
 
     @property
     def mega_envelope(self) -> bool:
@@ -357,8 +339,7 @@ def static_for_blocks(static: StaticConfig, cfg: Config, nblocks: int) -> Static
 
 
 def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
-                      volume_impl: str = "plain", mega_impl: str = "plain",
-                      tail_impl: str = "plain", flux_impl: str = "plain", zbot_ext=None
+                      impl: str = "plain", zbot_ext=None
                       ) -> tuple[Precomputed, State, StaticConfig, InitialFields]:
     """Build all static tables + initial state as tensors on `device`."""
     check_ported(cfg)
@@ -664,20 +645,17 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype: torch.dtype, device,
         compat_reference_stress=cfg.compat_reference_stress,
         uniform_geom=uniform_geom, flat_bottom=flat_bottom,
         ti_method_btp=cfg.ti_method_btp,
-        volume_impl=volume_impl,
+        impl=impl,
         # "on" trusts the caller at any element count, "auto" stays under
         # the cap; both keep the JAX package's order cap (nop <= 7)
         mega_on=(cfg.mega in ("on", "auto") and cfg.nopx <= MEGA_MAX_NOP
                  and (cfg.mega == "on"
                       or cfg.nelx * cfg.nely <= MEGA_AUTO_MAX_ELEMENTS)),
-        mega_impl=mega_impl,
         fused_tail_on=cfg.fused_tail == "on",
         uni_volume_on=cfg.uni_volume == "on",
         batched_faces_on=(cfg.batched_faces == "on"
                           or (cfg.batched_faces == "auto"
                               and cfg.nelx * cfg.nely <= BATCHED_FACES_AUTO_MAX_ELEMENTS)),
-        tail_impl=tail_impl,
-        flux_impl=flux_impl,
         ssprk_a=tuple(map(tuple, P.ssprk_a.tolist())),
         ssprk_beta=tuple(P.ssprk_beta.tolist()),
     )

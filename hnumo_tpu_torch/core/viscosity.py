@@ -114,8 +114,8 @@ def bcl_nodal_laplacian(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     bcl_create_rhs_laplacian_flux (src/mod_laplacian_quad.F90:227-248,
     392-425, 521-611). Consumes the barotropic-average LDG gradients.
     The body is ops/bcl_visc: its CUDA kernel under
-    `static.flux_impl == "kernel"`, its plain version under "plain".
+    `static.impl == "kernel"`, its plain version under "plain".
     Returns rhs_lap (2, L, nodal).
     """
-    visc = bcl_visc_cuda if static.flux_impl == "kernel" else bcl_visc_plain
+    visc = bcl_visc_cuda if static.impl == "kernel" else bcl_visc_plain
     return visc(static, P, g, bc, coup, avg)

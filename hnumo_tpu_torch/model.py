@@ -27,8 +27,7 @@ import torch
 from .config import Config
 from .core.btp import build_fused_operators, build_vol_operators
 from .core.faces import BCs
-from .core.init import (FLUX_IMPLS, MEGA_IMPLS, TAIL_IMPLS, VOLUME_IMPLS, build_precomputed,
-                        check_ported, static_for_blocks)
+from .core.init import IMPLS, build_precomputed, check_ported, static_for_blocks
 from .core.stepper import ti_rk_bcl
 from .core.types import State
 from .mesh.grid import build_geometry
@@ -86,21 +85,22 @@ def _resolve_impl(name: str, impl, allowed, device: torch.device) -> str:
 
 def kernel_sources(static) -> list[str]:
     """The sources of ops/csrc/ whose kernels a step on `static`'s path
-    launches: the barotropic path's, as core/btp.barotropic_solve picks them,
-    and the baroclinic layer momentum's (face fluxes, volume term and, with
-    the nodal-family viscosity, its Laplacian), each where its switch is
-    "kernel"."""
+    launches under `impl == "kernel"` (none under "plain"): the barotropic
+    path's, as core/btp.barotropic_solve picks them, then the baroclinic
+    layer momentum's (face fluxes, volume term and, with the nodal-family
+    viscosity, its Laplacian)."""
+    if static.impl == "plain":
+        return []
     if static.mega:
-        impls = {"btp_mega": static.mega_impl}
+        names = ["btp_mega"]
     elif static.fused_tail:
-        impls = {"btp_volume_uni": static.volume_impl, "btp_faces": static.tail_impl,
-                 "btp_update": static.tail_impl}
+        names = ["btp_volume_uni", "btp_faces", "btp_update"]
     else:
-        impls = {"btp_volume_uni" if static.uni_volume else "btp_volume": static.volume_impl}
-    impls["bcl_flux"] = impls["bcl_mom_volume"] = static.flux_impl
+        names = ["btp_volume_uni" if static.uni_volume else "btp_volume"]
+    names += ["bcl_flux", "bcl_mom_volume"]
     if static.use_visc and static.method_visc != 1:
-        impls["bcl_visc"] = static.flux_impl
-    return [name for name, impl in impls.items() if impl == "kernel"]
+        names.append("bcl_visc")
+    return names
 
 
 def resolve_step_impl(step_impl, decomp, device: torch.device) -> str:
@@ -163,17 +163,16 @@ class Model:
     # (capture_graph's keep_graph; self._graph[0].raw_cuda_graph())
     keep_graph = False
 
-    def __init__(self, cfg: Config, device=None, volume_impl: str | None = None,
-                 mega_impl: str | None = None, tail_impl: str | None = None,
-                 step_impl: str | None = None, decomp=None, flux_impl: str | None = None):
+    def __init__(self, cfg: Config, device=None, impl: str | None = None,
+                 step_impl: str | None = None, decomp=None):
         """`device`: None = the CUDA device (raises without one), or any
-        torch device; the tests pass "cpu". `volume_impl` / `mega_impl` /
-        `tail_impl` / `flux_impl`: "kernel" (the CUDA kernel of the volume
-        stage — general or uniform-geometry — / of the whole-solve megakernel
-        / of the face and update stages of the fused path / of the baroclinic
-        layer momentum: its face fluxes, volume term and nodal-family
-        viscosity; default on CUDA) or "plain"
-        (its plain PyTorch version; default on the CPU). Which barotropic
+        torch device; the tests pass "cpu". `impl`: "kernel" (every
+        hand-written CUDA kernel on the path that runs: the barotropic volume
+        stage, general or uniform-geometry, the whole-solve megakernel, the
+        fused path's face and update stages, and the baroclinic layer
+        momentum's face fluxes, volume term and nodal-family viscosity;
+        default on CUDA) or "plain" (their plain PyTorch versions; default
+        on the CPU). Which barotropic
         path runs is `cfg.mega`, then `cfg.fused_tail` (see
         StaticConfig.mega, .fused_tail, .uni_volume; the per-stage path's
         face pipeline, .batched_faces). `step_impl`: "graph"
@@ -193,11 +192,7 @@ class Model:
                 raise ValueError(f"device {device} is not the decomposition's "
                                  f"{decomp.device}")
         self.device = _resolve_device(device)
-        volume_impl = _resolve_impl("volume_impl", volume_impl, VOLUME_IMPLS,
-                                    self.device)
-        mega_impl = _resolve_impl("mega_impl", mega_impl, MEGA_IMPLS, self.device)
-        tail_impl = _resolve_impl("tail_impl", tail_impl, TAIL_IMPLS, self.device)
-        flux_impl = _resolve_impl("flux_impl", flux_impl, FLUX_IMPLS, self.device)
+        impl = _resolve_impl("impl", impl, IMPLS, self.device)
         self.step_impl = resolve_step_impl(step_impl, decomp, self.device)
         _set_full_precision()
         check_ported(cfg)
@@ -232,9 +227,7 @@ class Model:
         self.g = device_geom(self.geom, self.dtype, self.device)
         self.bc = BCs(*bc)
         self.P, self._state0, self.static, self.init_fields = build_precomputed(
-            cfg, self.geom, self.dtype, self.device, volume_impl=volume_impl,
-            mega_impl=mega_impl, tail_impl=tail_impl, flux_impl=flux_impl,
-            zbot_ext=zbot_ext)
+            cfg, self.geom, self.dtype, self.device, impl=impl, zbot_ext=zbot_ext)
         # the element whose metric the uniform operators fold (None: the
         # first of `self.g`; a block takes the whole grid's first)
         self._cell = None
@@ -282,19 +275,14 @@ class Model:
 
     @classmethod
     def from_tables(cls, cfg: Config, P, g, state0: State, device=None,
-                    volume_impl: str | None = None,
-                    mega_impl: str | None = None,
-                    tail_impl: str | None = None,
-                    step_impl: str | None = None, decomp=None,
-                    flux_impl: str | None = None) -> "Model":
+                    impl: str | None = None, step_impl: str | None = None,
+                    decomp=None) -> "Model":
         """A model stepping on given tables (see convert.from_numpy_tables,
         and convert.block_from_numpy for a block of a decomposition) in place
         of the ones its own build_precomputed makes — the static parameters
         still come from `cfg`. Lets a test hold the stepping code against
         another implementation on identical tables."""
-        m = cls(cfg, device=device, volume_impl=volume_impl, mega_impl=mega_impl,
-                tail_impl=tail_impl, step_impl=step_impl, decomp=decomp,
-                flux_impl=flux_impl)
+        m = cls(cfg, device=device, impl=impl, step_impl=step_impl, decomp=decomp)
         want = (m.dtype, m.device)
         for t in (P.pbprime, g.wjac, state0.qb_df):
             if (t.dtype, t.device) != want:

@@ -343,7 +343,7 @@ def bcl_momentum_fluxes_cuda(psiq: Tensor, alpha: Tensor, grav: float, qprime_fa
     if psiq.device.type != "cuda":
         raise ValueError(
             f"bcl_momentum_fluxes_cuda takes CUDA tensors, got {psiq.device}; use "
-            "bcl_momentum_fluxes_plain (flux_impl='plain') on other devices")
+            "bcl_momentum_fluxes_plain (impl='plain') on other devices")
     ptrs, counts, outs = [], [], []
     for d in "xy":
         ops, faces = operands[d]

@@ -249,7 +249,7 @@ def bcl_mom_volume_cuda(static, P, g, avg, qprime_df, q_df):
     if g.psiq.device.type != "cuda":
         raise ValueError(
             f"bcl_mom_volume_cuda takes CUDA tensors, got {g.psiq.device}; use "
-            "bcl_mom_volume_plain (flux_impl='plain') on other devices")
+            "bcl_mom_volume_plain (impl='plain') on other devices")
     ly, lx = qprime_df.shape[2:4]
     out = torch.empty((2, L, ly, lx, ngl, ngl), dtype=dtype, device=g.psiq.device)
     lib = _library()

@@ -152,7 +152,7 @@ def bcl_visc_cuda(static, P, g, bc, coup, avg):
     if g.dpsi.device.type != "cuda":
         raise ValueError(
             f"bcl_visc_cuda takes CUDA tensors, got {g.dpsi.device}; use "
-            "bcl_visc_plain (flux_impl='plain') on other devices")
+            "bcl_visc_plain (impl='plain') on other devices")
     # the first face of each direction is a domain wall whose interior
     # element is its L side (core/faces.scatter_face_x / _y)
     wall_w = int(not bc.x_periodic and _edge_masks(bc.ax)[0])

@@ -253,7 +253,7 @@ def _require_cuda(name: str, t: Tensor) -> int:
     if t.device.type != "cuda":
         raise ValueError(
             f"{name}_cuda takes CUDA tensors, got {t.device}; use {name}_plain "
-            "(tail_impl='plain') on other devices")
+            "(impl='plain') on other devices")
     if t.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name}_cuda takes float32/float64, got {t.dtype}")
     return int(t.dtype == torch.float64)

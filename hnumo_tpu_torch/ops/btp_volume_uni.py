@@ -277,7 +277,7 @@ def btp_volume_uni_cuda(ops: BtpVolOpsUni, qb_n: Tensor, qpln: Tensor,
     if qb_n.device.type != "cuda":
         raise ValueError(
             f"btp_volume_uni_cuda takes CUDA tensors, got {qb_n.device}; use "
-            "btp_volume_uni_plain (volume_impl='plain') on other devices")
+            "btp_volume_uni_plain (impl='plain') on other devices")
     if qb_n.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"btp_volume_uni_cuda takes float32/float64, got {qb_n.dtype}")
     is_double = int(qb_n.dtype == torch.float64)

@@ -53,7 +53,6 @@ from .dg import interp_n2q
 
 # side order of every (.., E, 4, m) table
 EAST, WEST, NORTH, SOUTH = range(4)
-_OPPOSITE = (WEST, EAST, SOUTH, NORTH)
 MAX_KSTAGES = 5     # size of the kernel's by-value SSPRK tables
 
 _FTAB_FIELDS = ("nx", "ny", "jac", "coeff_pbpert_L", "coeff_pbpert_R",
@@ -282,9 +281,13 @@ def _mega_stages_plain(static, mops: MegaStatic, op: SolveOperands, acc):
 
     bnd = (mops.nbr < 0)[None, :, :, None]                    # (1, E, 4, 1)
     nbr = mops.nbr.clamp(min=0).long()                        # (E, 4)
-    opp = torch.tensor(_OPPOSITE, device=nbr.device)
-    first = torch.tensor([True, False, True, False],
-                         device=nbr.device)[None, None, :, None]
+    # made on the device, so that a CUDA graph can capture the solve (it
+    # cannot capture a copy from pageable host memory): each side's
+    # opposite (EAST <-> WEST, NORTH <-> SOUTH), and the sides of which the
+    # element is the left one (EAST, NORTH)
+    sides = torch.arange(4, device=nbr.device)
+    opp = sides ^ 1
+    first = (sides % 2 == 0)[None, None, :, None]
     # sign with which a side's integrated flux lands on the element's edge
     # nodes: the element is the left side of its east/north faces and of any
     # boundary face (-), the right side of interior west/south faces (+)
@@ -575,7 +578,7 @@ def mega_launch(static, mops: MegaStatic, op: SolveOperands, acc, ws: Tensor,
     if device.type != "cuda":
         raise ValueError(
             f"the megakernel takes CUDA tensors, got {device}; use "
-            "barotropic_solve_mega_plain (mega_impl='plain') on other devices")
+            "barotropic_solve_mega_plain (impl='plain') on other devices")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the megakernel takes float32/float64, got {dtype}")
     use_visc = int(static.use_visc)

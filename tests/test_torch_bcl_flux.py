@@ -6,7 +6,7 @@ bit what the function gave before its body moved (portbench/reference keeps
 a frozen copy of it that imports nothing of the port), and the JAX package's
 layer_momentum_fluxes within 1e-12 (f64) on the same tables and inputs;
 over 1-3, 5 and 10 layers, walls and x-periodic sides, p=4 with exact and
-inexact integration and p=8, on a 3x2 grid. A CPU model resolves `flux_impl`
+inexact integration and p=8, on a 3x2 grid. A CPU model resolves `impl`
 to the plain version and builds no kernel; the CUDA wrapper refuses what it
 does not take, and takes more layers than its register build holds. The kernel
 itself is held against the plain version on the card (chip_smoke.py
@@ -30,6 +30,7 @@ from hnumo_tpu_torch.model import Model as TorchModel
 from hnumo_tpu_torch.ops import bcl_flux
 from portbench.reference.core import bcl as frozen_bcl
 from test_torch_common import assert_close, jax_config, to_np, torch_config, tt
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 GRID = dict(nelx=3, nely=2)
 XPER = dict(x_boundary=(3, 3), y_boundary=(4, 4))
@@ -124,7 +125,7 @@ def test_plain_fluxes_are_the_function_before_the_move(case, dtype):
     over, _, tables, inputs = case
     calls = bcl_flux.bcl_momentum_fluxes_plain.calls
     got, tm = torch_run(over, tables, inputs, dtype, t_bcl.layer_momentum_fluxes)
-    assert tm.static.flux_impl == "plain"
+    assert tm.static.impl == "plain"
     assert bcl_flux.bcl_momentum_fluxes_plain.calls == calls + 1
     want, _ = torch_run(over, tables, inputs, dtype, frozen_bcl.layer_momentum_fluxes)
     assert got.dtype == dtype and got.shape == want.shape
@@ -154,24 +155,12 @@ def _small(**over):
 
 def test_cpu_model_takes_the_plain_fluxes_twice_a_step():
     m = TorchModel(_small(), device="cpu")
-    assert m.static.flux_impl == "plain"
+    assert m.static.impl == "plain"
     calls = bcl_flux.bcl_momentum_fluxes_plain.calls
     launches = bcl_flux.bcl_momentum_fluxes_cuda.launches
     m.step(m.state0)
     assert bcl_flux.bcl_momentum_fluxes_plain.calls == calls + 2    # predictor, corrector
     assert bcl_flux.bcl_momentum_fluxes_cuda.launches == launches
-
-
-def test_flux_impl_kernel_on_the_cpu_and_unknown_values_raise():
-    import dataclasses
-
-    with pytest.raises(ValueError, match="flux_impl='kernel' needs a CUDA device"):
-        TorchModel(_small(), device="cpu", flux_impl="kernel")
-    with pytest.raises(ValueError, match="flux_impl must be one of"):
-        TorchModel(_small(), device="cpu", flux_impl="fast")
-    m = TorchModel(_small(), device="cpu", flux_impl="plain")
-    with pytest.raises(ValueError, match="flux_impl"):
-        dataclasses.replace(m.static, flux_impl="fast")
 
 
 def _wrapper_operands(nlayers: int = 2):
@@ -262,7 +251,7 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
     """model.kernel_sources names the sources of the kernels a step on each
     barotropic path launches, the baroclinic layer momentum's with them
     (face fluxes, volume term, and the nodal-family viscosity where it is
-    on); a CPU model compiles nothing."""
+    on), and none under impl="plain"; a CPU model compiles nothing."""
     from types import SimpleNamespace
 
     import hnumo_tpu_torch.model as model
@@ -272,8 +261,7 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
 
     monkeypatch.setattr(model, "build_libraries", no_build)
     assert model.kernel_sources(TorchModel(_small(), device="cpu").static) == []
-    k = dict(volume_impl="kernel", mega_impl="kernel", tail_impl="kernel",
-             flux_impl="kernel", use_visc=True, method_visc=2)
+    k = dict(impl="kernel", use_visc=True, method_visc=2)
     paths = {"per-stage": dict(mega=False, fused_tail=False, uni_volume=False),
              "uniform volume": dict(mega=False, fused_tail=False, uni_volume=True),
              "fused": dict(mega=False, fused_tail=True, uni_volume=True),
@@ -285,8 +273,7 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
             "mega": ["btp_mega"] + bcl}
     for name, flags in paths.items():
         assert model.kernel_sources(SimpleNamespace(**flags, **k)) == want[name]
-    plain_fluxes = SimpleNamespace(**paths["mega"], **{**k, "flux_impl": "plain"})
-    assert model.kernel_sources(plain_fluxes) == ["btp_mega"]
+        assert model.kernel_sources(SimpleNamespace(**flags, **{**k, "impl": "plain"})) == []
     # no viscosity, or the quad family's: no nodal viscosity kernel
     for visc in (dict(use_visc=False), dict(method_visc=1)):
         flags = SimpleNamespace(**paths["mega"], **{**k, **visc})

@@ -9,7 +9,7 @@ keeps frozen copies of them that import nothing of the port), and the JAX
 package's functions within 1e-12 (f64) on the same tables and inputs; over
 1-3, 5 and 10 layers, walls and x-periodic sides, p=4 with exact and
 inexact integration and p=8, and the reference's stress slip at 2 and 3
-layers, on a 3x2 grid. A CPU model resolves `flux_impl` to the plain
+layers, on a 3x2 grid. A CPU model resolves `impl` to the plain
 versions and builds no kernel; the CUDA wrappers refuse what they do not
 take. The kernels themselves are held against the plain versions on the
 card (chip_smoke.py phase 32).
@@ -37,6 +37,7 @@ from portbench.reference.core import bcl as frozen_bcl
 from portbench.reference.core import viscosity as frozen_visc
 from test_torch_bcl_flux import CASES, GRID, LAYERS, _small, averages, flux_inputs
 from test_torch_common import assert_close, jax_config, to_np, torch_config
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 STRESS_SLIP = dict(compat_reference_stress=True)
 MOMENTUM_CASES = CASES + [("L2-stress-slip", STRESS_SLIP),
@@ -145,7 +146,7 @@ def test_plain_versions_are_the_functions_before_the_move(case, dtype, which):
     fn, frozen, plain = FUNCTIONS[which]
     calls = plain.calls
     got, tm = torch_run(over, tables, inputs, dtype, which, fn)
-    assert tm.static.flux_impl == "plain"
+    assert tm.static.impl == "plain"
     assert plain.calls == calls + 1
     want, _ = torch_run(over, tables, inputs, dtype, which, frozen)
     assert got.dtype == dtype and got.shape == want.shape
@@ -184,7 +185,7 @@ def test_the_stress_slip_moves_the_volume_term():
 
 def test_cpu_model_takes_the_plain_versions_twice_a_step():
     m = TorchModel(_small(method_visc=2, visc_mlswe=100.0), device="cpu")
-    assert m.static.flux_impl == "plain" and m.static.use_visc
+    assert m.static.impl == "plain" and m.static.use_visc
     plains = (bcl_mom_volume.bcl_mom_volume_plain, bcl_visc.bcl_visc_plain)
     cudas = (bcl_mom_volume.bcl_mom_volume_cuda, bcl_visc.bcl_visc_cuda)
     calls = [f.calls for f in plains]

@@ -15,18 +15,10 @@ import torch
 
 from hnumo_tpu.config import Config as JaxConfig
 from hnumo_tpu_torch.tools import _measure, bench, scaling
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BENCH_PY = ROOT / "bench.py"
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """A port step on the CPU is thousands of small operations: one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_bench_config(nel, nop, nlayers=2, f64=False):

@@ -22,6 +22,7 @@ from hnumo_tpu_torch.core.coupling import btp_bcl_coeffs as t_coeffs
 from hnumo_tpu_torch.model import Model as TorchModel
 from test_torch_common import (assert_close, jax_config, leaves, perturb, to_np,
                                torch_config, tt)
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 import torch
 
 REL = 1e-11

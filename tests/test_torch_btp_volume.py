@@ -21,6 +21,7 @@ from hnumo_tpu_torch.convert import from_numpy_tables
 from hnumo_tpu_torch.core import btp as tbtp
 from hnumo_tpu_torch.ops import btp_volume as tv
 from test_torch_common import TDTYPE, jax_config, perturb, to_np, tt
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 
 def _case(dtype, botfr):

@@ -26,6 +26,7 @@ from hnumo_tpu_torch.io.diagnostics import compute_mass, derived_fields
 from hnumo_tpu_torch.model import Model
 from hnumo_tpu_torch.tools import dgyre_campaign as port_tool
 from test_torch_golden import port_config
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 from tools import dgyre_campaign as jax_tool
 from tools.freeze_goldens import dgyre_config
 

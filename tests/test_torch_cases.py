@@ -51,7 +51,7 @@ def test_two_steps_against_jax(tmp_path, case):
                                                  CASES[case]["dt"])
     jm = JaxModel(jcfg)
     tm = TorchModel(tcfg, device="cpu")
-    assert tm.static.mega and tm.static.mega_impl == "plain"
+    assert tm.static.mega and tm.static.impl == "plain"
     sj, st = jm.state0, tm.state0
     for _ in range(2):
         sj, st = jm.step(sj), tm.step(st)

@@ -116,12 +116,15 @@ def sumfact_scatter(psiq, dpsiq, a_ksi, a_eta, s=None):
     return r.reshape(r.shape[:-2] + (ngl * ngl,))
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """A port step on the CPU is thousands of operations on small tensors:
     one intra-op thread runs it several times faster than many, and the
-    suite's workers share the machine's cores. Applies to every test of a
-    module that imports it."""
+    suite's workers share the machine's cores (six workers of torch's
+    default eight threads on eight cores run it some tens of times slower).
+    Applies to every test of a module that imports it, and to its fixtures
+    of every scope: an autouse fixture is set up before the other fixtures
+    of its scope, and a module-scoped one before any function-scoped one."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

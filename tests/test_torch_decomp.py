@@ -39,6 +39,7 @@ from hnumo_tpu_torch.parallel.sharding import (Decomposition, block_bounds,
                                                init_decomposition, local_state,
                                                local_tables)
 from test_torch_common import leaves, to_np
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 TESTS = pathlib.Path(__file__).resolve().parent
 SEED = 20261017

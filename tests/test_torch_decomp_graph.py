@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import torch_decomp_ranks as R
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 from hnumo_tpu_torch.model import Model, resolve_step_impl
 from hnumo_tpu_torch.parallel.launch import start_function
 from hnumo_tpu_torch.parallel.sharding import Decomposition, Exchange

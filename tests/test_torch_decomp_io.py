@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import torch_decomp_ranks as R
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 from hnumo_tpu_torch.io import snapshots as snap
 from hnumo_tpu_torch.model import Model as TorchModel
 from hnumo_tpu_torch.parallel.launch import start_function

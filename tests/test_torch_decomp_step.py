@@ -38,6 +38,7 @@ from hnumo_tpu.parallel.sharding import make_mesh
 from hnumo_tpu_torch.model import Model as TorchModel
 from hnumo_tpu_torch.parallel.launch import start_function
 from test_torch_common import to_np
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 TESTS = pathlib.Path(__file__).resolve().parent
 SHAPES = [(2, 2), (1, 4)]

@@ -1,13 +1,16 @@
 """How the PyTorch package chooses the barotropic path: the `mega`,
 `fused_tail` and `uni_volume` options of Config, the envelopes of
 StaticConfig.mega / .fused_tail / .uni_volume, the order in which they are
-asked, and the implementation switches `mega_impl` and `tail_impl`. Nothing
+asked, and the one implementation switch, `impl`, over every path. Nothing
 here needs a CUDA device."""
+import dataclasses
+
 import pytest
 import torch
 
 from hnumo_tpu_torch.config import Config
 from hnumo_tpu_torch.model import Model
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 SMALL = dict(nelx=2, nely=2, nlayers=2, xdims=(0.0, 2e6), ydims=(0.0, 2e6),
              test_case="double_gyre")
@@ -43,7 +46,7 @@ def test_static_mega_follows_the_element_count(nelx, nely, mega, want):
                      mega=mega), device="cpu")
     assert m.static.mega is want
     assert (m.mega_ops is not None) is want
-    assert m.static.mega_impl == "plain"
+    assert m.static.impl == "plain"
 
 
 @pytest.mark.parametrize("nop,mega,want", [(7, "auto", True), (8, "auto", False),
@@ -82,22 +85,8 @@ def test_auto_outside_the_envelope_takes_the_per_stage_path():
     assert not m.static.mega and m.mega_ops is None
 
 
-@pytest.mark.parametrize("impl", ["pallas", "", "cuda"])
-def test_mega_impl_is_validated(impl):
-    with pytest.raises(ValueError, match="mega_impl"):
-        Model(Config(**SMALL), device="cpu", mega_impl=impl)
-
-
-def test_mega_kernel_on_the_cpu_raises():
-    with pytest.raises(ValueError, match="mega_impl='kernel' needs a CUDA device"):
-        Model(Config(**SMALL), device="cpu", mega_impl="kernel")
-    assert Model(Config(**SMALL), device="cpu", mega_impl="plain").static.mega_impl == "plain"
-
-
 def test_mega_kernel_wrapper_refuses_cpu_tensors():
     """On CPU tensors the CUDA wrapper raises; it never swaps in the plain version."""
-    import dataclasses
-
     from hnumo_tpu_torch.core.bcl import extract_qprime_faces
     from hnumo_tpu_torch.core.coupling import btp_bcl_coeffs
     from hnumo_tpu_torch.core.btp import barotropic_solve
@@ -110,21 +99,79 @@ def test_mega_kernel_wrapper_refuses_cpu_tensors():
     coup = btp_bcl_coeffs(m.static, m.P, m.g, m.bc, qp,
                           extract_qprime_faces(m.bc, qp), qp[0], zq)
     before = barotropic_solve_mega_cuda.launches
-    st = dataclasses.replace(m.static, mega_impl="kernel")
+    st = dataclasses.replace(m.static, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         barotropic_solve(st, m.P, m.g, m.bc, coup, s.qb_df, qp, mega_ops=m.mega_ops)
     assert barotropic_solve_mega_cuda.launches == before
 
 
-def test_static_config_rejects_unknown_mega_impl():
-    import dataclasses
+# ---- impl: one switch for every kernel of the port ----------------------------
 
+
+def _enter_model(value):
+    Model(Config(**SMALL), device="cpu", impl=value)
+
+
+def _enter_from_tables(value):
     m = Model(Config(**SMALL), device="cpu")
-    with pytest.raises(ValueError, match="mega_impl"):
-        dataclasses.replace(m.static, mega_impl="fast")
+    Model.from_tables(m.cfg, m.P, m.g, m.state0, device="cpu", impl=value)
 
 
-# ---- fused_tail, uni_volume and tail_impl ------------------------------------------
+def _enter_static(value):
+    dataclasses.replace(Model(Config(**SMALL), device="cpu").static, impl=value)
+
+
+@pytest.mark.parametrize("enter", [_enter_model, _enter_from_tables, _enter_static],
+                         ids=["Model", "from_tables", "static"])
+@pytest.mark.parametrize("value", ["pallas", "", "cuda", "fast"])
+def test_impl_is_validated(value, enter):
+    """An unknown value raises wherever it enters, and names the switch."""
+    with pytest.raises(ValueError, match="impl must be one of"):
+        enter(value)
+
+
+# (id, config overrides, the plain versions one step calls, the kernel sources
+# the same path builds on CUDA)
+IMPL_PATHS = [
+    ("mega", dict(), ("mega",), ["btp_mega"]),
+    ("fused", dict(mega="off", fused_tail="on"), ("volume_uni", "faces", "update"),
+     ["btp_volume_uni", "btp_faces", "btp_update"]),
+    ("per_stage", dict(mega="off"), ("volume",), ["btp_volume"]),
+    ("per_stage-uni", dict(mega="off", uni_volume="on"), ("volume_uni",), ["btp_volume_uni"]),
+]
+
+
+@pytest.mark.parametrize("over,plain,sources", [c[1:] for c in IMPL_PATHS],
+                         ids=[c[0] for c in IMPL_PATHS])
+def test_impl_kernel_on_the_cpu_raises(over, plain, sources):
+    """On each barotropic path `impl="kernel"` raises on the CPU and names the
+    switch and the device; `impl="plain"` takes that path, through the plain
+    versions of its kernels and of the baroclinic ones."""
+    from hnumo_tpu_torch import model
+    from hnumo_tpu_torch.ops import (bcl_flux, bcl_mom_volume, bcl_visc, btp_tail,
+                                     btp_volume, btp_volume_uni, mega)
+
+    cfg = Config(**SMALL, dt=40.0, dt_btp=20.0, method_visc=2, visc_mlswe=10.0, **over)
+    with pytest.raises(ValueError, match="impl='kernel' needs a CUDA device, got cpu"):
+        Model(cfg, device="cpu", impl="kernel")
+    m = Model(cfg, device="cpu", impl="plain")
+    assert m.static.impl == "plain" and model.kernel_sources(m.static) == []
+    assert model.kernel_sources(dataclasses.replace(m.static, impl="kernel")) == [
+        *sources, "bcl_flux", "bcl_mom_volume", "bcl_visc"]
+    counters = {"mega": mega.barotropic_solve_mega_plain,
+                "volume": btp_volume.btp_volume_plain,
+                "volume_uni": btp_volume_uni.btp_volume_uni_plain,
+                "faces": btp_tail.btp_faces_plain, "update": btp_tail.btp_update_plain,
+                "bcl_flux": bcl_flux.bcl_momentum_fluxes_plain,
+                "bcl_mom_volume": bcl_mom_volume.bcl_mom_volume_plain,
+                "bcl_visc": bcl_visc.bcl_visc_plain}
+    before = {k: f.calls for k, f in counters.items()}
+    assert bool(m.step(m.state0).ok)
+    ran = {k for k, f in counters.items() if f.calls > before[k]}
+    assert ran == {*plain, "bcl_flux", "bcl_mom_volume", "bcl_visc"}
+
+
+# ---- fused_tail and uni_volume --------------------------------------------------
 
 
 @pytest.mark.parametrize("option", ["fused_tail", "uni_volume"])
@@ -140,27 +187,6 @@ def test_on_off_options_default_to_off_as_in_the_jax_package(option):
 
     assert getattr(Config(**SMALL), option) == "off" == getattr(JaxConfig(), option)
     assert getattr(Config(**SMALL, **{option: "on"}), option) == "on"
-
-
-@pytest.mark.parametrize("impl", ["pallas", "", "cuda"])
-def test_tail_impl_is_validated(impl):
-    with pytest.raises(ValueError, match="tail_impl"):
-        Model(Config(**SMALL), device="cpu", tail_impl=impl)
-
-
-def test_tail_kernel_on_the_cpu_raises():
-    with pytest.raises(ValueError, match="tail_impl='kernel' needs a CUDA device"):
-        Model(Config(**SMALL, mega="off", fused_tail="on"), device="cpu", tail_impl="kernel")
-    m = Model(Config(**SMALL, mega="off", fused_tail="on"), device="cpu", tail_impl="plain")
-    assert m.static.tail_impl == "plain"
-
-
-def test_static_config_rejects_unknown_tail_impl():
-    import dataclasses
-
-    m = Model(Config(**SMALL), device="cpu")
-    with pytest.raises(ValueError, match="tail_impl"):
-        dataclasses.replace(m.static, tail_impl="fast")
 
 
 @pytest.mark.parametrize("nelx,nely,mega,want_mega", [
@@ -254,8 +280,6 @@ def test_on_outside_the_envelope_raises_and_names_it(option, monkeypatch):
     (dict(uni_volume_on=False), True, False),
 ])
 def test_static_envelopes_are_the_jax_package_s(replace, fused, uni):
-    import dataclasses
-
     m = Model(Config(**SMALL, mega="off", fused_tail="on", uni_volume="on",
                      method_visc=2, visc_mlswe=10.0), device="cpu")
     st = dataclasses.replace(m.static, **replace)

@@ -35,6 +35,7 @@ from hnumo_tpu_torch.model import Model as TorchModel
 from hnumo_tpu_torch.ops import btp_tail, btp_volume, btp_volume_uni
 from test_torch_common import (assert_close, jax_config, leaves, perturb, to_np,
                                torch_config, tt)
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 REL = 1e-11
 FREE = ((4, 4), (4, 4))
@@ -82,7 +83,7 @@ def solved(request):
         *from_numpy_tables(to_np(P), to_np(g), state_np, "cpu", torch.float64),
         device="cpu")
     assert tm.static.fused_tail and not tm.static.mega and tm.tail_ops is not None
-    assert tm.static.tail_impl == tm.static.volume_impl == "plain"
+    assert tm.static.impl == "plain"
     qb, qp = tt(qb_np), tt(qp_np)
     qb_keep = qb.clone()
     zq = torch.zeros(qp.shape[1:-2] + tm.g.wjac.shape[-2:], dtype=qp.dtype)

@@ -3,8 +3,11 @@ nothing back from the device, on every barotropic path.
 
 A read from the device inside a capture is an error, and a Python branch on
 a tensor's value is worse: it is frozen at capture time and the graph takes
-that branch forever. So one eager step of each path runs here, on the CPU,
-with every Tensor method that hands a value to the host patched to raise.
+that branch forever. A tensor made from host data inside the step is an
+error too: the copy from pageable host memory cannot be captured. So one
+eager step of each path runs here, on the CPU, with every Tensor method
+that hands a value to the host, and `torch.tensor` / `torch.as_tensor` of
+anything but a tensor, patched to raise.
 The capture and the replay themselves need a CUDA device: chip_smoke.py
 holds the graphed step against the eager one there, bitwise. Also here:
 the `step_impl` switch, `Config.debug_checks` and `Model.nsteps_total`
@@ -21,18 +24,26 @@ from hnumo_tpu_torch.core import btp
 from hnumo_tpu_torch.core.types import State
 from hnumo_tpu_torch.model import Model
 from test_torch_common import counting, jax_config, torch_config
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 HOST_READS = ("__bool__", "item", "tolist", "__float__", "__int__", "numpy", "cpu")
 
 
 @contextlib.contextmanager
 def no_host_reads(monkeypatch):
-    """Every Tensor method of HOST_READS raises inside the block."""
+    """Every Tensor method of HOST_READS raises inside the block, and so do
+    `torch.tensor` and `torch.as_tensor` of host data."""
     with monkeypatch.context() as mp:
         for name in HOST_READS:
             def refuse(*args, _name=name, **kw):
                 raise AssertionError(f"Tensor.{_name} called inside the step")
             mp.setattr(torch.Tensor, name, refuse)
+        for name in ("tensor", "as_tensor"):
+            def from_host(data, *args, _name=name, _make=getattr(torch, name), **kw):
+                if not isinstance(data, torch.Tensor):
+                    raise AssertionError(f"torch.{_name} of host data called inside the step")
+                return _make(data, *args, **kw)
+            mp.setattr(torch, name, from_host)
         yield
 
 
@@ -49,9 +60,12 @@ def test_a_step_reads_nothing_back_from_the_device(monkeypatch, path, over, mark
     assert m.step_impl == "eager"
     seen = counting(monkeypatch, btp, marker)
     s = m.step(m.state0)           # the first step: lazily built caches
+    flag = torch.tensor(True)
     with no_host_reads(monkeypatch):
         with pytest.raises(AssertionError, match="__bool__"):
-            bool(torch.tensor(True))   # the patch is in force
+            bool(flag)                 # the patch is in force
+        with pytest.raises(AssertionError, match="torch.tensor of host data"):
+            torch.tensor([1, 2])
         s2 = m.step(s)
         s3 = m.run(s2, 1, check_ok=False)
     assert len(seen) > 0, f"the {path} path did not run"

@@ -8,6 +8,8 @@ import sys
 import pytest
 import torch
 
+from test_torch_common import one_thread  # noqa: F401  (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "hnumo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+hnumo_tpu(\s|\.|$)|"
@@ -85,19 +87,7 @@ def test_model_needs_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(cfg, device="cuda")
     m = Model(cfg, device="cpu")
-    assert m.static.volume_impl == "plain"
-
-
-@pytest.mark.parametrize("impl,exc", [("pallas", ValueError), ("", ValueError),
-                                      ("kernel", ValueError)])
-def test_volume_impl_is_validated(impl, exc):
-    from hnumo_tpu_torch.config import Config
-    from hnumo_tpu_torch.model import Model
-
-    cfg = Config(nelx=2, nely=2, nlayers=2, xdims=(0.0, 2e6), ydims=(0.0, 2e6),
-                 test_case="double_gyre")
-    with pytest.raises(exc, match="volume_impl"):
-        Model(cfg, device="cpu", volume_impl=impl)
+    assert m.static.impl == "plain"
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

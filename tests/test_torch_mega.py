@@ -39,6 +39,7 @@ from hnumo_tpu_torch.model import Model as TorchModel
 from hnumo_tpu_torch.ops.mega import barotropic_solve_mega_plain
 from test_torch_common import (assert_close, jax_config, leaves, perturb, to_np,
                                torch_config, tt)
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 REL = 1e-11
 # (viscosity, botfr, kstages, nop, walls): the cases of tests/test_mega.py,
@@ -80,7 +81,7 @@ def solved(request):
         torch_config(**over),
         *from_numpy_tables(to_np(P), to_np(g), state_np, "cpu", torch.float64),
         device="cpu")
-    assert tm.static.mega and tm.static.mega_impl == "plain"
+    assert tm.static.mega and tm.static.impl == "plain"
     assert tm.mega_ops is not None
     qb, qp = tt(qb_np), tt(qp_np)
     qb_keep = qb.clone()

@@ -44,6 +44,7 @@ from hnumo_tpu_torch.core.coupling import btp_bcl_coeffs
 from hnumo_tpu_torch.model import Model
 from hnumo_tpu_torch.ops import mega as mg
 from test_torch_common import assert_close, leaves
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 SOURCE = Path(mg.__file__).resolve().parent / "csrc" / "btp_mega.cu"
 SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"

@@ -13,6 +13,7 @@ from hnumo_tpu.model import Model as JaxModel
 from hnumo_tpu_torch.convert import from_numpy_tables
 from hnumo_tpu_torch.model import Model as TorchModel
 from test_torch_common import TDTYPE, jax_config, to_np, torch_config
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 FIELDS = ("qb_df", "q_df", "qprime_df")
 REL = {"float64": 1e-10, "float32": 1e-4}
@@ -48,7 +49,7 @@ def test_two_mega_steps_match_jax(stepped, tables):
         tm = TorchModel(cfg, device="cpu")
     else:
         tm = TorchModel.from_tables(cfg, P, g, state0, device="cpu")
-    assert tm.static.mega and tm.static.mega_impl == "plain"
+    assert tm.static.mega and tm.static.impl == "plain"
     assert tm.mega_ops is not None
     s0 = tm.state0
     keep = [t.clone() for t in s0]

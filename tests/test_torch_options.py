@@ -41,6 +41,7 @@ from hnumo_tpu_torch.ops.dg import interp_n2q as t_n2q
 from hnumo_tpu_torch.ops.dg import scatter_volume as t_scatter_volume
 from test_torch_common import (assert_close, counting, jax_config, leaves, perturb,
                                to_np, torch_config, tt)
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 FN_REL = 1e-12
 SOLVE_REL = 1e-11

@@ -9,6 +9,7 @@ import pytest
 
 from test_torch_common import (SHEAR, STEP_CASES_DRAG, check_steps_against_jax,
                                torch_config)
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("case", STEP_CASES_DRAG, ids=[c[0] for c in STEP_CASES_DRAG])

@@ -9,6 +9,7 @@ port's path is proved by the counters of the plain versions it calls
 import pytest
 
 from test_torch_common import STEP_CASES_PERIODIC, check_steps_against_jax
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("case", STEP_CASES_PERIODIC, ids=[c[0] for c in STEP_CASES_PERIODIC])

@@ -15,6 +15,7 @@ proved by the counters of the plain versions each step calls
 import pytest
 
 from test_torch_common import STEP_CASES_FACES_LSRK, check_steps_against_jax
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.filterwarnings("ignore:ti_method_btp='lsrk_ref'")

@@ -20,6 +20,7 @@ from hnumo_tpu_torch.model import Model as TorchModel
 from hnumo_tpu_torch.ops.dg import interp_n2q
 from test_torch_common import (TDTYPE, assert_close, jax_config, leaves, to_np,
                                torch_config)
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 REL = {"float64": 1e-13, "float32": 1e-6}
 CASES = [("float64", "double_gyre", 1), ("float32", "double_gyre", 1),
@@ -57,16 +58,14 @@ def test_device_geom_and_state0(pair):
 def test_static_shared_fields(pair):
     _, jm, tm = pair
     for f in dataclasses.fields(StaticConfig):
-        # the port's own switches
-        if f.name in ("volume_impl", "mega_impl", "tail_impl", "flux_impl"):
+        if f.name == "impl":                      # the port's own switch
             continue
         if f.name in ("ssprk_a", "ssprk_beta"):   # the port's host copies of P's tables
             assert np.array_equal(getattr(tm.static, f.name),
                                   np.asarray(getattr(jm.P, f.name))), f.name
             continue
         assert getattr(tm.static, f.name) == getattr(jm.static, f.name), f.name
-    assert tm.static.volume_impl == "plain" and tm.static.mega_impl == "plain"
-    assert tm.static.tail_impl == tm.static.flux_impl == "plain"
+    assert tm.static.impl == "plain"
     assert tm.static.mega == jm.static.mega
 
 

@@ -12,6 +12,7 @@ from hnumo_tpu.model import Model as JaxModel
 from hnumo_tpu_torch.convert import from_numpy_tables
 from hnumo_tpu_torch.model import Model as TorchModel
 from test_torch_common import TDTYPE, jax_config, to_np, torch_config
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 FIELDS = ("qb_df", "q_df", "qprime_df")
 

@@ -35,6 +35,7 @@ from hnumo_tpu_torch.ops import btp_tail as tb
 from hnumo_tpu_torch.ops.btp_volume import eflat
 from test_torch_common import (TDTYPE, assert_close, jax_config, perturb, to_np,
                                torch_config, tt)
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 WALLS0420 = dict(x_boundary=(0, 4), y_boundary=(2, 0))
 

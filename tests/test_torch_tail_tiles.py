@@ -25,6 +25,7 @@ import torch
 from hnumo_tpu_torch.model import Model
 from hnumo_tpu_torch.ops import btp_tail as tb
 from test_torch_common import assert_close, torch_config
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 # ---- the layout rule of the sources (btp_tail_common.cuh, btp_faces.cu,
 # btp_update.cu): slots of a stage, shared memory of a block, tile size,

@@ -28,6 +28,7 @@ from hnumo_tpu_torch.convert import from_numpy_tables, vol_ops_uni_from_padded
 from hnumo_tpu_torch.ops import btp_volume_uni as tu
 from hnumo_tpu_torch.ops.btp_volume import eflat
 from test_torch_common import TDTYPE, assert_close, jax_config, perturb, to_np, tt
+from test_torch_common import one_thread  # noqa: F401  (autouse)
 
 CASES = {"flat": "double_gyre", "nonflat": "seamount"}
 OUT = ("rhs", "accv", "accn", "gv", "agr")
