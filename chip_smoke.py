@@ -5,9 +5,9 @@
                                             # chiprun_out/chip_smoke_profile.txt)
     python3 chip_smoke.py --log FILE  # the whole output (default chiprun_out/chip_smoke.log)
     python3 chip_smoke.py --decomposition-only  # phases 1-2 and 27-27d only
-    python3 chip_smoke.py --bcl-only            # phases 1-2, 31 and 32 only
+    python3 chip_smoke.py --bcl-only            # phases 1-2 and 31-33 only
 
-Builds the eight CUDA kernels from the sources in this checkout (and, to be
+Builds the CUDA kernels of the nine sources in this checkout (and, to be
 timed only, two ablated variants of each of the four streaming kernels: the
 two volume kernels, the face kernel and the update kernel, and four of the
 megakernel), holds each against its plain PyTorch version on the card (the
@@ -69,7 +69,7 @@ identity, and the geometry of the pinwheel and of a deformed 256x256 brick.
 Then the bench tool (30): hnumo_tpu_torch/tools/bench.py's graphed runs in
 turns, 32x32 p=4 on each of its paths and 16x16 p=8 per stage, uniform
 volume and fused, each held to its gates and its captured graph's kernels.
-Last the baroclinic layer-momentum face-flux kernel (31, ops/bcl_flux)
+Then the baroclinic layer-momentum face-flux kernel (31, ops/bcl_flux)
 against its plain version in f32 and f64 (the double gyre's 25x25 p=4 L=2
 on perturbed, sheared and stepped inputs, p=8, 1, 3, 5, 10 and 20 layers,
 x-periodic sides, copy and no-slip walls, each block of a 2x2 split), its time per
@@ -80,11 +80,16 @@ layer-momentum volume-term and nodal-viscosity kernels (32, ops/bcl_mom_volume,
 ops/bcl_visc) against their plain versions on phase 31's cases, p=4 with
 inexact integration and the reference's stress slip, their times per launch
 beside their byte bounds, and the main path with them: 2 launches and 2
-graph nodes of each a step.
+graph nodes of each a step. Last the thickness update's two kernels (33,
+ops/bcl_mass: the mass update and the check, then the consistency) against
+their plain version on phase 31's cases, y-periodic sides and a negative
+full thickness (`ok` false alike), each kernel's time per launch beside its
+byte bound, the whole call's and the graphed plain version's, and the main
+path with them: 2 launches and 2 graph nodes of each a step.
 Any failure raises and the run exits non-zero; there is no CPU path.
 
 Output: one line per phase, then a `{"kernels": [...], "flatfaces_256": {...}}`
-line (eight kernels; each entry that a phase from 22 on launched carries that
+line (ten kernels; each entry that a phase from 22 on launched carries that
 phase's readings under a key of its own, phase 30's under "bench_30";
 phase 29's readings beside them:
 the flat faces are library calls, no kernel), the card's name and power
@@ -2420,7 +2425,8 @@ PROBE_MODULES = ("hnumo_tpu_torch.core.stepper", "hnumo_tpu_torch.core.bcl",
                  "hnumo_tpu_torch.core.btp", "hnumo_tpu_torch.core.coupling",
                  "hnumo_tpu_torch.core.viscosity", "hnumo_tpu_torch.core.faces",
                  "hnumo_tpu_torch.ops.dg", "hnumo_tpu_torch.ops.btp_volume",
-                 "hnumo_tpu_torch.ops.btp_volume_uni", "hnumo_tpu_torch.ops.btp_tail")
+                 "hnumo_tpu_torch.ops.btp_volume_uni", "hnumo_tpu_torch.ops.btp_tail",
+                 "hnumo_tpu_torch.ops.bcl_mass")
 
 
 def _tensors(x):
@@ -2698,19 +2704,24 @@ def split_probe():
 # ---- the baroclinic layer-momentum face fluxes (phase 31) ---------------------
 
 FLUX_SYMBOL = "bcl_flux_kernel"
-# the baroclinic layer-momentum kernels (phases 31 and 32), by source
-BCL_SYMBOLS = {"bcl_flux": FLUX_SYMBOL, "bcl_mom_volume": "bcl_mom_volume_kernel",
-               "bcl_visc": "bcl_visc_kernel"}
+# the baroclinic kernels (phases 31-33): name -> (source, symbol); each kernel
+# launches once a call of its wrapper, two calls a step
+BCL_KERNELS = {"bcl_flux": ("bcl_flux", FLUX_SYMBOL),
+               "bcl_mom_volume": ("bcl_mom_volume", "bcl_mom_volume_kernel"),
+               "bcl_visc": ("bcl_visc", "bcl_visc_kernel"),
+               "bcl_mass_update": ("bcl_mass", "bcl_mass_update_kernel"),
+               "bcl_mass_consistency": ("bcl_mass", "bcl_mass_consistency_kernel")}
 
 
 def bcl_wrappers():
     """{source: its CUDA wrapper, whose `launches` counts the launches made}."""
     from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda
+    from hnumo_tpu_torch.ops.bcl_mass import bcl_mass_cuda
     from hnumo_tpu_torch.ops.bcl_mom_volume import bcl_mom_volume_cuda
     from hnumo_tpu_torch.ops.bcl_visc import bcl_visc_cuda
 
     return {"bcl_flux": bcl_momentum_fluxes_cuda, "bcl_mom_volume": bcl_mom_volume_cuda,
-            "bcl_visc": bcl_visc_cuda}
+            "bcl_visc": bcl_visc_cuda, "bcl_mass": bcl_mass_cuda}
 FLUX_OUTPUTS = ("SuL", "SuR", "SvL", "SvR")
 
 
@@ -2796,54 +2807,67 @@ def flux_bound(ops) -> dict:
     return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
+def graphed_ms(fn, ops, n=20):
+    """Device ms of one replay of `fn(*ops)` captured as a CUDA graph, as the
+    graphed step runs it (after one eager call on a side stream)."""
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn(*ops)
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(*ops)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
 def time_vs_plain(cuda_fn, plain_fn, ops, n=400):
     """Device ms of one kernel launch (launches back to back) and of one
     replay of the plain version captured as a CUDA graph, as the graphed
     step runs it."""
     ms = time_launches(cuda_fn, [ops], n, device_only=True)
-    cur = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        plain_fn(*ops)
-    cur.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        plain_fn(*ops)
-    graph.replay()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(20):
-        graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return {"ms": ms, "plain_ms_graphed": t0.elapsed_time(t1) / 20}
+    return {"ms": ms, "plain_ms_graphed": graphed_ms(plain_fn, ops)}
+
+
+_bcl_graph_readings = {}
 
 
 def bcl_graph_checks(cfg, steps=300):
-    """The main path's step with the baroclinic layer-momentum kernels
-    (BCL_SYMBOLS: face fluxes, volume term, nodal viscosity): an eager
-    model's wrappers launch each 2 a step; the graphed step's captured nodes
-    hold each exactly twice under impl="kernel" and none under "plain", and
-    the barotropic kernels as its path says under "kernel" and none under
-    "plain"; one replay's device time of each (torch.profiler); and ms/step
-    of the graphed step with every kernel against the step with every plain
-    version, in turns (plain, kernel, kernel, plain) after one untimed step
-    each."""
+    """The main path's step with the baroclinic kernels (BCL_KERNELS: the
+    thickness update's two, the layer momentum's face fluxes, volume term
+    and nodal viscosity): an eager model's wrappers launch each kernel 2 a
+    step; the graphed step's captured nodes hold each exactly twice under
+    impl="kernel" and none under "plain", and the barotropic kernels as its
+    path says under "kernel" and none under "plain"; one replay's device
+    time of each (torch.profiler); and ms/step of the graphed step with
+    every kernel against the step with every plain version, in turns
+    (plain, kernel, kernel, plain) after one untimed step each. Taken once
+    per configuration and process: phases 31-33 share the readings."""
+    if cfg in _bcl_graph_readings:
+        return _bcl_graph_readings[cfg]
     from torch.profiler import ProfilerActivity, profile
 
     from hnumo_tpu_torch.model import Model
 
     wrappers = bcl_wrappers()
+    per_call = {src: sum(1 for s, _ in BCL_KERNELS.values() if s == src) for src in wrappers}
     me = Model(cfg, step_impl="eager")
     before = {k: w.launches for k, w in wrappers.items()}
     me.run(me.state0, 3)
     torch.cuda.synchronize()
-    eager = {k: w.launches - before[k] for k, w in wrappers.items()}
+    eager = {k: (w.launches - before[k]) / per_call[k] for k, w in wrappers.items()}
     if any(v != 6 for v in eager.values()):
-        raise AssertionError(f"3 eager steps launched the baroclinic kernels {eager} times, "
-                             "not 6 each")
+        raise AssertionError(f"3 eager steps launched the baroclinic kernels {eager} times "
+                             "each, not 6")
     del me
     models, in_graph = {}, {}
     for impl in ("plain", "kernel"):
@@ -2854,9 +2878,9 @@ def bcl_graph_checks(cfg, steps=300):
         torch.cuda.synchronize()
         nodes = graph_kernels(m._graph[0])
         want = 2 if impl == "kernel" else 0
-        for name, sym in BCL_SYMBOLS.items():
+        for name, (src, sym) in BCL_KERNELS.items():
             n = sum(v for k, v in nodes.items() if sym in k)
-            made = wrappers[name].launches - before[name]
+            made = (wrappers[src].launches - before[src]) / per_call[src]
             if n != want or made != 2 * want:
                 raise AssertionError(f"impl={impl}: {n} graph nodes of {sym} and {made} "
                                      f"launches at capture, expected {want} and {2 * want}")
@@ -2886,18 +2910,20 @@ def bcl_graph_checks(cfg, steps=300):
         torch.cuda.synchronize()
     rows = device_rows(prof)
     kernels = {}
-    for name, sym in BCL_SYMBOLS.items():
+    for name, (src, sym) in BCL_KERNELS.items():
         mine = [e for e in rows if sym in e.key]
         count = sum(e.count for e in mine)
         kernels[name] = {
-            "eager_launches_per_step": eager[name] / 3, "graph_nodes": in_graph[name],
+            "eager_launches_per_step": eager[src] / 3, "graph_nodes": in_graph[name],
             "replay_launches": count,
             "ms_per_launch_in_replay": (sum(e.device_time_total for e in mine) / 1e3 / count
                                         if count else None)}
-    return {"kernels": kernels,
-            "graph_kernel_nodes": {k: v[2] for k, v in models.items()},
-            "graph_memcpy_nodes": {k: v[3] for k, v in models.items()},
-            "ms_per_step_turns": ms}
+    out = {"kernels": kernels,
+           "graph_kernel_nodes": {k: v[2] for k, v in models.items()},
+           "graph_memcpy_nodes": {k: v[3] for k, v in models.items()},
+           "ms_per_step_turns": ms}
+    _bcl_graph_readings[cfg] = out
+    return out
 
 
 def check_bcl_flux(smi) -> dict:
@@ -3203,6 +3229,303 @@ def check_bcl_momentum(smi) -> list:
             for name in pairs]
 
 
+# ---- the baroclinic thickness update (phase 33) -------------------------------
+
+MASS_KERNELS = ("bcl_mass_update", "bcl_mass_consistency")
+
+
+def mass_operands(m, inputs, seed):
+    """ops/bcl_mass's operands ((static, P, g, bc, avg, q_df, qprime_df,
+    qprime_faces)) at this model's shapes: the primes of `inputs(m, seed)`
+    and their face traces, the averages of one barotropic solve from there
+    on the model's own path, and layer thicknesses off the model's initial
+    ones by ~1e-3 of the reference, with momenta of ~0.1 m/s times the
+    thickness."""
+    from hnumo_tpu_torch.core.bcl import extract_qprime_faces
+    from hnumo_tpu_torch.core.btp import barotropic_solve
+
+    rng, qb, qp, coup = inputs(m, seed)
+    _, avg = barotropic_solve(m.static, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
+                              mega_ops=m.mega_ops, tail_ops=m.tail_ops)
+    dref = m.P.dpp_ref_df
+    r = torch.as_tensor(rng.normal(size=(3,) + tuple(dref.shape)), dtype=dref.dtype,
+                        device=dref.device)
+    q_df = torch.stack([m.state0.q_df[0] + 1e-3 * dref * r[0], 0.1 * dref * r[1],
+                        0.1 * dref * r[2]])
+    return (m.static, m.P, m.g, m.bc, avg, q_df, qp, extract_qprime_faces(m.bc, qp))
+
+
+class GhostAxis:
+    """The axis of a block of a decomposition, in one process: `first` /
+    `last` say whether the block owns the domain's west/south or east/north
+    edge, and `exchange` hands back the neighbouring block's edge slab that
+    `ghost(from_prev)` cuts from a whole-grid field."""
+
+    def __init__(self, first, last, ghost):
+        self.first, self.last, self._ghost = first, last, ghost
+
+    def exchange(self, slab, from_prev):
+        return self._ghost(from_prev)
+
+
+def block_mass_operands(m, ops, block):
+    """`ops` cut to one block ((py, px), (iy, ix)) of the grid, as a rank of
+    a decomposition holds them: its element tables (parallel/sharding.
+    local_tables), its element fields, the traces and averages of its own
+    faces, and axes whose exchanges hand over the neighbouring blocks' edges
+    of the whole grid's new δdp' (the plain version's, cyclic as the
+    exchange is)."""
+    from hnumo_tpu_torch.core.faces import FaceLR
+    from hnumo_tpu_torch.core.types import Pair
+    from hnumo_tpu_torch.ops.bcl_mass import layer_mass_rhs
+    from hnumo_tpu_torch.parallel.sharding import block_bounds, local_tables
+
+    static, P, g, bc, avg, q_df, qp, qpf = ops
+    (py, px), (iy, ix) = block
+    ny, nx = m.cfg.nely, m.cfg.nelx
+    y0, y1 = block_bounds(ny, py, iy)
+    x0, x1 = block_bounds(nx, px, ix)
+    # the whole grid's new δdp' (ops/bcl_mass.apply_consistency's first lines)
+    dp_advec, _, _ = layer_mass_rhs(static, P, g, bc, avg, qp, qpf)
+    q0 = q_df[0] + static.dt * dp_advec
+    eta_t = (torch.sum(q0, dim=0) + P.sum_ref_residual) * P.one_over_pbprime_df
+    dpp = ((q0 - P.dpp_ref_df * eta_t[None]) / (1.0 + eta_t)[None])[None]
+
+    def el(t):
+        return t[..., y0:y1, x0:x1, :, :].contiguous()
+
+    def cut_x(t):
+        return t[..., y0:y1, x0:x1 + 1, :].contiguous()
+
+    def cut_y(t):
+        return t[..., y0:y1 + 1, x0:x1, :].contiguous()
+
+    def ghost_x(from_prev):
+        c = (x0 - 1) % nx if from_prev else x1 % nx
+        return dpp[..., y0:y1, c:c + 1, :, -1 if from_prev else 0]
+
+    def ghost_y(from_prev):
+        r = (y0 - 1) % ny if from_prev else y1 % ny
+        return dpp[..., r:r + 1, x0:x1, -1 if from_prev else 0, :]
+
+    faces = {}
+    for k, v in avg.faces._asdict().items():
+        cut = cut_x if k == "x" else cut_y
+        faces[k] = type(v)(*map(cut, v))
+    avg_loc = type(avg)(**{k: el(v) for k, v in avg._asdict().items() if k != "faces"},
+                        faces=Pair(**faces))
+    g_loc, P_loc = local_tables(g, P, block)
+    bc_loc = bc._replace(ax=GhostAxis(ix == 0, ix == px - 1, ghost_x),
+                         ay=GhostAxis(iy == 0, iy == py - 1, ghost_y))
+    qpf_loc = tuple(FaceLR(cut_x(f.xl), cut_x(f.xr), cut_y(f.yl), cut_y(f.yr)) for f in qpf)
+    return static, P_loc, g_loc, bc_loc, avg_loc, el(q_df), el(qp), qpf_loc
+
+
+def compare_mass(ops, tol, what):
+    """The kernels against the plain version on `ops`: the new δdp within tol
+    * its max, the momenta bitwise (the update copies them), `ok` alike;
+    returns (max err / max|δdp|, max abs err, ok)."""
+    from hnumo_tpu_torch.ops.bcl_mass import bcl_mass_cuda, bcl_mass_plain
+
+    got, ok = bcl_mass_cuda(*ops)
+    want, ok_want = bcl_mass_plain(*ops)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, or non-finite values")
+    if not torch.equal(got[1:], want[1:]):
+        raise AssertionError(f"{what}: the momenta are not the operands' own")
+    if ok.dtype != torch.bool or bool(ok) != bool(ok_want):
+        raise AssertionError(f"{what}: ok {bool(ok)} ({ok.dtype}) against {bool(ok_want)}")
+    scale, err = float(want[0].abs().max()), float((got[0] - want[0]).abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+    return (err / scale if scale else 0.0), err, bool(ok)
+
+
+def as_float64(x):
+    """Tensors of floats in `x` (a tensor or nested tuples of them) in f64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, tuple):
+        parts = [as_float64(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def f64_errors(ops):
+    """The new δdp of the kernels and of the plain version on the f32
+    operands `ops`, each against the plain version's on the same operands in
+    f64, over its max: what f32 costs each of them."""
+    from hnumo_tpu_torch.ops.bcl_mass import bcl_mass_cuda, bcl_mass_plain
+
+    ref = bcl_mass_plain(*as_float64(ops))[0][0]
+    scale = float(ref.abs().max())
+    return {name: float((fn(*ops)[0][0].double() - ref).abs().max()) / scale
+            for name, fn in (("kernel", bcl_mass_cuda), ("plain", bcl_mass_plain))}
+
+
+def mass_stage_times(ops, n=400):
+    """Device ms of one launch of each kernel (launches back to back, on
+    `ops`), and of one replay of a whole call of the wrapper (its two
+    launches, the δdp' traces and the and-reduction of `ok`) and of the
+    plain version, each captured as a CUDA graph."""
+    from hnumo_tpu_torch.core.faces import extract_faces
+    from hnumo_tpu_torch.ops import bcl_mass
+
+    static, P, g, bc, avg, q_df, qp, qpf = ops
+    named = bcl_mass._operands(P, g, avg, q_df, qp, qpf)
+    lib = bcl_mass._library()
+    bufs, ptrs, shape = bcl_mass._buffers(lib, g, named)
+    stream = torch.cuda.current_stream().cuda_stream
+    bcl_mass._launch(lib, 0, static, bc, ptrs + [None] * 4, shape, stream)
+    fdp, _ = extract_faces(bufs[1], bc)
+    ptrs1 = ptrs + [t.data_ptr() for t in (fdp.xl, fdp.xr, fdp.yl, fdp.yr)]
+    out = {}
+    for stage, name in enumerate(MASS_KERNELS):
+        p = ptrs1 if stage else ptrs + [None] * 4
+        out[name] = time_launches(
+            lambda: bcl_mass._launch(lib, stage, static, bc, p, shape, stream), [()], n,
+            device_only=True)
+    out["call_graphed"] = graphed_ms(bcl_mass.bcl_mass_cuda, ops)
+    out["plain_ms_graphed"] = graphed_ms(bcl_mass.bcl_mass_plain, ops)
+    del bufs, fdp
+    return out
+
+
+def mass_bounds(ops) -> dict:
+    """Each kernel's least time on the card: the values it reads once and
+    writes once over the HBM bandwidth (its flops, a few hundred a value,
+    are far below the byte time at f32 peak). Stage 0 reads the primes, the
+    layer thicknesses and momenta, the element and face tables and averages
+    it takes and the (δdp', u', v') traces, and writes the new q_df, δdp',
+    the layer sums and the flags; stage 1 reads δdp', the layer sums, the
+    δdp' traces, its tables and averages and the new δdp, and writes the
+    new δdp."""
+    static, P, g, bc, avg, q_df, qp, qpf = ops
+    L, ly, lx, ngl, nq = qp.shape[1], *qp.shape[2:4], *g.psiq.shape
+    E, n2, q2 = ly * lx, ngl * ngl, nq * nq
+    F = ly * (lx + 1) + (ly + 1) * lx                  # faces of both directions
+    N, Q, FN, FQ = E * n2, E * q2, F * ngl, F * nq
+    v0 = ((3 + 3 + 1) * L * N + 3 * N                  # qp, q_df, dref; resid, 1/pb, massinv
+          + L * Q + 3 * Q + 5 * Q                      # dref_q; mu, ub, vb; metric, wjac
+          + 6 * L * FN + 6 * FQ + 3 * FQ + L * FQ      # traces; face averages; nx, ny, jac; dref
+          + 3 * L * N + L * N + 2 * Q + 2 * FQ)        # writes: q_df, δdp', slmf, slmf_face
+    v1 = (L * N + 2 * L * N + N                        # δdp', δdp (read, written); massinv
+          + L * Q + 3 * Q + 2 * Q + 5 * Q              # dref_q; pbprime, mfU, mfV; slmf; metric
+          + 2 * L * FN + 2 * FQ + 5 * FQ + L * FQ + 2 * FQ)  # traces; fluxes; tables; sums
+    size = g.psiq.element_size()
+    return {name: {"bytes": v * size, "bound_ms": v * size / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"} for name, v in zip(MASS_KERNELS, (v0, v1))}
+
+
+def check_bcl_mass(smi) -> list:
+    """Phase 33: the thickness update's two kernels (ops/bcl_mass) against
+    their plain version, f32 and f64, over phase 31's cases (the cell's
+    25x25 p=4 L=2 on perturbed, sheared and stepped inputs; p=8; 1, 3, 5, 10
+    and 20 layers; x-periodic sides; copy and no-slip walls; each block of a
+    2x2 split of 8x6) and p=4 with inexact integration, y-periodic sides and
+    a negative full thickness (`ok` false). Then each kernel's time per
+    launch beside its byte bound, the whole call's and the plain version's,
+    and the main path's graph with them: 2 launches of each a step, 2 nodes
+    of each in the captured graph."""
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.ops._build import library_path, resource_usage
+
+    usage = resource_usage("bcl_mass")
+    main = [u for u in usage if u.startswith(("f<5,9>", "d<5,9>"))]
+    if len(main) != 4 or not all(u.endswith(" 0 B spill stores, 0 B spill loads")
+                                 for u in main):
+        raise AssertionError(f"bcl_mass at <5,9> must build without a spill: {usage}")
+    frames = dict(re.findall(r"Function properties for (\S+)\s+(\d+) bytes stack frame",
+                             library_path("bcl_mass").with_suffix(".log").read_text()))
+    errs, vs_f64 = {}, {}
+    for dtype in ("float32", "float64"):
+        tol = F32_TOL if dtype == "float32" else F64_TOL
+        m25 = Model(main_path_config(25, dtype))
+        cases = [(f"25x25 {name}", m25, inputs) for name, inputs in (
+            ("perturbed", perturbed_inputs), ("sheared", sheared_inputs),
+            ("stepped", stepped_inputs))]
+        small = {"p=8": dict(nop=8), "p=4 inexact": dict(dg_integ_exact=False),
+                 "L=1": dict(nlayers=1, test_case="lakeatrest"),
+                 "L=3": dict(nlayers=3, test_case="lakeatrest"),
+                 "L=5": dict(nlayers=5, test_case="lakeatrest"),
+                 "L=10": dict(nlayers=10, test_case="lakeatrest"),
+                 "L=20": dict(nlayers=20, test_case="lakeatrest"),
+                 "x-periodic L=5": dict(walls=((3, 3), (4, 4)), nlayers=5,
+                                        test_case="lakeatrest"),
+                 "x-periodic": dict(walls=((3, 3), (4, 4))),
+                 "y-periodic L=3": dict(walls=((4, 4), (3, 3)), nlayers=3,
+                                        test_case="lakeatrest"),
+                 "copy and no-slip walls": dict(walls=OTHER_WALLS)}
+        for name, over in small.items():
+            cases.append((f"7x5 {name}", Model(small_config(7, 5, dtype, 1, **over)),
+                          perturbed_inputs))
+        for what, m, inputs in cases:
+            ops = mass_operands(m, inputs, seed=51)
+            errs[f"{dtype} {what}"] = compare_mass(ops, tol, f"{dtype} {what}")
+            if dtype == "float32" and what.startswith("25x25"):
+                vs_f64[what] = f64_errors(ops)
+        m75 = cases[-1][1]
+        neg = list(mass_operands(m75, perturbed_inputs, seed=52))
+        q = neg[5].clone()
+        q[0, 1, 2, 3, 1, 2] = -2.0 * m75.P.dpp_ref_df[1, 2, 3, 1, 2]
+        neg[5] = q
+        errs[f"{dtype} 7x5 negative thickness"] = e = compare_mass(
+            tuple(neg), tol, f"{dtype} 7x5 negative thickness")
+        if e[2]:
+            raise AssertionError(f"{dtype}: a negative full thickness left ok true")
+        m86 = Model(small_config(8, 6, dtype, 1, walls=OTHER_WALLS))
+        ops = mass_operands(m86, sheared_inputs, seed=53)
+        for iy in range(2):
+            for ix in range(2):
+                what = f"{dtype} 8x6 block ({iy},{ix}) of 2x2"
+                errs[what] = compare_mass(block_mass_operands(m86, ops, ((2, 2), (iy, ix))),
+                                          tol, what)
+        del m25, m86
+    worst = {dt: max(e[0] for k, e in errs.items() if k.startswith(dt))
+             for dt in ("float32", "float64")}
+    print(f"phase 33 bcl_mass kernels vs plain ({len(errs)} cases: 25x25 p=4 L=2 perturbed, "
+          f"sheared, stepped; 7x5 p=8, p=4 inexact, L=1, 3, 5, 10, 20, x-periodic (L=2, 5), "
+          f"y-periodic L=3, copy/no-slip walls, a negative thickness (ok false); the four "
+          f"blocks of 8x6 split 2x2), new ddp max err/scale f32 / f64 (tol {F32_TOL:g} / "
+          f"{F64_TOL:g}): {worst['float32']:.3e} / {worst['float64']:.3e}; momenta bitwise, "
+          f"ok alike; the f32 kernels / plain version against the plain version in f64: "
+          + "; ".join(f"{k} {v['kernel']:.3e} / {v['plain']:.3e}" for k, v in vs_f64.items()))
+    cfg = main_path_config(25, "float32")
+    m = Model(cfg)
+    ops = mass_operands(m, stepped_inputs, seed=54)
+    bounds = mass_bounds(ops)
+    t = mass_stage_times(ops)
+    for name in MASS_KERNELS:
+        b = bounds[name]
+        print(f"phase 33 {name} 25x25 f32: {t[name] * 1e3:.2f} us/launch on the device, bound "
+              f"{b['bound_ms'] * 1e3:.3f} us by bytes ({b['bytes']} B)")
+    print(f"phase 33 bcl_mass 25x25 f32: the whole call (2 launches, the traces, ok) graphed "
+          f"{t['call_graphed'] * 1e3:.2f} us on the device; the plain version graphed "
+          f"{t['plain_ms_graphed']:.4f} ms/call")
+    g = bcl_graph_checks(cfg)
+    per = "; ".join(f"{n} {k['eager_launches_per_step']:g} a step eager, {k['graph_nodes']} "
+                    f"graph nodes, {k['replay_launches']} in a profiled replay at "
+                    f"{k['ms_per_launch_in_replay']} ms each"
+                    for n, k in g["kernels"].items() if n in MASS_KERNELS)
+    print(f"phase 33 main path 25x25 f32: {per}; kernel nodes a step every plain version / "
+          f"every kernel {g['graph_kernel_nodes']['plain']} / "
+          f"{g['graph_kernel_nodes']['kernel']}, memcpy nodes "
+          f"{g['graph_memcpy_nodes']['plain']} / {g['graph_memcpy_nodes']['kernel']}; ms/step "
+          f"in turns {g['ms_per_step_turns']} | {smi}")
+    return [{"name": name, "route": "cuda", "source": "hnumo_tpu_torch/ops/csrc/bcl_mass.cu",
+             "replaces": None, "ptxas": usage, "stack_frame_bytes": frames,
+             "max_err_over_scale": {k: e[0] for k, e in errs.items()},
+             "max_abs_err": {k: e[1] for k, e in errs.items()},
+             "f32_err_over_scale_vs_f64_plain": vs_f64,
+             "tolerance_over_scale": {"float32": F32_TOL, "float64": F64_TOL},
+             "ms_25": t[name], "call_ms_graphed_25": t["call_graphed"],
+             "plain_ms_graphed_25": t["plain_ms_graphed"], **bounds[name], "library_ms": None,
+             "main_path_25": {**g, "kernel": g["kernels"][name]}, "card": smi}
+            for name in MASS_KERNELS]
+
+
 # ---- the bench tool (phase 30) -------------------------------------------------
 # (elements a side, nop), variants: hnumo_tpu_torch/tools/bench.py's runs at
 # the megakernel's size (every path of p=4) and at p=8 (no megakernel there)
@@ -3430,9 +3753,9 @@ def main() -> int:
                          "needs 2 GPUs, 27d 4); their readings to "
                          "chiprun_out/decomposition.json")
     ap.add_argument("--bcl-only", action="store_true",
-                    help="only phases 1-2, 31 and 32 (the baroclinic layer-momentum "
-                         "kernels against their plain versions, their times, the main "
-                         "path's graph with them); their readings to "
+                    help="only phases 1-2 and 31-33 (the baroclinic layer-momentum and "
+                         "thickness-update kernels against their plain versions, their "
+                         "times, the main path's graph with them); their readings to "
                          "chiprun_out/bcl_momentum.json")
     args = ap.parse_args()
     pathlib.Path(args.log).parent.mkdir(parents=True, exist_ok=True)
@@ -3460,7 +3783,7 @@ def main() -> int:
     # ---- phase 2: build (one nvcc per source, side by side) -----------------
     t0 = time.perf_counter()
     sources = ["btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update",
-               "bcl_flux", "bcl_mom_volume", "bcl_visc"]
+               "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
     build_libraries(sources)
     for name in sources:
         load_library(name)
@@ -3484,7 +3807,7 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
     if args.bcl_only:
-        bcl = [check_bcl_flux(smi)] + check_bcl_momentum(smi)
+        bcl = [check_bcl_flux(smi)] + check_bcl_momentum(smi) + check_bcl_mass(smi)
         (OUT_DIR / "bcl_momentum.json").write_text(json.dumps(bcl, default=str))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4332,6 +4655,7 @@ def main() -> int:
     }] + fused_entries
     kernels.append(check_bcl_flux(smi))      # phase 31
     kernels.extend(check_bcl_momentum(smi))  # phase 32
+    kernels.extend(check_bcl_mass(smi))      # phase 33
     for entry in kernels:      # phase 30's runs that launched the kernel
         entry["bench_30"] = {
             f"{r['nel'][0]}x{r['nel'][1]} p={r['nop']} {r['variant']}": {

@@ -3,7 +3,8 @@
 Counterpart of hnumo_tpu/core/bcl.py, with the vertical shear-stress
 solve (rhs_layer_shear_stress, ad_mlswe > 0).
 Reference: src/mod_create_rhs_mlswe.F90 (volume/flux kernels), src/mod_layer_terms.F90 (face extraction, velocity
-splitting/recombination, consistency faces).
+splitting/recombination). The layer mass update and the mass consistency
+are ops/bcl_mass (core/stepper._thickness_update).
 
 Layer axis is the leading batch axis (batched by broadcasting); the only
 vertical couplings are cumsums (interface pressures/heights) and vertical
@@ -17,10 +18,8 @@ import torch
 from ..ops.bcl_flux import bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain
 from ..ops.bcl_mom_volume import bcl_mom_volume_cuda, bcl_mom_volume_plain
 from ..ops.dg import DeviceGeom, interp_n2q, scatter_volume
-from .faces import (BCs, extract_faces, extract_faces_multi, face_n2q,
-                    face_quad_scatter,
-                    scatter_face_x, scatter_face_y)
-from .types import BtpAverages, Pair, Precomputed
+from .faces import BCs, extract_faces_multi, scatter_face_x, scatter_face_y
+from .types import BtpAverages, Precomputed
 from .viscosity import bcl_nodal_laplacian, bcl_quad_laplacian
 
 
@@ -32,100 +31,6 @@ def extract_qprime_faces(bc: BCs, qprime_df):
     Returns tuple of 3 FaceLR with layer leading axis.
     """
     return tuple(extract_faces_multi(qprime_df, bc, vec_pairs=((1, 2),)))
-
-
-# ---------------------------------------------------------------------------
-# layer mass
-# ---------------------------------------------------------------------------
-
-def layer_mass_rhs(static, P: Precomputed, g: DeviceGeom, bc: BCs,
-                   avg: BtpAverages, qprime_df, qprime_faces):
-    """Mass advection RHS per layer + layer mass-flux sums for consistency.
-
-    Reference layer_mass_rhs = create_layers_volume_mass (+ flux)
-    (src/mod_create_rhs_mlswe.F90:53-78, 822-877, 922-1034).
-    Returns (dp_advec (L, nodal), slmf (2, quad), slmf_face Pair of (2, F, nq)).
-    """
-    qp = interp_n2q(g, qprime_df)                 # (3, L, quad); qp[0] = δdp'
-    dp = (P.dpp_ref_q + qp[0]) * (1.0 + avg.mu[None])
-    udp = (qp[1] + avg.ub[None]) * dp
-    vdp = (qp[2] + avg.vb[None]) * dp
-    slmf = torch.stack([torch.sum(udp, 0), torch.sum(vdp, 0)])
-
-    dp_advec = scatter_volume(g, Fx=udp, Fy=vdp)  # (L, nodal)
-
-    fdp, fu, fv = qprime_faces
-
-    def flux_dir(dL, dR, uL, uR, vL, vR, ubL, ubR, vbL, vbR, muL, muR, fg):
-        dLq, dRq = face_n2q(g.psiq, dL), face_n2q(g.psiq, dR)   # (L, F, nq)
-        uLq, uRq = face_n2q(g.psiq, uL), face_n2q(g.psiq, uR)
-        vLq, vRq = face_n2q(g.psiq, vL), face_n2q(g.psiq, vR)
-        uu = 0.5 * ((uLq + ubL[None]) + (uRq + ubR[None]))
-        vv = 0.5 * ((vLq + vbL[None]) + (vRq + vbR[None]))
-        dpl = (1.0 + muL[None]) * (fg.dpp_ref_face_q + dLq)   # traces carry δdp'
-        dpr = (1.0 + muR[None]) * (fg.dpp_ref_face_q + dRq)
-        feu = torch.where(uu * fg.nx[None] > 0.0, uu * dpl, uu * dpr)
-        fev = torch.where(vv * fg.ny[None] > 0.0, vv * dpl, vv * dpr)
-        slmf_face = torch.stack([torch.sum(feu, 0), torch.sum(fev, 0)])
-        S = face_quad_scatter(g.psiq, fg.jac, fg.nx[None] * feu + fg.ny[None] * fev)
-        return S, slmf_face
-
-    ax, ay = avg.faces.x, avg.faces.y
-    Sx, slmf_x = flux_dir(fdp.xl, fdp.xr, fu.xl, fu.xr, fv.xl, fv.xr,
-                          ax.ubL, ax.ubR, ax.vbL, ax.vbR, ax.muL, ax.muR, P.faces.x)
-    Sy, slmf_y = flux_dir(fdp.yl, fdp.yr, fu.yl, fu.yr, fv.yl, fv.yr,
-                          ay.ubL, ay.ubR, ay.vbL, ay.vbR, ay.muL, ay.muR, P.faces.y)
-    dp_advec = scatter_face_x(dp_advec, Sx, bc)
-    dp_advec = scatter_face_y(dp_advec, Sy, bc)
-    dp_advec = g.massinv * dp_advec
-    return dp_advec, slmf, Pair(slmf_x, slmf_y)
-
-
-def apply_consistency(static, P: Precomputed, g: DeviceGeom, bc: BCs,
-                      avg: BtpAverages, q_df, slmf, slmf_face: Pair):
-    """Flux-adjustment mass consistency (Higdon 2015).
-
-    Reference apply_consistency (src/mod_splitting.F90:324-366) =
-    evaluate_consistency_face (src/mod_layer_terms.F90:57-137) +
-    consistency_mass_rhs (src/mod_create_rhs_mlswe.F90:80-101, 879-920,
-    1036-1115). Returns updated q_df.
-    """
-    # one_plus_eta - 1 from δ sums (exact at reference; docs/float32.md)
-    eta_t = (torch.sum(q_df[0], dim=0) + P.sum_ref_residual) * P.one_over_pbprime_df
-    # δdp' = (δdp - ref·η̃)/(1+η̃)
-    dpprime_df = (q_df[0] - P.dpp_ref_df * eta_t[None]) / (1.0 + eta_t)[None]
-
-    # volume part (weight needs the FULL dp')
-    dpq = P.dpp_ref_q + interp_n2q(g, dpprime_df)          # (L, quad)
-    weight = dpq / P.pbprime[None]
-    udp = weight * (avg.mfU - slmf[0])[None]
-    vdp = weight * (avg.mfV - slmf[1])[None]
-    dp_advec = scatter_volume(g, Fx=udp, Fy=vdp)
-
-    # face part: mass_deficit_mass_face upwinded by its own sign
-    fdp, _ = extract_faces(dpprime_df, bc)                 # scalar copy at walls
-
-    def face_dir(dL, dR, slmf_f, fa, fg):
-        # traces carry δdp'; the weights need the full dp'
-        dLq = fg.dpp_ref_face_q + face_n2q(g.psiq, dL)          # (L, F, nq)
-        dRq = fg.dpp_ref_face_q + face_n2q(g.psiq, dR)
-        wL = dLq / fg.pbprime_face_L[None]
-        wR = dRq / fg.pbprime_face_R[None]
-        defU = (fa.fluxU - slmf_f[0])[None]
-        defV = (fa.fluxV - slmf_f[1])[None]
-        # deficit faces per side (reference :118-130)
-        dfUL, dfUR = wL * defU, wR * defU
-        dfVL, dfVR = wL * defV, wR * defV
-        feu = torch.where(dfUL * fg.nx[None] > 0.0, dfUL, dfUR)
-        fev = torch.where(dfVL * fg.ny[None] > 0.0, dfVL, dfVR)
-        return face_quad_scatter(g.psiq, fg.jac, fg.nx[None] * feu + fg.ny[None] * fev)
-
-    Sx = face_dir(fdp.xl, fdp.xr, slmf_face.x, avg.faces.x, P.faces.x)
-    Sy = face_dir(fdp.yl, fdp.yr, slmf_face.y, avg.faces.y, P.faces.y)
-    dp_advec = scatter_face_x(dp_advec, Sx, bc)
-    dp_advec = scatter_face_y(dp_advec, Sy, bc)
-
-    return torch.cat([(q_df[0] + static.dt * g.massinv * dp_advec)[None], q_df[1:]])
 
 
 # ---------------------------------------------------------------------------

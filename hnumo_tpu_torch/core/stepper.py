@@ -17,8 +17,8 @@ import torch
 
 from ..ops.dg import DeviceGeom, interp_n2q
 from ..spans import span
-from .bcl import (apply_consistency, evaluate_bcl, evaluate_bcl_v1,
-                  extract_qprime_faces, layer_mass_rhs, layer_momentum_rhs,
+from ..ops.bcl_mass import bcl_mass_cuda, bcl_mass_plain
+from .bcl import (evaluate_bcl, evaluate_bcl_v1, extract_qprime_faces, layer_momentum_rhs,
                   rhs_layer_shear_stress, velocity_df)
 from .btp import barotropic_solve
 from .coupling import btp_bcl_coeffs
@@ -66,15 +66,14 @@ def _momentum_update(static, P, g, bc, avg, coup, q_df, qprime_df, qprime_faces,
 def _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces):
     """Mass update + negative-thickness check + consistency
     (reference thickness/momentum_mass mass part,
-    src/mod_splitting.F90:55-87, 220-235). Returns (new q_df, ok)."""
-    dp_advec, slmf, slmf_face = layer_mass_rhs(
-        static, P, g, bc, avg, qprime_df, qprime_faces)
-    q_df = torch.cat([(q_df[0] + static.dt * dp_advec)[None], q_df[1:]])
-    # q_df[0] stores δdp; the abort checks the FULL thickness (reference
-    # src/mod_splitting.F90:74-77), on every block of a decomposition
-    ok = all_shards_and(torch.all(P.dpp_ref_df + q_df[0] >= 0.0), bc)
-    q_df = apply_consistency(static, P, g, bc, avg, q_df, slmf, slmf_face)
-    return q_df, ok
+    src/mod_splitting.F90:55-87, 220-235). The body is ops/bcl_mass: its
+    CUDA kernels under `static.impl == "kernel"`, its plain version under
+    "plain". Returns (new q_df, ok)."""
+    update = bcl_mass_cuda if static.impl == "kernel" else bcl_mass_plain
+    q_df, ok = update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces)
+    # the abort checks the FULL thickness (reference src/mod_splitting.F90:74-77)
+    # on every block of a decomposition
+    return q_df, all_shards_and(ok, bc)
 
 
 def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,

@@ -249,9 +249,10 @@ def test_a_mesh_read_from_a_file_gives_the_kernel_operands_it_takes(tmp_path, mo
 
 def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch):
     """model.kernel_sources names the sources of the kernels a step on each
-    barotropic path launches, the baroclinic layer momentum's with them
-    (face fluxes, volume term, and the nodal-family viscosity where it is
-    on), and none under impl="plain"; a CPU model compiles nothing."""
+    barotropic path launches, the baroclinic step's with them (the thickness
+    update; the layer momentum's face fluxes, volume term, and the
+    nodal-family viscosity where it is on), and none under impl="plain"; a
+    CPU model compiles nothing."""
     from types import SimpleNamespace
 
     import hnumo_tpu_torch.model as model
@@ -266,7 +267,7 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
              "uniform volume": dict(mega=False, fused_tail=False, uni_volume=True),
              "fused": dict(mega=False, fused_tail=True, uni_volume=True),
              "mega": dict(mega=True, fused_tail=False, uni_volume=False)}
-    bcl = ["bcl_flux", "bcl_mom_volume", "bcl_visc"]
+    bcl = ["bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
     want = {"per-stage": ["btp_volume"] + bcl,
             "uniform volume": ["btp_volume_uni"] + bcl,
             "fused": ["btp_volume_uni", "btp_faces", "btp_update"] + bcl,
@@ -277,7 +278,8 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
     # no viscosity, or the quad family's: no nodal viscosity kernel
     for visc in (dict(use_visc=False), dict(method_visc=1)):
         flags = SimpleNamespace(**paths["mega"], **{**k, **visc})
-        assert model.kernel_sources(flags) == ["btp_mega", "bcl_flux", "bcl_mom_volume"]
+        assert model.kernel_sources(flags) == ["btp_mega", "bcl_mass", "bcl_flux",
+                                               "bcl_mom_volume"]
 
 
 def test_wrapper_and_source_agree_on_limits_and_the_symbol_stays_generic():

@@ -223,6 +223,58 @@ def plan_ranks(dec, cases):
     return out
 
 
+def mass_ranks(dec, cases):
+    """For each case (name, config overrides, whole-grid numpy inputs of
+    tests/test_torch_bcl_mass.mass_inputs): this rank's block of the inputs
+    through core/stepper._thickness_update on the decomposed model; returns,
+    per case, the new q_df of the block, the block's bounds, the plain
+    version's calls with the `ok` each returned (the block's own), the
+    and-reduced `ok`, and the halo exchanges the update made."""
+    from hnumo_tpu_torch.core import stepper
+    from hnumo_tpu_torch.core.bcl import extract_qprime_faces
+    from hnumo_tpu_torch.core.types import BtpAverages, BtpFaceAvg, Pair
+
+    out = {}
+    for name, over, (q_df, qp, avg, faces) in cases:
+        m = Model(bump_config(**over), device="cpu", decomp=dec)
+        (y0, y1), (x0, x1) = bounds = dec.bounds(m.cfg.nely, m.cfg.nelx)
+        cut = {"e": lambda a: a[..., y0:y1, x0:x1, :, :],
+               "x": lambda a: a[..., y0:y1, x0:x1 + 1, :],
+               "y": lambda a: a[..., y0:y1 + 1, x0:x1, :]}
+
+        def t(a, part):
+            return torch.tensor(np.ascontiguousarray(cut[part](a)), dtype=torch.float64)
+
+        zero = torch.zeros(())
+
+        def face(d):
+            return BtpFaceAvg(**{f: t(faces[d][f], d) if f in faces[d] else zero
+                                 for f in BtpFaceAvg._fields})
+
+        a = BtpAverages(**{f: t(avg[f], "e") if f in avg else zero
+                           for f in BtpAverages._fields if f != "faces"},
+                        faces=Pair(face("x"), face("y")))
+        qpt = t(qp, "e")
+        qpf = extract_qprime_faces(m.bc, qpt)
+        plain, local = stepper.bcl_mass_plain, []
+
+        def spy(*ops):
+            q, ok = plain(*ops)
+            local.append(bool(ok))
+            return q, ok
+
+        stepper.bcl_mass_plain = spy
+        calls0 = dec.exchange_calls
+        try:
+            q, ok = stepper._thickness_update(m.static, m.P, m.g, m.bc, a, t(q_df, "e"), qpt,
+                                              qpf)
+        finally:
+            stepper.bcl_mass_plain = plain
+        out[name] = dict(q=q.numpy(), bounds=bounds, calls=len(local), local_ok=local[0],
+                         ok=bool(ok), exchanges=dec.exchange_calls - calls0)
+    return out
+
+
 def run_jobs(dec, jobs):
     """Several of the functions above in one set of ranks: `jobs` is a list
     of (key, function name, kwargs); returns {key: result}."""
