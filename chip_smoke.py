@@ -5,9 +5,9 @@
                                             # chiprun_out/chip_smoke_profile.txt)
     python3 chip_smoke.py --log FILE  # the whole output (default chiprun_out/chip_smoke.log)
     python3 chip_smoke.py --decomposition-only  # phases 1-2 and 27-27d only
-    python3 chip_smoke.py --bcl-only            # phases 1-2 and 31-33 only
+    python3 chip_smoke.py --bcl-only            # phases 1-2 and 31-34 only
 
-Builds the CUDA kernels of the nine sources in this checkout (and, to be
+Builds the CUDA kernels of the ten sources in this checkout (and, to be
 timed only, two ablated variants of each of the four streaming kernels: the
 two volume kernels, the face kernel and the update kernel, and four of the
 megakernel), holds each against its plain PyTorch version on the card (the
@@ -85,11 +85,18 @@ ops/bcl_mass: the mass update and the check, then the consistency) against
 their plain version on phase 31's cases, y-periodic sides and a negative
 full thickness (`ok` false alike), each kernel's time per launch beside its
 byte bound, the whole call's and the graphed plain version's, and the main
-path with them: 2 launches and 2 graph nodes of each a step.
+path with them: 2 launches and 2 graph nodes of each a step. Last the
+coupling coefficients' two kernels (34, ops/bcl_coeffs: the element work,
+then the face work) against their plain version on the cell's 25x25 and on
+7x5 grids (p=8, p=4 inexact, 1, 5 and 20 layers, periodic sides, walls,
+viscosity off, the quad family), each block of 2x2 splits, each kernel's
+time per launch beside its byte bound, the whole call's and the graphed
+plain version's, the main path with them, and its graphed steps against
+eager ones, bitwise.
 Any failure raises and the run exits non-zero; there is no CPU path.
 
 Output: one line per phase, then a `{"kernels": [...], "flatfaces_256": {...}}`
-line (ten kernels; each entry that a phase from 22 on launched carries that
+line (twelve kernels; each entry that a phase from 22 on launched carries that
 phase's readings under a key of its own, phase 30's under "bench_30";
 phase 29's readings beside them:
 the flat faces are library calls, no kernel), the card's name and power
@@ -2426,7 +2433,7 @@ PROBE_MODULES = ("hnumo_tpu_torch.core.stepper", "hnumo_tpu_torch.core.bcl",
                  "hnumo_tpu_torch.core.viscosity", "hnumo_tpu_torch.core.faces",
                  "hnumo_tpu_torch.ops.dg", "hnumo_tpu_torch.ops.btp_volume",
                  "hnumo_tpu_torch.ops.btp_volume_uni", "hnumo_tpu_torch.ops.btp_tail",
-                 "hnumo_tpu_torch.ops.bcl_mass")
+                 "hnumo_tpu_torch.ops.bcl_mass", "hnumo_tpu_torch.ops.bcl_coeffs")
 
 
 def _tensors(x):
@@ -2710,18 +2717,22 @@ BCL_KERNELS = {"bcl_flux": ("bcl_flux", FLUX_SYMBOL),
                "bcl_mom_volume": ("bcl_mom_volume", "bcl_mom_volume_kernel"),
                "bcl_visc": ("bcl_visc", "bcl_visc_kernel"),
                "bcl_mass_update": ("bcl_mass", "bcl_mass_update_kernel"),
-               "bcl_mass_consistency": ("bcl_mass", "bcl_mass_consistency_kernel")}
+               "bcl_mass_consistency": ("bcl_mass", "bcl_mass_consistency_kernel"),
+               "bcl_coeffs_nodal": ("bcl_coeffs", "bcl_coeffs_nodal_kernel"),
+               "bcl_coeffs_edge": ("bcl_coeffs", "bcl_coeffs_edge_kernel")}
 
 
 def bcl_wrappers():
     """{source: its CUDA wrapper, whose `launches` counts the launches made}."""
+    from hnumo_tpu_torch.ops.bcl_coeffs import bcl_coeffs_cuda
     from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda
     from hnumo_tpu_torch.ops.bcl_mass import bcl_mass_cuda
     from hnumo_tpu_torch.ops.bcl_mom_volume import bcl_mom_volume_cuda
     from hnumo_tpu_torch.ops.bcl_visc import bcl_visc_cuda
 
     return {"bcl_flux": bcl_momentum_fluxes_cuda, "bcl_mom_volume": bcl_mom_volume_cuda,
-            "bcl_visc": bcl_visc_cuda, "bcl_mass": bcl_mass_cuda}
+            "bcl_visc": bcl_visc_cuda, "bcl_mass": bcl_mass_cuda,
+            "bcl_coeffs": bcl_coeffs_cuda}
 FLUX_OUTPUTS = ("SuL", "SuR", "SvL", "SvR")
 
 
@@ -2843,15 +2854,16 @@ _bcl_graph_readings = {}
 
 def bcl_graph_checks(cfg, steps=300):
     """The main path's step with the baroclinic kernels (BCL_KERNELS: the
-    thickness update's two, the layer momentum's face fluxes, volume term
-    and nodal viscosity): an eager model's wrappers launch each kernel 2 a
-    step; the graphed step's captured nodes hold each exactly twice under
-    impl="kernel" and none under "plain", and the barotropic kernels as its
+    coupling coefficients' two, the thickness update's two, the layer
+    momentum's face fluxes, volume term and nodal viscosity): an eager
+    model's wrappers launch each kernel 2 a step; the graphed step's
+    captured nodes hold each exactly twice under impl="kernel" and none
+    under "plain", and the barotropic kernels as its
     path says under "kernel" and none under "plain"; one replay's device
     time of each (torch.profiler); and ms/step of the graphed step with
     every kernel against the step with every plain version, in turns
     (plain, kernel, kernel, plain) after one untimed step each. Taken once
-    per configuration and process: phases 31-33 share the readings."""
+    per configuration and process: phases 31-34 share the readings."""
     if cfg in _bcl_graph_readings:
         return _bcl_graph_readings[cfg]
     from torch.profiler import ProfilerActivity, profile
@@ -3526,6 +3538,324 @@ def check_bcl_mass(smi) -> list:
             for name in MASS_KERNELS]
 
 
+# ---- the coupling coefficients (phase 34) --------------------------------------
+
+COEFFS_KERNELS = ("bcl_coeffs_nodal", "bcl_coeffs_edge")
+LAKE = dict(test_case="lakeatrest")
+NO_SLIP = ((2, 2), (2, 2))
+# the 7x5 cases beside the cell's 25x25 (small_config's overrides), and the
+# whole grids whose 2x2 splits' blocks are held against the plain version
+COEFFS_CASES = {"p=8": dict(nop=8), "p=4 inexact": dict(dg_integ_exact=False),
+                "L=1": dict(nlayers=1, **LAKE), "L=5": dict(nlayers=5, **LAKE),
+                "L=20": dict(nlayers=20, **LAKE),
+                "x-periodic": dict(walls=((3, 3), (4, 4))),
+                "y-periodic L=3": dict(walls=((4, 4), (3, 3)), nlayers=3, **LAKE),
+                "no-slip walls": dict(walls=NO_SLIP),
+                "copy and no-slip walls": dict(walls=OTHER_WALLS),
+                "viscosity off": dict(visc=False), "method_visc=1": dict(method_visc=1)}
+COEFFS_SPLITS = {"8x6 copy and no-slip walls": dict(walls=OTHER_WALLS),
+                 "8x6 x-periodic": dict(walls=((3, 3), (4, 4)))}
+# the δ-form pressure sums. On a stepped state (δdp' ~50 Pa) their layer terms,
+# alpha * P_ref * pi with P_ref up to ~1e8 Pa, are ~1e4 times the sum, so the
+# rounding of the interpolated δdp' (~1e-7 of it in f32, ~1e-16 in f64) reaches
+# ~5e-3 (f32) and ~1e-11 (f64) of the sum in either version, in its own summation
+# order: no tolerance of the kernels against the plain version holds there. On
+# such inputs the f32 kernels are held instead against the plain version in f64,
+# to twice the f32 plain version's own error
+PRESSURE_FIELDS = ("dH_bcl", "dH_bcl_edge.x", "dH_bcl_edge.y")
+
+
+def coeffs_operands(m, inputs, seed, corrector=True):
+    """ops/bcl_coeffs's operands ((static, P, g, bc, qprime_df, qprime_faces,
+    dpprime_visc, dpprime_visc_q)) at this model's shapes, as a half-step
+    builds them: the primes of `inputs(m, seed)` and their face traces, the
+    viscosity's weight (the corrector's full dp', or the predictor's δdp'),
+    and its quad copy in the quad family (zeros otherwise)."""
+    from hnumo_tpu_torch.core.bcl import extract_qprime_faces
+    from hnumo_tpu_torch.ops.dg import interp_n2q
+
+    qp = inputs(m, seed)[2]
+    dpv = m.P.dpp_ref_df + qp[0] if corrector else qp[0]
+    dpv_q = (interp_n2q(m.g, dpv) if m.static.method_visc == 1 else
+             torch.zeros(qp.shape[1:-2] + m.g.wjac.shape[-2:], dtype=qp.dtype,
+                         device=qp.device))
+    return (m.static, m.P, m.g, m.bc, qp, extract_qprime_faces(m.bc, qp), dpv, dpv_q)
+
+
+def block_coeffs_operands(m, ops, block):
+    """`ops` cut to one block ((py, px), (iy, ix)) of the grid, as a rank of
+    a decomposition holds them: its element tables (parallel/sharding.
+    local_tables), its element fields, the traces of its own faces, and axes
+    whose exchanges hand over the neighbouring blocks' edges of the whole
+    grid's viscous stack (dpp_graduv and dpprime_visc of the plain version,
+    cyclic as the exchange is)."""
+    from hnumo_tpu_torch.core.faces import FaceLR
+    from hnumo_tpu_torch.ops.bcl_coeffs import bcl_coeffs_plain
+    from hnumo_tpu_torch.parallel.sharding import block_bounds, local_tables
+
+    static, P, g, bc, qp, qpf, dpv, dpv_q = ops
+    (py, px), (iy, ix) = block
+    ny, nx = m.cfg.nely, m.cfg.nelx
+    y0, y1 = block_bounds(ny, py, iy)
+    x0, x1 = block_bounds(nx, px, ix)
+    stack = torch.cat([bcl_coeffs_plain(*ops).dpp_graduv, dpv[None]])
+
+    def el(t):
+        return t[..., y0:y1, x0:x1, :, :].contiguous()
+
+    def cut_x(t):
+        return t[..., y0:y1, x0:x1 + 1, :].contiguous()
+
+    def cut_y(t):
+        return t[..., y0:y1 + 1, x0:x1, :].contiguous()
+
+    def ghost_x(from_prev):
+        c = (x0 - 1) % nx if from_prev else x1 % nx
+        return stack[..., y0:y1, c:c + 1, :, -1 if from_prev else 0]
+
+    def ghost_y(from_prev):
+        r = (y0 - 1) % ny if from_prev else y1 % ny
+        return stack[..., r:r + 1, x0:x1, -1 if from_prev else 0, :]
+
+    g_loc, P_loc = local_tables(g, P, block)
+    bc_loc = bc._replace(ax=GhostAxis(ix == 0, ix == px - 1, ghost_x),
+                         ay=GhostAxis(iy == 0, iy == py - 1, ghost_y))
+    qpf_loc = tuple(FaceLR(cut_x(f.xl), cut_x(f.xr), cut_y(f.yl), cut_y(f.yr)) for f in qpf)
+    return static, P_loc, g_loc, bc_loc, el(qp), qpf_loc, el(dpv), el(dpv_q)
+
+
+def coupling_leaves(c) -> dict:
+    """{name: tensor} of a CouplingFields, a Pair's two as name.x, name.y."""
+    out = {}
+    for name, v in c._asdict().items():
+        if isinstance(v, tuple):
+            out.update({f"{name}.{d}": t for d, t in zip("xy", v)})
+        else:
+            out[name] = v
+    return out
+
+
+def compare_coeffs(ops, tol, what, exempt=()):
+    """The kernels against the plain version on `ops`: every field of the
+    CouplingFields of the same shape and dtype, contiguous, within tol * its
+    max (an all-zero field exactly; the fields named in `exempt` are only
+    read), but dpprime_visc and dpprime_visc_q, which must be the operands
+    themselves (as in the plain version; a step's dpprime_visc_q is the
+    strided result of an einsum); returns (max err/scale over the fields
+    held, max abs err, {exempt field: its err/scale})."""
+    from hnumo_tpu_torch.ops.bcl_coeffs import bcl_coeffs_cuda, bcl_coeffs_plain
+
+    got = coupling_leaves(bcl_coeffs_cuda(*ops))
+    want = coupling_leaves(bcl_coeffs_plain(*ops))
+    torch.cuda.synchronize()
+    if got["dpprime_visc"] is not ops[6] or got["dpprime_visc_q"] is not ops[7]:
+        raise AssertionError(f"{what}: dpprime_visc or dpprime_visc_q is not passed through")
+    worst, worst_abs, read = 0.0, 0.0, {}
+    for name, b in want.items():
+        a = got[name]
+        if name in ("dpprime_visc", "dpprime_visc_q"):
+            continue
+        if (a.shape != b.shape or a.dtype != b.dtype or not a.is_contiguous()
+                or not bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{what}: {name}: {tuple(a.shape)} {a.dtype} against "
+                                 f"{tuple(b.shape)} {b.dtype}, not contiguous, or not finite")
+        scale, err = float(b.abs().max()), float((a - b).abs().max())
+        if name in exempt:
+            read[name] = err / scale if scale else err
+            continue
+        if not err <= tol * scale:
+            raise AssertionError(f"{what}: {name}: max|diff|={err:.3e} > {tol:g}*{scale:.3e}")
+        worst_abs = max(worst_abs, err)
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst, worst_abs, read
+
+
+def coeffs_cases(dtype: str):
+    """[(what, operands, fields exempt from the tolerance)] of every case of
+    phase 34 in `dtype`: the cell's 25x25 on perturbed, sheared and stepped
+    inputs (PRESSURE_FIELDS exempt on the stepped one), the 7x5 COEFFS_CASES,
+    and each block of a 2x2 split of each COEFFS_SPLITS grid (sheared)."""
+    from hnumo_tpu_torch.model import Model
+
+    m25 = Model(main_path_config(25, dtype))
+    out = [(f"25x25 {name}", coeffs_operands(m25, inputs, seed=61), exempt)
+           for name, inputs, exempt in (("perturbed", perturbed_inputs, ()),
+                                        ("sheared", sheared_inputs, ()),
+                                        ("stepped", stepped_inputs, PRESSURE_FIELDS))]
+    for name, over in COEFFS_CASES.items():
+        m = Model(small_config(7, 5, dtype, 1, **over))
+        out.append((f"7x5 {name}", coeffs_operands(m, perturbed_inputs, seed=62), ()))
+    for name, over in COEFFS_SPLITS.items():
+        m = Model(small_config(8, 6, dtype, 1, **over))
+        ops = coeffs_operands(m, sheared_inputs, seed=63)
+        out += [(f"{name} block ({iy},{ix}) of 2x2",
+                 block_coeffs_operands(m, ops, ((2, 2), (iy, ix))), ())
+                for iy in range(2) for ix in range(2)]
+    return out
+
+
+def coeffs_f64_errors(ops) -> dict:
+    """{field: (the kernels' error, the plain version's error)} on the f32
+    operands `ops`, each against the plain version's on the same operands in
+    f64, over its max: what f32 costs each of them."""
+    from hnumo_tpu_torch.ops.bcl_coeffs import bcl_coeffs_cuda, bcl_coeffs_plain
+
+    ref = coupling_leaves(bcl_coeffs_plain(*as_float64(ops)))
+    got = {name: coupling_leaves(fn(*ops))
+           for name, fn in (("kernel", bcl_coeffs_cuda), ("plain", bcl_coeffs_plain))}
+    return {k: tuple(float((got[v][k].double() - r).abs().max()) / float(r.abs().max())
+                     for v in ("kernel", "plain"))
+            for k, r in ref.items() if float(r.abs().max())}
+
+
+def check_coeffs_case(ops, tol, what, exempt):
+    """compare_coeffs on one case; where fields are exempt on f32 operands,
+    each of them of the kernels within twice the f32 plain version's own
+    error against the plain version in f64. Returns (max err/scale over the
+    fields held, max abs err, {exempt field: (err/scale against the plain
+    version, the kernels' and the plain version's errors against f64)})."""
+    worst, worst_abs, read = compare_coeffs(ops, tol, what, exempt)
+    if read and ops[4].dtype == torch.float32:
+        vs = coeffs_f64_errors(ops)
+        for name in read:
+            kernel, plain = vs[name]
+            if not kernel <= 2 * plain:
+                raise AssertionError(f"{what}: {name}: the kernels' error against f64 "
+                                     f"{kernel:.3e} > twice the plain version's {plain:.3e}")
+            read[name] = (read[name], kernel, plain)
+    return worst, worst_abs, read
+
+
+def coeffs_stage_times(ops, n=400):
+    """Device ms of one launch of each kernel (launches back to back, on
+    `ops`), and of one replay of a whole call of the wrapper (its two
+    launches and the viscous traces) and of the plain version, each captured
+    as a CUDA graph."""
+    from hnumo_tpu_torch.core.faces import extract_faces_stacked
+    from hnumo_tpu_torch.ops import bcl_coeffs
+
+    static, P, g, bc, qp, qpf, dpv, dpv_q = ops
+    named = bcl_coeffs._operands(P, g, qp, qpf, dpv)
+    lib = bcl_coeffs._library()
+    b, shape = bcl_coeffs._buffers(g, named, True)
+    ptrs = [t.data_ptr() for _, t in named] + [b[k].data_ptr() for k in bcl_coeffs.OUTPUTS]
+    stream = torch.cuda.current_stream().cuda_stream
+    bcl_coeffs._launch(lib, 0, shape, True, ptrs + [None] * 4, stream)
+    traces = extract_faces_stacked(b["nod"], bc, vec_pairs=bcl_coeffs.VEC_PAIRS)
+    out = {}
+    for stage, name in enumerate(COEFFS_KERNELS):
+        p = ptrs + ([t.data_ptr() for t in traces] if stage else [None] * 4)
+        out[name] = time_launches(
+            lambda: bcl_coeffs._launch(lib, stage, shape, True, p, stream), [()], n,
+            device_only=True)
+    out["call_graphed"] = graphed_ms(bcl_coeffs.bcl_coeffs_cuda, ops)
+    out["plain_ms_graphed"] = graphed_ms(bcl_coeffs.bcl_coeffs_plain, ops)
+    del b, traces
+    return out
+
+
+def coeffs_bounds(ops) -> dict:
+    """Each kernel's least time on the card: the values it reads once and
+    writes once over the HBM bandwidth (its flops, ~100 a value, are far
+    below the byte time at f32 peak). Stage 0 reads the primes, dpprime_visc,
+    the reference dp' and pressures at the quad points and the nodal metric,
+    and writes the volume coefficients, the viscous stack and its layer sums;
+    stage 1 reads the (δdp', u', v') traces, the reference dp' and pressures
+    at the faces and the viscous stack's traces, and writes the edge
+    coefficients, the viscous face traces and their layer sums."""
+    static, P, g, bc, qp, qpf, dpv, dpv_q = ops
+    L, ly, lx, ngl, nq = qp.shape[1], *qp.shape[2:4], *g.psiq.shape
+    E, n2, q2 = ly * lx, ngl * ngl, nq * nq
+    F = ly * (lx + 1) + (ly + 1) * lx                  # faces of both directions
+    N, Q, FN, FQ = E * n2, E * q2, F * ngl, F * nq
+    v0 = (4 * L * N + L * Q + (L + 1) * Q + 4 * N     # qp, dpv; dref_q; P_ref_q; metric
+          + 4 * Q + 5 * L * N + 5 * N)                # writes: vol; the stack; its sums
+    v1 = (6 * L * FN + L * FQ + (L + 1) * FQ + 10 * L * FN   # traces; dref; P_ref; stack's
+          + 4 * FQ + 10 * L * FN + 10 * FN)          # writes: edges; face traces; sums
+    size = g.psiq.element_size()
+    return {name: {"bytes": v * size, "bound_ms": v * size / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"} for name, v in zip(COEFFS_KERNELS, (v0, v1))}
+
+
+def check_bcl_coeffs(smi) -> list:
+    """Phase 34: the coupling coefficients' two kernels (ops/bcl_coeffs)
+    against their plain version, f32 and f64, over coeffs_cases (the cell's
+    25x25 p=4 L=2 on perturbed, sheared and stepped inputs; 7x5 at p=8, p=4
+    inexact, 1, 5 and 20 layers, x- and y-periodic sides, no-slip and copy
+    walls, viscosity off, the quad family; each block of two 2x2 splits of
+    8x6). Then each kernel's time per launch beside its byte bound, the
+    whole call's and the plain version's, the main path's graph with them (2
+    launches and 2 nodes of each a step), and 3 graphed steps of the main
+    path bitwise the eager ones."""
+    from hnumo_tpu_torch.ops._build import library_path, resource_usage
+
+    usage = resource_usage("bcl_coeffs")
+    main = [u for u in usage if u.startswith(("f<5,9>", "d<5,9>"))]
+    if len(main) != 4 or not all(u.endswith(" 0 B spill stores, 0 B spill loads")
+                                 for u in usage):
+        raise AssertionError(f"bcl_coeffs must build every kernel without a spill: {usage}")
+    frames = dict(re.findall(r"Function properties for (\S+)\s+(\d+) bytes stack frame",
+                             library_path("bcl_coeffs").with_suffix(".log").read_text()))
+    errs, vs_f64 = {}, {}
+    for dtype in ("float32", "float64"):
+        tol = F32_TOL if dtype == "float32" else F64_TOL
+        for what, ops, exempt in coeffs_cases(dtype):
+            errs[f"{dtype} {what}"] = check_coeffs_case(ops, tol, f"{dtype} {what}", exempt)
+            if dtype == "float32" and what.startswith("25x25"):
+                e = coeffs_f64_errors(ops)
+                vs_f64[what] = {
+                    group: tuple(max(v[i] for f, v in e.items() if (f in PRESSURE_FIELDS) is p)
+                                 for i in (0, 1))
+                    for group, p in (("other", False), ("pressure", True))}
+    worst = {dt: max(e[0] for k, e in errs.items() if k.startswith(dt))
+             for dt in ("float32", "float64")}
+    exempted = {k: e[2] for k, e in errs.items() if e[2]}
+    print(f"phase 34 bcl_coeffs kernels vs plain ({len(errs)} cases: 25x25 p=4 L=2 perturbed, "
+          f"sheared, stepped; 7x5 {', '.join(COEFFS_CASES)}; the four blocks of 2x2 splits of "
+          f"{', '.join(COEFFS_SPLITS)}), every field's max err/scale f32 / f64 (tol "
+          f"{F32_TOL:g} / {F64_TOL:g}): {worst['float32']:.3e} / {worst['float64']:.3e}, the "
+          f"pressure sums on the stepped input aside: {exempted}; the f32 kernels / plain "
+          f"version against the plain version in f64, the worst of the other fields and of "
+          f"the pressure sums: " + "; ".join(
+              f"{w} {v['other'][0]:.2e} / {v['other'][1]:.2e} and {v['pressure'][0]:.2e} / "
+              f"{v['pressure'][1]:.2e}" for w, v in vs_f64.items()))
+    cfg = main_path_config(25, "float32")
+    from hnumo_tpu_torch.model import Model
+
+    ops = coeffs_operands(Model(cfg), stepped_inputs, seed=64)
+    bounds = coeffs_bounds(ops)
+    t = coeffs_stage_times(ops)
+    for name in COEFFS_KERNELS:
+        b = bounds[name]
+        print(f"phase 34 {name} 25x25 f32: {t[name] * 1e3:.2f} us/launch on the device, bound "
+              f"{b['bound_ms'] * 1e3:.3f} us by bytes ({b['bytes']} B)")
+    print(f"phase 34 bcl_coeffs 25x25 f32: the whole call (2 launches, the viscous traces) "
+          f"graphed {t['call_graphed'] * 1e3:.2f} us on the device; the plain version graphed "
+          f"{t['plain_ms_graphed']:.4f} ms/call")
+    g = bcl_graph_checks(cfg)
+    per = "; ".join(f"{n} {k['eager_launches_per_step']:g} a step eager, {k['graph_nodes']} "
+                    f"graph nodes, {k['replay_launches']} in a profiled replay at "
+                    f"{k['ms_per_launch_in_replay']} ms each"
+                    for n, k in g["kernels"].items() if n in COEFFS_KERNELS)
+    check_graph_vs_eager(cfg, steps=3)
+    print(f"phase 34 main path 25x25 f32: {per}; kernel nodes a step every plain version / "
+          f"every kernel {g['graph_kernel_nodes']['plain']} / "
+          f"{g['graph_kernel_nodes']['kernel']}, memcpy nodes "
+          f"{g['graph_memcpy_nodes']['plain']} / {g['graph_memcpy_nodes']['kernel']}; ms/step "
+          f"in turns {g['ms_per_step_turns']}; 3 graphed steps == eager, bitwise | {smi}")
+    return [{"name": name, "route": "cuda", "source": "hnumo_tpu_torch/ops/csrc/bcl_coeffs.cu",
+             "replaces": None, "ptxas": usage, "stack_frame_bytes": frames,
+             "max_err_over_scale": {k: e[0] for k, e in errs.items()},
+             "max_abs_err": {k: e[1] for k, e in errs.items()},
+             "pressure_sums_on_stepped_input": exempted,
+             "f32_err_over_scale_vs_f64_plain": vs_f64,
+             "tolerance_over_scale": {"float32": F32_TOL, "float64": F64_TOL},
+             "ms_25": t[name], "call_ms_graphed_25": t["call_graphed"],
+             "plain_ms_graphed_25": t["plain_ms_graphed"], **bounds[name], "library_ms": None,
+             "main_path_25": {**g, "kernel": g["kernels"][name]}, "card": smi}
+            for name in COEFFS_KERNELS]
+
+
 # ---- the bench tool (phase 30) -------------------------------------------------
 # (elements a side, nop), variants: hnumo_tpu_torch/tools/bench.py's runs at
 # the megakernel's size (every path of p=4) and at p=8 (no megakernel there)
@@ -3753,8 +4083,9 @@ def main() -> int:
                          "needs 2 GPUs, 27d 4); their readings to "
                          "chiprun_out/decomposition.json")
     ap.add_argument("--bcl-only", action="store_true",
-                    help="only phases 1-2 and 31-33 (the baroclinic layer-momentum and "
-                         "thickness-update kernels against their plain versions, their "
+                    help="only phases 1-2 and 31-34 (the baroclinic layer-momentum, "
+                         "thickness-update and coupling kernels against their plain "
+                         "versions, their "
                          "times, the main path's graph with them); their readings to "
                          "chiprun_out/bcl_momentum.json")
     args = ap.parse_args()
@@ -3783,7 +4114,7 @@ def main() -> int:
     # ---- phase 2: build (one nvcc per source, side by side) -----------------
     t0 = time.perf_counter()
     sources = ["btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update",
-               "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
+               "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
     build_libraries(sources)
     for name in sources:
         load_library(name)
@@ -3807,7 +4138,8 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
     if args.bcl_only:
-        bcl = [check_bcl_flux(smi)] + check_bcl_momentum(smi) + check_bcl_mass(smi)
+        bcl = ([check_bcl_flux(smi)] + check_bcl_momentum(smi) + check_bcl_mass(smi)
+               + check_bcl_coeffs(smi))
         (OUT_DIR / "bcl_momentum.json").write_text(json.dumps(bcl, default=str))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4656,6 +4988,7 @@ def main() -> int:
     kernels.append(check_bcl_flux(smi))      # phase 31
     kernels.extend(check_bcl_momentum(smi))  # phase 32
     kernels.extend(check_bcl_mass(smi))      # phase 33
+    kernels.extend(check_bcl_coeffs(smi))    # phase 34
     for entry in kernels:      # phase 30's runs that launched the kernel
         entry["bench_30"] = {
             f"{r['nel'][0]}x{r['nel'][1]} p={r['nop']} {r['variant']}": {

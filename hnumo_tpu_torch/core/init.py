@@ -54,8 +54,8 @@ class StaticConfig:
     every hand-written CUDA kernel of the port on the path the flags choose
     (the barotropic volume stage, general or uniform-geometry, ops/btp_volume
     and ops/btp_volume_uni; the whole-solve megakernel, ops/mega; the fused
-    path's face and update stages, ops/btp_tail; the baroclinic thickness
-    update, ops/bcl_mass; the baroclinic layer momentum's face fluxes,
+    path's face and update stages, ops/btp_tail; the coupling coefficients,
+    ops/bcl_coeffs; the baroclinic thickness update, ops/bcl_mass; the baroclinic layer momentum's face fluxes,
     volume term and nodal-family viscosity, ops/bcl_flux, ops/bcl_mom_volume
     and ops/bcl_visc), "plain" runs their plain PyTorch versions."""
 

@@ -267,7 +267,7 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
              "uniform volume": dict(mega=False, fused_tail=False, uni_volume=True),
              "fused": dict(mega=False, fused_tail=True, uni_volume=True),
              "mega": dict(mega=True, fused_tail=False, uni_volume=False)}
-    bcl = ["bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
+    bcl = ["bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
     want = {"per-stage": ["btp_volume"] + bcl,
             "uniform volume": ["btp_volume_uni"] + bcl,
             "fused": ["btp_volume_uni", "btp_faces", "btp_update"] + bcl,
@@ -278,8 +278,8 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
     # no viscosity, or the quad family's: no nodal viscosity kernel
     for visc in (dict(use_visc=False), dict(method_visc=1)):
         flags = SimpleNamespace(**paths["mega"], **{**k, **visc})
-        assert model.kernel_sources(flags) == ["btp_mega", "bcl_mass", "bcl_flux",
-                                               "bcl_mom_volume"]
+        assert model.kernel_sources(flags) == ["btp_mega", "bcl_coeffs", "bcl_mass",
+                                               "bcl_flux", "bcl_mom_volume"]
 
 
 def test_wrapper_and_source_agree_on_limits_and_the_symbol_stays_generic():
