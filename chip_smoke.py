@@ -92,11 +92,17 @@ then the face work) against their plain version on the cell's 25x25 and on
 viscosity off, the quad family), each block of 2x2 splits, each kernel's
 time per launch beside its byte bound, the whole call's and the graphed
 plain version's, the main path with them, and its graphed steps against
-eager ones, bitwise.
+eager ones, bitwise. Last the end of each baroclinic half-step (35,
+ops/bcl_mom_update: the momentum update's tail and evaluate_bcl / _v1 in
+one launch) against its plain version, both halves, on phase 34's cases and
+the shear stress (two launches with the plain shear solve between them),
+its time per launch beside its byte bound, the whole call's and the graphed
+plain version's, the main path with it, and its graphed steps against eager
+ones, bitwise.
 Any failure raises and the run exits non-zero; there is no CPU path.
 
 Output: one line per phase, then a `{"kernels": [...], "flatfaces_256": {...}}`
-line (twelve kernels; each entry that a phase from 22 on launched carries that
+line (thirteen kernels; each entry that a phase from 22 on launched carries that
 phase's readings under a key of its own, phase 30's under "bench_30";
 phase 29's readings beside them:
 the flat faces are library calls, no kernel), the card's name and power
@@ -2433,7 +2439,8 @@ PROBE_MODULES = ("hnumo_tpu_torch.core.stepper", "hnumo_tpu_torch.core.bcl",
                  "hnumo_tpu_torch.core.viscosity", "hnumo_tpu_torch.core.faces",
                  "hnumo_tpu_torch.ops.dg", "hnumo_tpu_torch.ops.btp_volume",
                  "hnumo_tpu_torch.ops.btp_volume_uni", "hnumo_tpu_torch.ops.btp_tail",
-                 "hnumo_tpu_torch.ops.bcl_mass", "hnumo_tpu_torch.ops.bcl_coeffs")
+                 "hnumo_tpu_torch.ops.bcl_mass", "hnumo_tpu_torch.ops.bcl_coeffs",
+                 "hnumo_tpu_torch.ops.bcl_mom_update")
 
 
 def _tensors(x):
@@ -2719,7 +2726,8 @@ BCL_KERNELS = {"bcl_flux": ("bcl_flux", FLUX_SYMBOL),
                "bcl_mass_update": ("bcl_mass", "bcl_mass_update_kernel"),
                "bcl_mass_consistency": ("bcl_mass", "bcl_mass_consistency_kernel"),
                "bcl_coeffs_nodal": ("bcl_coeffs", "bcl_coeffs_nodal_kernel"),
-               "bcl_coeffs_edge": ("bcl_coeffs", "bcl_coeffs_edge_kernel")}
+               "bcl_coeffs_edge": ("bcl_coeffs", "bcl_coeffs_edge_kernel"),
+               "bcl_mom_update": ("bcl_mom_update", "bcl_mom_update_kernel")}
 
 
 def bcl_wrappers():
@@ -2727,12 +2735,13 @@ def bcl_wrappers():
     from hnumo_tpu_torch.ops.bcl_coeffs import bcl_coeffs_cuda
     from hnumo_tpu_torch.ops.bcl_flux import bcl_momentum_fluxes_cuda
     from hnumo_tpu_torch.ops.bcl_mass import bcl_mass_cuda
+    from hnumo_tpu_torch.ops.bcl_mom_update import bcl_mom_update_cuda
     from hnumo_tpu_torch.ops.bcl_mom_volume import bcl_mom_volume_cuda
     from hnumo_tpu_torch.ops.bcl_visc import bcl_visc_cuda
 
     return {"bcl_flux": bcl_momentum_fluxes_cuda, "bcl_mom_volume": bcl_mom_volume_cuda,
             "bcl_visc": bcl_visc_cuda, "bcl_mass": bcl_mass_cuda,
-            "bcl_coeffs": bcl_coeffs_cuda}
+            "bcl_coeffs": bcl_coeffs_cuda, "bcl_mom_update": bcl_mom_update_cuda}
 FLUX_OUTPUTS = ("SuL", "SuR", "SvL", "SvR")
 
 
@@ -3856,6 +3865,243 @@ def check_bcl_coeffs(smi) -> list:
             for name in COEFFS_KERNELS]
 
 
+# ---- the end of each baroclinic half-step (phase 35) ------------------------------
+
+MOM_UPDATE_KERNEL = "bcl_mom_update"
+# the 7x5 cases beside the cell's 25x25 (small_config's overrides): COEFFS_CASES
+# and the vertical shear stress, whose call is two launches with the plain
+# shear solve between them
+MOM_UPDATE_CASES = {**COEFFS_CASES, "shear stress": dict(ad_mlswe=SHEAR_AD)}
+MOM_UPDATE_OUTPUTS = ("q_df", "qprime_df")
+
+
+def half_step_operands(m, inputs, seed):
+    """core/stepper._momentum_update's operands ((static, P, g, bc, avg, coup,
+    q_df, qprime_df, qprime_faces, qb_df)) at this model's shapes: the primes
+    and coupling of `inputs(m, seed)` and the primes' face traces, the
+    averages and the new barotropic state of one barotropic solve from there
+    on the model's own path, and layer thicknesses off the model's initial
+    ones by ~1e-3 of the reference, with momenta of ~0.1 m/s times the
+    thickness."""
+    from hnumo_tpu_torch.core.bcl import extract_qprime_faces
+    from hnumo_tpu_torch.core.btp import barotropic_solve
+
+    rng, qb, qp, coup = inputs(m, seed)
+    qb_new, avg = barotropic_solve(m.static, m.P, m.g, m.bc, coup, qb, qp, vol_ops=m.vol_ops,
+                                   mega_ops=m.mega_ops, tail_ops=m.tail_ops)
+    dref = m.P.dpp_ref_df
+    r = torch.as_tensor(rng.normal(size=(3,) + tuple(dref.shape)), dtype=dref.dtype,
+                        device=dref.device)
+    q_df = torch.stack([m.state0.q_df[0] + 1e-3 * dref * r[0], 0.1 * dref * r[1],
+                        0.1 * dref * r[2]])
+    return (m.static, m.P, m.g, m.bc, avg, coup, q_df, qp, extract_qprime_faces(m.bc, qp),
+            qb_new)
+
+
+def kept_dpprime(P, q_df):
+    """The thickness prime the corrector keeps, as core/stepper.ti_rk_bcl
+    makes it from the corrector's thickness: (δdp - ref·η̃)/(1+η̃)."""
+    eta_t = (torch.sum(q_df[0], 0) + P.sum_ref_residual) * P.one_over_pbprime_df
+    return (q_df[0] - P.dpp_ref_df * eta_t[None]) / (1.0 + eta_t)[None]
+
+
+def mom_update_operands(m, inputs, seed, corrector=False):
+    """ops/bcl_mom_update's operands ((static, P, g, bc, q_df, rhs_vol, faces,
+    rhs_visc, qb_df, dpprime)) of half_step_operands: the layer momentum's
+    three terms (core/bcl.layer_momentum_terms, on the model's `impl`), and in
+    the corrector the thickness prime it keeps (None in the predictor)."""
+    from hnumo_tpu_torch.core.bcl import layer_momentum_terms
+
+    static, P, g, bc, avg, coup, q_df, qp, qpf, qb = half_step_operands(m, inputs, seed)
+    terms = layer_momentum_terms(static, P, g, bc, avg, coup, qp, q_df, qpf)
+    return (static, P, g, bc, q_df, *terms, qb, kept_dpprime(P, q_df) if corrector else None)
+
+
+def block_mom_update_operands(m, ops, block):
+    """`ops` cut to one block ((py, px), (iy, ix)) of the grid, as a rank of a
+    decomposition holds them: its element tables (parallel/sharding.
+    local_tables), its element fields, the face values of its own faces, and
+    the walls of the block's place (BCs.ax / .ay stand-ins that say whether
+    the block owns a domain edge; the update exchanges nothing)."""
+    from types import SimpleNamespace
+
+    from hnumo_tpu_torch.core.types import Pair
+    from hnumo_tpu_torch.parallel.sharding import block_bounds, local_tables
+
+    static, P, g, bc, q_df, rhs_vol, faces, rhs_visc, qb, dpp = ops
+    (py, px), (iy, ix) = block
+    y0, y1 = block_bounds(m.cfg.nely, py, iy)
+    x0, x1 = block_bounds(m.cfg.nelx, px, ix)
+
+    def el(t):     # rhs_visc may be 0.0 and dpprime None
+        if not isinstance(t, torch.Tensor):
+            return t
+        return t[..., y0:y1, x0:x1, :, :].contiguous()
+
+    def cut_x(t):
+        return t[..., y0:y1, x0:x1 + 1, :].contiguous()
+
+    def cut_y(t):
+        return t[..., y0:y1 + 1, x0:x1, :].contiguous()
+
+    g_loc, P_loc = local_tables(g, P, block)
+    bc_loc = bc._replace(ax=SimpleNamespace(first=ix == 0, last=ix == px - 1),
+                         ay=SimpleNamespace(first=iy == 0, last=iy == py - 1))
+    faces_loc = Pair(tuple(map(cut_x, faces.x)), tuple(map(cut_y, faces.y)))
+    return (static, P_loc, g_loc, bc_loc, el(q_df), el(rhs_vol), faces_loc, el(rhs_visc),
+            el(qb), el(dpp))
+
+
+def compare_mom_update(ops, tol, what):
+    """The kernel against the plain version on `ops`: the new momenta and
+    primes within tol * each field's max, the thickness channel bitwise (the
+    update copies it), and in the corrector the kept thickness prime bitwise;
+    returns (max err/scale, max abs err)."""
+    from hnumo_tpu_torch.ops.bcl_mom_update import bcl_mom_update_cuda, bcl_mom_update_plain
+
+    got = bcl_mom_update_cuda(*ops)
+    want = bcl_mom_update_plain(*ops)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0][0], ops[4][0]):
+        raise AssertionError(f"{what}: the kernel changed the thickness")
+    if ops[9] is not None and not torch.equal(got[1][0], ops[9]):
+        raise AssertionError(f"{what}: the kernel did not keep the thickness prime")
+    worst, worst_abs = 0.0, 0.0
+    for name, a, b in zip(MOM_UPDATE_OUTPUTS, got, want):
+        if (a.shape != b.shape or a.dtype != b.dtype or not a.is_contiguous()
+                or not bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{what}: {name}: {tuple(a.shape)} {a.dtype} against "
+                                 f"{tuple(b.shape)} {b.dtype}, not contiguous, or not finite")
+        for c in range(3):
+            scale, err = float(b[c].abs().max()), float((a[c] - b[c]).abs().max())
+            if not err <= tol * scale:
+                raise AssertionError(f"{what}: {name}[{c}]: max|diff|={err:.3e} > "
+                                     f"{tol:g}*{scale:.3e}")
+            worst_abs = max(worst_abs, err)
+            worst = max(worst, err / scale if scale else 0.0)
+    return worst, worst_abs
+
+
+def mom_update_cases(dtype: str):
+    """[(what, operands)] of every case of phase 35 in `dtype`, each half
+    (the predictor's and the corrector's variant): the cell's 25x25 on
+    perturbed, sheared and stepped inputs, the 7x5 MOM_UPDATE_CASES, and each
+    block of a 2x2 split of each COEFFS_SPLITS grid (sheared)."""
+    from hnumo_tpu_torch.model import Model
+
+    out = []
+    for half, corr in (("predictor", False), ("corrector", True)):
+        m25 = Model(main_path_config(25, dtype))
+        out += [(f"25x25 {name} {half}", mom_update_operands(m25, inputs, 71, corr))
+                for name, inputs in (("perturbed", perturbed_inputs),
+                                     ("sheared", sheared_inputs), ("stepped", stepped_inputs))]
+        for name, over in MOM_UPDATE_CASES.items():
+            m = Model(small_config(7, 5, dtype, 1, **over))
+            out.append((f"7x5 {name} {half}", mom_update_operands(m, perturbed_inputs, 72,
+                                                                  corr)))
+        for name, over in COEFFS_SPLITS.items():
+            m = Model(small_config(8, 6, dtype, 1, **over))
+            ops = mom_update_operands(m, sheared_inputs, 73, corr)
+            out += [(f"{name} block ({iy},{ix}) of 2x2 {half}",
+                     block_mom_update_operands(m, ops, ((2, 2), (iy, ix))))
+                    for iy in range(2) for ix in range(2)]
+    return out
+
+
+def mom_update_time(ops, n=400):
+    """Device ms of one launch (launches back to back, on `ops`), and of one
+    replay of a whole call of the wrapper and of the plain version, each
+    captured as a CUDA graph."""
+    from hnumo_tpu_torch.ops import bcl_mom_update as mu
+
+    static, P, g, bc, q_df, rhs_vol, faces, rhs_visc, qb, dpp = ops
+    named = mu._operands(P, g, q_df, rhs_vol, faces, rhs_visc, qb, dpp)
+    lib = mu._library()
+    outs = [torch.empty_like(q_df), torch.empty_like(q_df)]
+    extra = [t.data_ptr() for t in outs] + [None, None]
+    stream = torch.cuda.current_stream().cuda_stream
+    return {"ms": time_launches(lambda: mu._launch(lib, mu.WHOLE, static, bc, named, extra,
+                                                   stream), [()], n, device_only=True),
+            "call_graphed": graphed_ms(mu.bcl_mom_update_cuda, ops),
+            "plain_ms_graphed": graphed_ms(mu.bcl_mom_update_plain, ops)}
+
+
+def mom_update_bound(ops) -> dict:
+    """The kernel's least time on the card: the values it reads once and
+    writes once over the HBM bandwidth (its flops, a few tens a value, are
+    far below the byte time at f32 peak): q_df, the volume term, the
+    reference terms and the viscosity, the nodal tables (massinv, the
+    rotation's three, the reference dp', the residual and 1/pb'), three
+    channels of qb_df, every face value, and the kept thickness prime;
+    written, the new q_df and primes. What pass 1 leaves in the outputs for
+    passes 2 and 3 the same thread reads back from its cache."""
+    static, P, g, bc, q_df, rhs_vol, faces, rhs_visc, qb, dpp = ops
+    L, N = q_df.shape[1], q_df[0, 0].numel()
+    face = sum(t.numel() for d in faces for t in d)
+    v = (3 * L * N + 2 * L * N + 2 * L * N
+         + (2 * L * N if isinstance(rhs_visc, torch.Tensor) else 0) + 4 * N + L * N + 2 * N + 3 * N + face + (L * N if dpp is not None else 0)
+         + 6 * L * N)
+    size = q_df.element_size()
+    return {"bytes": v * size, "bound_ms": v * size / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def check_bcl_mom_update(smi) -> dict:
+    """Phase 35: the end of each baroclinic half-step (ops/bcl_mom_update)
+    against its plain version, f32 and f64, both halves, over
+    mom_update_cases (the cell's 25x25 p=4 L=2 on perturbed, sheared and
+    stepped inputs; 7x5 at p=8, p=4 inexact, 1, 5 and 20 layers, x- and
+    y-periodic sides, no-slip and copy walls, viscosity off, the quad family
+    and the shear stress; each block of two 2x2 splits of 8x6). Then the
+    launch's time beside its byte bound, the whole call's and the plain
+    version's graphed, the main path's graph with it (2 launches and 2 nodes
+    a step), and 3 graphed steps of the main path bitwise the eager ones."""
+    from hnumo_tpu_torch.model import Model
+    from hnumo_tpu_torch.ops._build import resource_usage
+
+    usage = resource_usage("bcl_mom_update")
+    if not usage or not all(u.endswith(" 0 B spill stores, 0 B spill loads") for u in usage):
+        raise AssertionError(f"bcl_mom_update must build every kernel without a spill: {usage}")
+    errs = {}
+    for dtype in ("float32", "float64"):
+        tol = F32_TOL if dtype == "float32" else F64_TOL
+        for what, ops in mom_update_cases(dtype):
+            errs[f"{dtype} {what}"] = compare_mom_update(ops, tol, f"{dtype} {what}")
+    worst = {dt: max(e[0] for k, e in errs.items() if k.startswith(dt))
+             for dt in ("float32", "float64")}
+    print(f"phase 35 bcl_mom_update kernel vs plain ({len(errs)} cases, both halves: 25x25 "
+          f"p=4 L=2 perturbed, sheared, stepped; 7x5 {', '.join(MOM_UPDATE_CASES)}; the four "
+          f"blocks of 2x2 splits of {', '.join(COEFFS_SPLITS)}), every field's max err/scale "
+          f"f32 / f64 (tol {F32_TOL:g} / {F64_TOL:g}): {worst['float32']:.3e} / "
+          f"{worst['float64']:.3e}; the thickness and the kept prime bitwise")
+    cfg = main_path_config(25, "float32")
+    ops = mom_update_operands(Model(cfg), stepped_inputs, seed=74)
+    bound = mom_update_bound(ops)
+    t = mom_update_time(ops)
+    print(f"phase 35 {MOM_UPDATE_KERNEL} 25x25 f32 (predictor): {t['ms'] * 1e3:.2f} us/launch "
+          f"on the device, bound {bound['bound_ms'] * 1e3:.3f} us by bytes ({bound['bytes']} "
+          f"B); the whole call graphed {t['call_graphed'] * 1e3:.2f} us; the plain version "
+          f"graphed {t['plain_ms_graphed']:.4f} ms/call")
+    g = bcl_graph_checks(cfg)
+    k = g["kernels"][MOM_UPDATE_KERNEL]
+    check_graph_vs_eager(cfg, steps=3)
+    print(f"phase 35 main path 25x25 f32: {MOM_UPDATE_KERNEL} {k['eager_launches_per_step']:g} "
+          f"a step eager, {k['graph_nodes']} graph nodes, {k['replay_launches']} in a "
+          f"profiled replay at {k['ms_per_launch_in_replay']} ms each; kernel nodes a step "
+          f"every plain version / every kernel {g['graph_kernel_nodes']['plain']} / "
+          f"{g['graph_kernel_nodes']['kernel']}, memcpy nodes "
+          f"{g['graph_memcpy_nodes']['plain']} / {g['graph_memcpy_nodes']['kernel']}; ms/step "
+          f"in turns {g['ms_per_step_turns']}; 3 graphed steps == eager, bitwise | {smi}")
+    return {"name": MOM_UPDATE_KERNEL, "route": "cuda",
+            "source": "hnumo_tpu_torch/ops/csrc/bcl_mom_update.cu", "replaces": None,
+            "ptxas": usage, "max_err_over_scale": {k: e[0] for k, e in errs.items()},
+            "max_abs_err": {k: e[1] for k, e in errs.items()},
+            "tolerance_over_scale": {"float32": F32_TOL, "float64": F64_TOL},
+            "ms_25": t["ms"], "call_ms_graphed_25": t["call_graphed"],
+            "plain_ms_graphed_25": t["plain_ms_graphed"], **bound, "library_ms": None,
+            "main_path_25": {**g, "kernel": k}, "card": smi}
+
+
 # ---- the bench tool (phase 30) -------------------------------------------------
 # (elements a side, nop), variants: hnumo_tpu_torch/tools/bench.py's runs at
 # the megakernel's size (every path of p=4) and at p=8 (no megakernel there)
@@ -4083,9 +4329,9 @@ def main() -> int:
                          "needs 2 GPUs, 27d 4); their readings to "
                          "chiprun_out/decomposition.json")
     ap.add_argument("--bcl-only", action="store_true",
-                    help="only phases 1-2 and 31-34 (the baroclinic layer-momentum, "
-                         "thickness-update and coupling kernels against their plain "
-                         "versions, their "
+                    help="only phases 1-2 and 31-35 (the baroclinic layer-momentum, "
+                         "thickness-update, coupling and half-step-end kernels against "
+                         "their plain versions, their "
                          "times, the main path's graph with them); their readings to "
                          "chiprun_out/bcl_momentum.json")
     args = ap.parse_args()
@@ -4114,7 +4360,8 @@ def main() -> int:
     # ---- phase 2: build (one nvcc per source, side by side) -----------------
     t0 = time.perf_counter()
     sources = ["btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update",
-               "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
+               "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc",
+               "bcl_mom_update"]
     build_libraries(sources)
     for name in sources:
         load_library(name)
@@ -4139,7 +4386,7 @@ def main() -> int:
         return 0
     if args.bcl_only:
         bcl = ([check_bcl_flux(smi)] + check_bcl_momentum(smi) + check_bcl_mass(smi)
-               + check_bcl_coeffs(smi))
+               + check_bcl_coeffs(smi) + [check_bcl_mom_update(smi)])
         (OUT_DIR / "bcl_momentum.json").write_text(json.dumps(bcl, default=str))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4989,6 +5236,7 @@ def main() -> int:
     kernels.extend(check_bcl_momentum(smi))  # phase 32
     kernels.extend(check_bcl_mass(smi))      # phase 33
     kernels.extend(check_bcl_coeffs(smi))    # phase 34
+    kernels.append(check_bcl_mom_update(smi))  # phase 35
     for entry in kernels:      # phase 30's runs that launched the kernel
         entry["bench_30"] = {
             f"{r['nel'][0]}x{r['nel'][1]} p={r['nop']} {r['variant']}": {

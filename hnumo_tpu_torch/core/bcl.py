@@ -2,9 +2,12 @@
 
 Counterpart of hnumo_tpu/core/bcl.py, with the vertical shear-stress
 solve (rhs_layer_shear_stress, ad_mlswe > 0).
-Reference: src/mod_create_rhs_mlswe.F90 (volume/flux kernels), src/mod_layer_terms.F90 (face extraction, velocity
-splitting/recombination). The layer mass update and the mass consistency
-are ops/bcl_mass (core/stepper._thickness_update).
+Reference: src/mod_create_rhs_mlswe.F90 (volume/flux kernels),
+src/mod_layer_terms.F90 (face extraction). The layer mass update and the
+mass consistency are ops/bcl_mass (core/stepper._thickness_update); the sum
+of the momentum terms, the momentum update and the velocity
+splitting/recombination (evaluate_bcl) are ops/bcl_mom_update
+(core/stepper._momentum_update).
 
 Layer axis is the leading batch axis (batched by broadcasting); the only
 vertical couplings are cumsums (interface pressures/heights) and vertical
@@ -18,7 +21,7 @@ import torch
 from ..ops.bcl_flux import bcl_momentum_fluxes_cuda, bcl_momentum_fluxes_plain
 from ..ops.bcl_mom_volume import bcl_mom_volume_cuda, bcl_mom_volume_plain
 from ..ops.dg import DeviceGeom, interp_n2q, scatter_volume
-from .faces import BCs, extract_faces_multi, scatter_face_x, scatter_face_y
+from .faces import BCs, extract_faces_multi
 from .types import BtpAverages, Precomputed
 from .viscosity import bcl_nodal_laplacian, bcl_quad_laplacian
 
@@ -53,31 +56,27 @@ def layer_momentum_volume(static, P: Precomputed, g: DeviceGeom,
     return volume(static, P, g, avg, qprime_df, q_df)
 
 
-def layer_momentum_fluxes(static, P: Precomputed, g: DeviceGeom, bc: BCs,
-                          avg: BtpAverages, qprime_faces, rhs_mom):
+def layer_momentum_face_values(static, P: Precomputed, g: DeviceGeom, avg: BtpAverages,
+                               qprime_faces):
     """Layer momentum face fluxes: upwind advective flux with consistency
     weighting + Higdon layer-overlap H_face reconstruction.
 
     Reference Apply_layers_fluxes (src/mod_create_rhs_mlswe.F90:458-820).
     The per-face work of both directions is ops/bcl_flux: its CUDA kernel
-    under `static.impl == "kernel"`, its plain version under "plain";
-    the scatter into the elements' edges is here.
+    under `static.impl == "kernel"`, its plain version under "plain".
+    Returns the faces' scatter values, a Pair of (SuL, SuR, SvL, SvR) per
+    direction, each (L, F, ngl); ops/bcl_mom_update scatters them into the
+    elements' edges.
     """
     fluxes = (bcl_momentum_fluxes_cuda if static.impl == "kernel"
               else bcl_momentum_fluxes_plain)
-    (SuLx, SuRx, SvLx, SvRx), (SuLy, SuRy, SvLy, SvRy) = fluxes(
-        g.psiq, P.alpha, static.gravity, qprime_faces, avg.faces, P.faces)
-
-    rhs_u, rhs_v = rhs_mom[0], rhs_mom[1]
-    rhs_u = scatter_face_x(rhs_u, SuLx, bc, S_right=SuRx)
-    rhs_u = scatter_face_y(rhs_u, SuLy, bc, S_right=SuRy)
-    rhs_v = scatter_face_x(rhs_v, SvLx, bc, S_right=SvRx)
-    rhs_v = scatter_face_y(rhs_v, SvLy, bc, S_right=SvRy)
-    return torch.stack([rhs_u, rhs_v])
+    return fluxes(g.psiq, P.alpha, static.gravity, qprime_faces, avg.faces, P.faces)
 
 
-def layer_momentum_rhs(static, P, g, bc, avg, coup, qprime_df, q_df, qprime_faces):
-    """Full layer momentum RHS = volume + fluxes, massinv, + viscosity.
+def layer_momentum_terms(static, P, g, bc, avg, coup, qprime_df, q_df, qprime_faces):
+    """The layer momentum RHS's three terms: the volume term (2, L, nodal),
+    the face fluxes' values (layer_momentum_face_values) and the viscosity
+    (2, L, nodal), or 0.0 without it. ops/bcl_mom_update adds them up.
 
     Reference layer_momentum_rhs (src/mod_create_rhs_mlswe.F90:28-51) with
     the rhs_momentum viscosity dispatch (src/mod_splitting.F90:289-322).
@@ -90,11 +89,9 @@ def layer_momentum_rhs(static, P, g, bc, avg, coup, qprime_df, q_df, qprime_face
     else:
         rhs_visc = 0.0
 
-    rhs_mom = layer_momentum_volume(static, P, g, avg, qprime_df, q_df)
-    rhs_mom = layer_momentum_fluxes(static, P, g, bc, avg, qprime_faces, rhs_mom)
-    # static reference terms dropped by the δ-form kernels (docs/float32.md)
-    rhs_mom = rhs_mom + P.bcl_rhs_ref
-    return g.massinv * rhs_mom + rhs_visc
+    rhs_vol = layer_momentum_volume(static, P, g, avg, qprime_df, q_df)
+    faces = layer_momentum_face_values(static, P, g, avg, qprime_faces)
+    return rhs_vol, faces, rhs_visc
 
 
 # ---------------------------------------------------------------------------
@@ -152,61 +149,3 @@ def rhs_layer_shear_stress(static, P: Precomputed, g: DeviceGeom, q_df):
     rhs_u = scatter_volume(g, Fs=F_u)
     rhs_v = scatter_volume(g, Fs=F_v)
     return torch.stack([rhs_u, rhs_v])
-
-
-# ---------------------------------------------------------------------------
-# velocity splitting / recombination
-# ---------------------------------------------------------------------------
-
-def extract_velocity(P, q_df, qb_df):
-    """Layer velocities adjusted so their mass-weighted vertical mean equals
-    the barotropic velocity (reference extract_velocity,
-    src/mod_layer_terms.F90:272-320). Returns (u, v) per layer (L, nodal)."""
-    dp = P.dpp_ref_df + q_df[0]
-    u = q_df[1] / dp
-    v = q_df[2] / dp
-    ubar = torch.sum(u * dp, 0) / qb_df[0]
-    vbar = torch.sum(v * dp, 0) / qb_df[0]
-    ok = qb_df[0] > 0.0
-    u = torch.where(ok[None], u - ubar[None] + (qb_df[2] / qb_df[0])[None], 0.0)
-    v = torch.where(ok[None], v - vbar[None] + (qb_df[3] / qb_df[0])[None], 0.0)
-    return u, v
-
-
-def velocity_df(P, q_df, qb_df):
-    """Velocity smoothing of momentum (reference velocity_df,
-    src/mod_layer_terms.F90:139-196). Returns a new q_df."""
-    u, v = extract_velocity(P, q_df, qb_df)
-    dp = P.dpp_ref_df + q_df[0]
-    return torch.stack([q_df[0], u * dp, v * dp])
-
-
-def evaluate_bcl(static, P: Precomputed, bc: BCs, q_df, qprime_df, qb_df):
-    """Recompute primes + momentum smoothing + face extraction after the
-    predictor (reference evaluate_bcl, src/mod_layer_terms.F90:198-238).
-    Returns (q_df, qprime_df, qprime_faces)."""
-    u, v = extract_velocity(P, q_df, qb_df)
-    dp = P.dpp_ref_df + q_df[0]
-    q_df = torch.stack([q_df[0], u * dp, v * dp])
-    eta_t = (torch.sum(q_df[0], 0) + P.sum_ref_residual) * P.one_over_pbprime_df
-    u, v = extract_velocity(P, q_df, qb_df)
-    qprime_df = torch.stack([
-        (q_df[0] - P.dpp_ref_df * eta_t[None]) / (1.0 + eta_t)[None],
-        u - (qb_df[2] / qb_df[0])[None],
-        v - (qb_df[3] / qb_df[0])[None],
-    ])
-    qprime_faces = extract_qprime_faces(bc, qprime_df)
-    return q_df, qprime_df, qprime_faces
-
-
-def evaluate_bcl_v1(P, q_df, qprime_df, qb_df):
-    """Corrector variant: update velocities/primes only, thickness prime kept
-    (reference evaluate_bcl_v1, src/mod_layer_terms.F90:240-270)."""
-    u, v = extract_velocity(P, q_df, qb_df)
-    dp = P.dpp_ref_df + q_df[0]
-    q_df = torch.stack([q_df[0], u * dp, v * dp])
-    u, v = extract_velocity(P, q_df, qb_df)
-    qprime_df = torch.stack([qprime_df[0],
-                             u - (qb_df[2] / qb_df[0])[None],
-                             v - (qb_df[3] / qb_df[0])[None]])
-    return q_df, qprime_df

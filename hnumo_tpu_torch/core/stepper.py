@@ -18,49 +18,28 @@ import torch
 from ..ops.dg import DeviceGeom, interp_n2q
 from ..spans import span
 from ..ops.bcl_mass import bcl_mass_cuda, bcl_mass_plain
-from .bcl import (evaluate_bcl, evaluate_bcl_v1, extract_qprime_faces, layer_momentum_rhs,
-                  rhs_layer_shear_stress, velocity_df)
+from ..ops.bcl_mom_update import bcl_mom_update_cuda, bcl_mom_update_plain
+from .bcl import extract_qprime_faces, layer_momentum_terms
 from .btp import barotropic_solve
 from .coupling import btp_bcl_coeffs
-from .faces import BCs, all_shards_and, apply_wall_projection
+from .faces import BCs, all_shards_and
 from .types import Precomputed, State
 
 
-def _coriolis_rotation(P: Precomputed, q_df_temp_u, q_df_temp_v, q_df):
-    """Semi-implicit Coriolis rotation (reference src/mod_splitting.F90:167-173).
-
-    tempu = qu* + (f dt/2) qv^n ; tempv = qv* - (f dt/2) qu^n
-    qu^{n+1} = a*tempu + b*tempv ; qv^{n+1} = -b*tempu + a*tempv
-    """
-    tempu = q_df_temp_u + P.fdt2_bcl[None] * q_df[2]
-    tempv = q_df_temp_v - P.fdt2_bcl[None] * q_df[1]
-    qu = P.a_bcl[None] * tempu + P.b_bcl[None] * tempv
-    qv = -P.b_bcl[None] * tempu + P.a_bcl[None] * tempv
-    return qu, qv
-
-
-def _momentum_update(static, P, g, bc, avg, coup, q_df, qprime_df, qprime_faces, qb_df):
+def _momentum_update(static, P, g, bc, avg, coup, q_df, qprime_df, qprime_faces, qb_df,
+                     dpprime=None):
     """Shared momentum update of momentum()/momentum_mass()
-    (reference src/mod_splitting.F90:128-175, 239-282). `qb_df`: the
-    barotropic state the shear-stress branch smooths the velocities
-    against. Returns a new q_df with updated momentum (thickness
-    untouched)."""
-    rhs_mom = layer_momentum_rhs(static, P, g, bc, avg, coup,
-                                 qprime_df, q_df, qprime_faces)
-    qu_t = q_df[1] + static.dt * rhs_mom[0]
-    qv_t = q_df[2] + static.dt * rhs_mom[1]
-
-    if static.ad_mlswe > 0.0:
-        # rotate, smooth velocities, implicit shear solve (reference :140-163)
-        qu3, qv3 = _coriolis_rotation(P, qu_t, qv_t, q_df)
-        q_df3 = velocity_df(P, torch.stack([q_df[0], qu3, qv3]), qb_df)
-        rhs_stress = rhs_layer_shear_stress(static, P, g, q_df3)
-        qu_t = qu_t + static.dt * (g.massinv[None] * rhs_stress[0])
-        qv_t = qv_t + static.dt * (g.massinv[None] * rhs_stress[1])
-
-    qu, qv = _coriolis_rotation(P, qu_t, qv_t, q_df)
-    qu, qv = apply_wall_projection(qu, qv, bc)
-    return torch.stack([q_df[0], qu, qv])
+    (reference src/mod_splitting.F90:128-175, 239-282) and the recombination
+    after it: evaluate_bcl in the predictor (`dpprime` None: the thickness
+    prime from eta_t), evaluate_bcl_v1 in the corrector (the thickness prime
+    `dpprime` kept), without the new primes' face traces. `qb_df`: the new
+    barotropic state the velocities are smoothed against. The layer
+    momentum's three terms are core/bcl's; the rest is ops/bcl_mom_update:
+    its CUDA kernel under `static.impl == "kernel"`, its plain version under
+    "plain". Returns (new q_df, new qprime_df); the thickness is untouched."""
+    terms = layer_momentum_terms(static, P, g, bc, avg, coup, qprime_df, q_df, qprime_faces)
+    update = bcl_mom_update_cuda if static.impl == "kernel" else bcl_mom_update_plain
+    return update(static, P, g, bc, q_df, *terms, qb_df, dpprime)
 
 
 def _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces):
@@ -113,19 +92,16 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
             q_df2, ok1 = _thickness_update(static, P, g, bc, avg, q_df, qprime_df,
                                            qprime_faces)
         with span("hnumo.bcl.momentum"):
-            q_df2 = _momentum_update(static, P, g, bc, avg, coup,
-                                     q_df2, qprime_df, qprime_faces, qbp_df)
-        with span("hnumo.bcl.evaluate"):
-            q_df2, qprime_df2, qprime_faces2 = evaluate_bcl(static, P, bc, q_df2, qprime_df,
-                                                            qbp_df)
+            _, qprime_df2 = _momentum_update(static, P, g, bc, avg, coup, q_df2, qprime_df,
+                                             qprime_faces, qbp_df)
 
     # ==================== corrector =====================================
     with span("hnumo.bcl.corrector"):
         qprime_half = 0.5 * (qprime_df2 + qprime_df)
-        qprime_faces_half = tuple(
-            type(f2)(*[0.5 * (a + b) for a, b in zip(f1, f2)])
-            for f1, f2 in zip(qprime_faces, qprime_faces2)
-        )
+        # a trace is a copy or a mirror of a node, so the traces of the
+        # averaged primes are the average of the two primes' traces, bit for bit
+        with span("hnumo.bcl.faces"):
+            qprime_faces_half = extract_qprime_faces(bc, qprime_half)
         dpprime_visc = P.dpp_ref_df + qprime_half[0]
         dpprime_visc_q = interp_n2q(g, dpprime_visc) if static.method_visc == 1 else zq
         with span("hnumo.coupling"):
@@ -155,13 +131,10 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
             0.5 * (a + b) for a, b in zip(qprime_faces[0], dpprime_faces_new)])
         qprime_faces_mom = (fdp_half, qprime_faces_half[1], qprime_faces_half[2])
 
+        # the new primes keep dpprime_new (evaluate_bcl_v1)
         with span("hnumo.bcl.momentum"):
-            q_df = _momentum_update(static, P, g, bc, avg, coup,
-                                    q_df, qprime_mom, qprime_faces_mom, qb_new)
-        with span("hnumo.bcl.evaluate"):
-            q_df, qprime_mom = evaluate_bcl_v1(P, q_df, qprime_mom, qb_new)
-
-        qprime_out = torch.stack([dpprime_new, qprime_mom[1], qprime_mom[2]])
+            q_df, qprime_out = _momentum_update(static, P, g, bc, avg, coup, q_df, qprime_mom,
+                                                qprime_faces_mom, qb_new, dpprime=dpprime_new)
         t = state.t + static.dt
         ok = torch.logical_and(state.ok, torch.logical_and(ok1, ok2))
 

@@ -88,8 +88,8 @@ def kernel_sources(static) -> list[str]:
     launches under `impl == "kernel"` (none under "plain"): the barotropic
     path's, as core/btp.barotropic_solve picks them, then the coupling
     coefficients', the baroclinic thickness update's, then the layer
-    momentum's (face fluxes, volume term and, with the nodal-family
-    viscosity, its Laplacian)."""
+    momentum's (face fluxes, volume term, the end of the half-step and, with
+    the nodal-family viscosity, its Laplacian)."""
     if static.impl == "plain":
         return []
     if static.mega:
@@ -98,7 +98,7 @@ def kernel_sources(static) -> list[str]:
         names = ["btp_volume_uni", "btp_faces", "btp_update"]
     else:
         names = ["btp_volume_uni" if static.uni_volume else "btp_volume"]
-    names += ["bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume"]
+    names += ["bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_mom_update"]
     if static.use_visc and static.method_visc != 1:
         names.append("bcl_visc")
     return names

@@ -1,14 +1,14 @@
 """The layer-momentum face fluxes of the baroclinic step, both face
 directions: one CUDA kernel and its plain version.
 
-The per-face body of core/bcl.layer_momentum_fluxes (reference
+The per-face body of core/bcl.layer_momentum_face_values (reference
 Apply_layers_fluxes, src/mod_create_rhs_mlswe.F90:458-820): the face
 interpolation of the (δdp', u', v') traces, the upwind advective fluxes with
 their flux-deficit consistency weighting, the Higdon layer-overlap H_face
 reconstruction in δ-form (docs/float32.md), the wall and interface
 corrections, the match of the vertical sum against the barotropic average,
 and the face-quadrature scatter to the face nodes. The scatter into the
-elements' edges stays with the caller (core/faces.scatter_face_x/_y).
+elements' edges is ops/bcl_mom_update's.
 
 No TPU kernel of the JAX package covers this function: there XLA fuses it.
 In plain PyTorch it is ~1,100 small operations a call, launch-bound on the

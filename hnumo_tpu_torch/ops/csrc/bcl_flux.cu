@@ -1,7 +1,7 @@
 // Layer-momentum face fluxes of the baroclinic step, both face directions in
 // one launch, CUDA C++ for sm_90a (NVIDIA Hopper).
 //
-// The per-face body of core/bcl.layer_momentum_fluxes (reference
+// The per-face body of core/bcl.layer_momentum_face_values (reference
 // Apply_layers_fluxes, src/mod_create_rhs_mlswe.F90:458-820); its plain
 // version is ops/bcl_flux.bcl_momentum_fluxes_plain, whose arithmetic this
 // kernel repeats operation for operation. It replaces no TPU kernel: the JAX

@@ -16,12 +16,13 @@ span the host was in. Every name starts with "hnumo.":
       hnumo.step.clone_out        the outputs cloned out of the graph
       hnumo.bcl.predictor         the first half of core/stepper.ti_rk_bcl
       hnumo.bcl.corrector         its second half; in each of the two:
-        hnumo.bcl.faces           extract_qprime_faces
+        hnumo.bcl.faces           extract_qprime_faces (the corrector's
+                                  first: of the averaged primes)
         hnumo.coupling            coupling.btp_bcl_coeffs
         hnumo.btp.solve           btp.barotropic_solve
         hnumo.bcl.thickness       stepper._thickness_update
-        hnumo.bcl.momentum        stepper._momentum_update
-        hnumo.bcl.evaluate        evaluate_bcl / evaluate_bcl_v1
+        hnumo.bcl.momentum        stepper._momentum_update, with
+                                  evaluate_bcl / evaluate_bcl_v1
     hnumo.run.ok_read             driver.Runner.run's read of `state.ok`
     hnumo.run.output              one output point of Runner.run
       hnumo.run.gather            Model.gather

@@ -1,10 +1,12 @@
 """ops/bcl_flux: the baroclinic layer-momentum face fluxes of
-core/bcl.layer_momentum_fluxes, as a CUDA kernel and its plain version.
+core/bcl.layer_momentum_face_values, as a CUDA kernel and its plain version.
 
-On the CPU: the plain version, through layer_momentum_fluxes, gives bit for
-bit what the function gave before its body moved (portbench/reference keeps
-a frozen copy of it that imports nothing of the port), and the JAX package's
-layer_momentum_fluxes within 1e-12 (f64) on the same tables and inputs;
+On the CPU: the plain version, through layer_momentum_face_values and the
+scatter into the elements' edges that ops/bcl_mom_update makes of its values,
+gives bit for bit what layer_momentum_fluxes gave before its body moved
+(portbench/reference keeps a frozen copy of it that imports nothing of the
+port), and the JAX package's layer_momentum_fluxes within 1e-12 (f64) on the
+same tables and inputs;
 over 1-3, 5 and 10 layers, walls and x-periodic sides, p=4 with exact and
 inexact integration and p=8, on a 3x2 grid. A CPU model resolves `impl`
 to the plain version and builds no kernel; the CUDA wrapper refuses what it
@@ -27,7 +29,7 @@ from hnumo_tpu_torch.convert import from_numpy_tables
 from hnumo_tpu_torch.core import bcl as t_bcl
 from hnumo_tpu_torch.core import types as t_types
 from hnumo_tpu_torch.model import Model as TorchModel
-from hnumo_tpu_torch.ops import bcl_flux
+from hnumo_tpu_torch.ops import bcl_flux, bcl_mom_update
 from portbench.reference.core import bcl as frozen_bcl
 from test_torch_common import assert_close, jax_config, to_np, torch_config, tt
 from test_torch_common import one_thread  # noqa: F401  (autouse)
@@ -84,6 +86,13 @@ def flux_inputs(P, g, nlayers: int, seed: int):
     return qp, face_avg(P.faces.x), face_avg(P.faces.y), rhs
 
 
+def port_fluxes(static, P, g, bc, avg, qprime_faces, rhs_mom):
+    """The face fluxes scattered into rhs_mom as the port's step makes them:
+    core/bcl.layer_momentum_face_values, then ops/bcl_mom_update's scatter."""
+    faces = t_bcl.layer_momentum_face_values(static, P, g, avg, qprime_faces)
+    return bcl_mom_update.scatter_face_values(rhs_mom, faces, bc)
+
+
 def averages(types, fx, fy, cast):
     """A BtpAverages of `types` whose face fields are fx, fy (dicts of numpy);
     the fields layer_momentum_fluxes does not read are zero."""
@@ -124,7 +133,7 @@ def torch_run(over, tables, inputs, dtype, fn):
 def test_plain_fluxes_are_the_function_before_the_move(case, dtype):
     over, _, tables, inputs = case
     calls = bcl_flux.bcl_momentum_fluxes_plain.calls
-    got, tm = torch_run(over, tables, inputs, dtype, t_bcl.layer_momentum_fluxes)
+    got, tm = torch_run(over, tables, inputs, dtype, port_fluxes)
     assert tm.static.impl == "plain"
     assert bcl_flux.bcl_momentum_fluxes_plain.calls == calls + 1
     want, _ = torch_run(over, tables, inputs, dtype, frozen_bcl.layer_momentum_fluxes)
@@ -134,7 +143,7 @@ def test_plain_fluxes_are_the_function_before_the_move(case, dtype):
 
 def test_plain_fluxes_match_the_jax_package(case):
     over, jm, tables, inputs = case
-    got, _ = torch_run(over, tables, inputs, torch.float64, t_bcl.layer_momentum_fluxes)
+    got, _ = torch_run(over, tables, inputs, torch.float64, port_fluxes)
     qp, fx, fy, rhs = inputs
     qpj = jnp.asarray(qp)
     want = j_bcl.layer_momentum_fluxes(jm.static, jm.P, jm.g, jm.bc,
@@ -250,8 +259,8 @@ def test_a_mesh_read_from_a_file_gives_the_kernel_operands_it_takes(tmp_path, mo
 def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch):
     """model.kernel_sources names the sources of the kernels a step on each
     barotropic path launches, the baroclinic step's with them (the thickness
-    update; the layer momentum's face fluxes, volume term, and the
-    nodal-family viscosity where it is on), and none under impl="plain"; a
+    update; the layer momentum's face fluxes, volume term, the end of the
+    half-step, and the nodal-family viscosity where it is on), and none under impl="plain"; a
     CPU model compiles nothing."""
     from types import SimpleNamespace
 
@@ -267,7 +276,8 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
              "uniform volume": dict(mega=False, fused_tail=False, uni_volume=True),
              "fused": dict(mega=False, fused_tail=True, uni_volume=True),
              "mega": dict(mega=True, fused_tail=False, uni_volume=False)}
-    bcl = ["bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
+    bcl = ["bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_mom_update",
+           "bcl_visc"]
     want = {"per-stage": ["btp_volume"] + bcl,
             "uniform volume": ["btp_volume_uni"] + bcl,
             "fused": ["btp_volume_uni", "btp_faces", "btp_update"] + bcl,
@@ -279,7 +289,7 @@ def test_kernel_sources_follow_the_path_and_a_cpu_model_builds_none(monkeypatch)
     for visc in (dict(use_visc=False), dict(method_visc=1)):
         flags = SimpleNamespace(**paths["mega"], **{**k, **visc})
         assert model.kernel_sources(flags) == ["btp_mega", "bcl_coeffs", "bcl_mass",
-                                               "bcl_flux", "bcl_mom_volume"]
+                                               "bcl_flux", "bcl_mom_volume", "bcl_mom_update"]
 
 
 def test_wrapper_and_source_agree_on_limits_and_the_symbol_stays_generic():

@@ -148,8 +148,9 @@ def test_impl_kernel_on_the_cpu_raises(over, plain, sources):
     switch and the device; `impl="plain"` takes that path, through the plain
     versions of its kernels and of the baroclinic ones."""
     from hnumo_tpu_torch import model
-    from hnumo_tpu_torch.ops import (bcl_coeffs, bcl_flux, bcl_mass, bcl_mom_volume, bcl_visc,
-                                     btp_tail, btp_volume, btp_volume_uni, mega)
+    from hnumo_tpu_torch.ops import (bcl_coeffs, bcl_flux, bcl_mass, bcl_mom_update,
+                                     bcl_mom_volume, bcl_visc, btp_tail, btp_volume,
+                                     btp_volume_uni, mega)
 
     cfg = Config(**SMALL, dt=40.0, dt_btp=20.0, method_visc=2, visc_mlswe=10.0, **over)
     with pytest.raises(ValueError, match="impl='kernel' needs a CUDA device, got cpu"):
@@ -157,7 +158,8 @@ def test_impl_kernel_on_the_cpu_raises(over, plain, sources):
     m = Model(cfg, device="cpu", impl="plain")
     assert m.static.impl == "plain" and model.kernel_sources(m.static) == []
     assert model.kernel_sources(dataclasses.replace(m.static, impl="kernel")) == [
-        *sources, "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"]
+        *sources, "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_mom_update",
+        "bcl_visc"]
     counters = {"mega": mega.barotropic_solve_mega_plain,
                 "volume": btp_volume.btp_volume_plain,
                 "volume_uni": btp_volume_uni.btp_volume_uni_plain,
@@ -166,12 +168,14 @@ def test_impl_kernel_on_the_cpu_raises(over, plain, sources):
                 "bcl_mass": bcl_mass.bcl_mass_plain,
                 "bcl_flux": bcl_flux.bcl_momentum_fluxes_plain,
                 "bcl_mom_volume": bcl_mom_volume.bcl_mom_volume_plain,
+                "bcl_mom_update": bcl_mom_update.bcl_mom_update_plain,
                 "bcl_visc": bcl_visc.bcl_visc_plain}
     before = {k: f.calls for k, f in counters.items()}
     launches = bcl_coeffs.bcl_coeffs_cuda.launches
     assert bool(m.step(m.state0).ok)
     ran = {k for k, f in counters.items() if f.calls > before[k]}
-    assert ran == {*plain, "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc"}
+    assert ran == {*plain, "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume",
+                   "bcl_mom_update", "bcl_visc"}
     assert bcl_coeffs.bcl_coeffs_cuda.launches == launches
 
 
@@ -302,7 +306,8 @@ def test_brick_grids_count_as_uniform_at_every_size(nel):
 # ---- the builder of the CUDA sources, driven with a stand-in compiler --------
 
 PORT_SOURCES = ("btp_volume", "btp_mega", "btp_volume_uni", "btp_faces", "btp_update",
-                "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc")
+                "bcl_coeffs", "bcl_mass", "bcl_flux", "bcl_mom_volume", "bcl_visc",
+                "bcl_mom_update")
 
 _FAKE_NVCC = """#!/bin/sh
 # stand-in for nvcc: writes the output file named after -o, talks like ptxas -v
